@@ -20,7 +20,15 @@ From the root of a checkout, on a machine with one NVIDIA H100:
 5. profile: one more sweep under ``torch.profiler``, the device's
    idle share and device time by kernel;
 6. witness: the same data at K = 16, the planted rank, for 30 sweeps;
-   the test RMSE must fall below twice the planted noise.
+   the test RMSE must fall below twice the planted noise;
+7. serving: trains a 32-sample store of the slice (``save_freq=1``),
+   reloads it with ``PredictSession`` (predictions must reproduce the
+   in-session posterior mean), serves 64 requests in each direction of
+   the block through ``RecommendServer`` (compound -> proteins and
+   protein -> compounds, each excluding the query's training items),
+   holds every answer bitwise against a sequential ``recommend``, and
+   holds the ``topk_score`` kernel against its plain version at the
+   reference's probes and at both path shapes, with its times.
 
 Every failed check raises, so the exit code is not 0.  The last two
 lines are the ``kernels`` JSON and the device JSON.  Without a CUDA
@@ -49,6 +57,14 @@ COMPOUNDS = 131072
 SWEEPS = (4, 2)   # burn-in, posterior samples
 NOISE = 0.3       # sd of the Gaussian noise on the planted signal
 WITNESS_SWEEPS = (20, 10)
+
+SERVE_SWEEPS = (4, 32)    # burn-in, saved posterior samples
+SERVE_SLOTS, SERVE_K, SERVE_REQUESTS = 8, 100, 64
+SERVE_CACHE_BYTES = 8 << 30
+# the store's reload runs the in-session accumulator's float program
+# over exact copies of the samples: the same bits are expected, and
+# 1e-6 relative (the reference's reload tolerance) is what is held
+RELOAD_TOL = dict(rtol=1e-6, atol=1e-6)
 
 GRAM_TOL = dict(rtol=1e-5, atol=1e-4)
 SDDMM_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -380,7 +396,8 @@ def phase_slice(train, test, burnin: int, nsamples: int, seed: int):
             f"{res.rmse_train_trace}")
     # gram: one launch per half-sweep; sddmm: one per sweep for the
     # training residual plus one per posterior sample for the test set
-    want = {"gram": 2 * sweeps, "sddmm": sweeps + nsamples}
+    want = {"gram": 2 * sweeps, "sddmm": sweeps + nsamples,
+            "topk_score": 0}
     if counts != want:
         raise AssertionError(f"slice: launch counts {counts}, want {want}")
     return sess, res, counts, sweep_ms
@@ -408,6 +425,334 @@ def phase_witness(train, test, seed: int):
     if not res.rmse_test < 2 * NOISE:
         raise AssertionError(f"witness: rmse_test {res.rmse_test} is not "
                              f"below twice the planted noise {NOISE}")
+
+
+def observed_items(padded, users):
+    """Each user's training items, from the padded rows of the data."""
+    idx = padded.idx[users].cpu().numpy()
+    mask = padded.mask[users].cpu().numpy() > 0
+    return [row[m] for row, m in zip(idx, mask)]
+
+
+def plain_topk(us, v, k, excl):
+    """The plain version on the same device, finalized as ops does."""
+    from repro_torch.kernels import ops, ref
+    return ops.finalize_topk(*ref.topk_score_ref(us, v, excl, k), excl)
+
+
+def library_topk(us, v, k, excl):
+    """One PyTorch expression of the same function, as a yardstick: a
+    batched einsum, the moments over samples and ``torch.topk`` (whose
+    ties are not ordered by id)."""
+    import torch
+    scores = torch.einsum("bsk,snk->bsn", us, v)
+    mean = scores.mean(1)
+    ex2 = (scores * scores).mean(1)
+    top = torch.topk(torch.where(excl > 0, -torch.inf, mean), k, dim=1)
+    return top.indices, mean.gather(1, top.indices), ex2.gather(
+        1, top.indices)
+
+
+def topk_bound(B, S, N, K, k):
+    """(ms, by) of one call: us, the item stack and the mask read once,
+    the (B, k) outputs written once; 2*B*S*N*K operations for the scores
+    and 3*B*S*N for the moments."""
+    n_bytes = 4 * (B * S * K + S * N * K + B * N) + 12 * B * k
+    return bound(n_bytes, 2 * B * S * N * K + 3 * B * S * N)
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+def step_breakdown(sess, path):
+    """Where one server step of 8 requests goes: the step under
+    torch.profiler (device busy and idle share), then its parts timed
+    one by one, each ended by a synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RecommendServer
+    users = [int(u) for u in path["users"][:SERVE_SLOTS]]
+    excl = path["excl"][:SERVE_SLOTS]
+    srv = RecommendServer(sess, slots=SERVE_SLOTS, k=SERVE_K,
+                          block=path["block"])
+    for u, e in zip(users, excl):
+        srv.submit(user=u, exclude=e)
+    srv._admit()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof.events())
+    if not 0 < busy <= wall:
+        raise AssertionError(f"serving profile: busy {busy} of {wall} ms")
+    _, ie = sess._block_entities(path["block"])
+    v = sess.warm_cache().factors[ie]
+    parts = {}
+    t = time.perf_counter()
+    rows = torch.cat([sess.user_rows([u], path["block"]) for u in users])
+    torch.cuda.synchronize()
+    parts["user rows (8 gathers)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mask = torch.from_numpy(sess._exclude_mask(
+        excl, SERVE_SLOTS, v.shape[1])).to("cuda")
+    torch.cuda.synchronize()
+    parts["exclusion mask (host) + copy"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out = ops.topk_score(rows, v, SERVE_K, exclude=mask)
+    torch.cuda.synchronize()
+    parts["ops.topk_score (kernel + finalize)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    [x.cpu().numpy() for x in out]
+    parts["results to host"] = time.perf_counter() - t
+    print(f"  one step, {path['label']}: {wall:.3f} ms wall under the "
+          f"profiler, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}; parts unprofiled: "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in parts.items()))
+
+
+def phase_serving(train, test, seed: int, gen):
+    """The serving path: a store trained at the slice's width, reloaded
+    by ``PredictSession`` and served through ``RecommendServer`` in both
+    directions of the block; then the kernel against its plain version.
+    Returns the ``topk_score`` entry of the kernels line."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import AdaptiveGaussian, ModelBuilder, PredictSession
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import topk_score as ktopk
+    from repro_torch.launch.serve import RecommendServer
+    from repro_torch.obs import Histogram, percentile_summary
+
+    burnin, nsamples = SERVE_SWEEPS
+    # the kernel's first call loads its library and its functions; a
+    # server pays that once, at start-up, so it is timed apart
+    t0 = time.perf_counter()
+    ops.topk_score(torch.ones(1, 1, 4, device="cuda"),
+                   torch.ones(1, 2000, 4, device="cuda"), 1)
+    torch.cuda.synchronize()
+    print(f"topk_score first call (library load, scoring and merge "
+          f"kernels): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        ops.reset_launch_counts()
+        b = ModelBuilder(num_latent=128)
+        b.add_entity("compound", train.n_rows)
+        b.add_entity("protein", train.n_cols)
+        b.add_block("compound", "protein", train, test=test,
+                    noise=AdaptiveGaussian())
+        t0 = time.perf_counter()
+        res = b.session(burnin=burnin, nsamples=nsamples, seed=seed,
+                        save_freq=1, save_dir=store).run()
+        train_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(store).rglob("*")
+                      if f.is_file())
+        print(f"store: {burnin} + {nsamples} sweeps with save_freq=1 in "
+              f"{train_s:.2f} s (runtime_s {res.runtime_s:.3f}), "
+              f"{on_disk / 1e9:.3f} GB on disk, rmse_test "
+              f"{res.rmse_test:.6f}")
+
+        sess = PredictSession(store, cache_bytes=SERVE_CACHE_BYTES)
+        t0 = time.perf_counter()
+        pred = sess.predict(test[0], test[1])
+        reload_s = time.perf_counter() - t0
+        if not np.isfinite(pred).all():
+            raise AssertionError("serving: non-finite reloaded predictions")
+        np.testing.assert_allclose(pred, res.predictions, **RELOAD_TOL,
+                                   err_msg="serving: reload vs session")
+        stats = sess.cache_stats()
+        print(f"reload: PredictSession.predict at {pred.size} held-out "
+              f"entries in {reload_s:.2f} s (the cache's warm included), "
+              f"max |diff| vs the in-session mean "
+              f"{np.abs(pred - res.predictions).max():.3e} ({RELOAD_TOL});"
+              f" resident {stats['resident_bytes'] / 1e9:.3f} GB of "
+              f"store_nbytes {sess.store_nbytes() / 1e9:.3f} GB, "
+              f"{stats['load_count']} loads")
+        if not sess.cache_resident or sess.load_count != nsamples:
+            raise AssertionError(f"serving: cache not resident {stats}")
+        del res, pred
+
+        rng = np.random.default_rng(seed + 1)
+        paths = []
+        for label, block, padded, n_users in (
+                ("compound -> proteins", ("compound", "protein"),
+                 train.rows, train.n_rows),
+                ("protein -> compounds", ("protein", "compound"),
+                 train.cols, train.n_cols)):
+            users = rng.choice(n_users, SERVE_REQUESTS, replace=False)
+            excl = observed_items(padded, users)
+            srv = RecommendServer(sess, slots=SERVE_SLOTS, k=SERVE_K,
+                                  block=block)
+            # the first step runs PyTorch kernels for the first time (the
+            # gathers, the mask's copy, the finalize), which load then:
+            # one request, timed apart, before the measured ones
+            srv.submit(user=int(users[0]), exclude=excl[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.run()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            srv.obs.reset()
+            reqs = {srv.submit(user=int(u), exclude=e): (int(u), e)
+                    for u, e in zip(users, excl)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = {r["id"]: r for r in srv.run()}
+            wall = time.perf_counter() - t0
+            hists = srv.metrics_snapshot()["histograms"]
+            paths.append(dict(
+                label=label, block=block, users=users, excl=excl,
+                reqs=reqs, done=done, wall=wall, first_ms=first_ms,
+                steps=Histogram.from_dict(
+                    hists["serve.batch_occupancy"]).total,
+                execute=percentile_summary(Histogram.from_dict(
+                    hists["serve.execute_s"]))))
+        counts = ops.launch_counts()
+        sweeps = burnin + nsamples
+        want = {"gram": 2 * sweeps, "sddmm": sweeps + 2 * nsamples,
+                "topk_score": sum(p["steps"] + 1 for p in paths)}
+        if counts != want:
+            raise AssertionError(f"serving: launch counts {counts}, "
+                                 f"want {want}")
+        print(f"serving path launches {counts} (gram 2 per sweep; sddmm 1 "
+              "per sweep, 1 per sample in the session and 1 per sample "
+              "in the reload; topk_score 1 per server step, the first "
+              "request's included)")
+
+        # batching changes no answer
+        for p in paths:
+            for rid, (u, e) in p["reqs"].items():
+                r = p["done"][rid]
+                seq = sess.recommend(user=u, k=SERVE_K, block=p["block"],
+                                     exclude=[e])
+                for key in ("ids", "mean", "std"):
+                    if not same_bits(r[key], getattr(seq, key)[0]):
+                        raise AssertionError(
+                            f"serving {p['label']}: request {rid} {key} "
+                            "differs from a sequential recommend")
+                if (r["ids"] < 0).any() or np.isin(r["ids"], e).any() \
+                        or not np.isfinite(r["std"]).all():
+                    raise AssertionError(f"serving {p['label']}: bad "
+                                         f"answer for request {rid}")
+            ex = p["execute"]
+            print(f"  {p['label']}: first request {p['first_ms']:.1f} "
+                  f"ms; then {SERVE_REQUESTS} requests, "
+                  f"{SERVE_SLOTS} slots, k={SERVE_K}, {p['steps']} steps "
+                  f"in {p['wall'] * 1e3:.1f} ms; serve.execute_s p50 "
+                  f"{ex['p50'] * 1e3:.3f} ms, p99 {ex['p99'] * 1e3:.3f} ms; "
+                  f"mean exclusions a query "
+                  f"{np.mean([len(e) for e in p['excl']]):.1f}; every "
+                  "answer bitwise equal to a sequential recommend")
+
+        for p in paths:
+            step_breakdown(sess, p)
+
+        # the kernel against its plain version
+        print(f"topk_score tolerance: mean rtol {ref.TOPK_MEAN_RTOL} of "
+              f"(1/S) sum |u||v|, std {ref.TOPK_STD_RTOL} * sqrt(ex2), ids "
+              "equal but at near-ties (kernels/ref.py states why)")
+        errs = []
+
+        def check(us, v, k, excl, label):
+            got = ops.topk_score(us, v, k, exclude=excl)
+            torch.cuda.synchronize()
+            dm, ds = ref.check_topk_score(got, plain_topk(us, v, k, excl),
+                                          us, v, f"topk_score {label}")
+            errs.append(dm)
+            print(f"  topk_score {label}: max |mean diff| {dm:.3e}, max "
+                  f"|std diff| {ds:.3e}")
+            return got
+
+        def rand(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen)
+
+        for label, (us_shape, v_shape, k) in \
+                ops.KERNELS["topk_score"].items():
+            excl = (torch.rand(us_shape[0], v_shape[1], device="cuda",
+                               generator=gen) < 0.4).float() \
+                if "exclusions" in label else None
+            excl = ops.exclusion_mask(excl, us_shape[0], v_shape[1], "cuda")
+            check(rand(*us_shape), rand(*v_shape), k, excl, label)
+        # exact ties: items 4000.. duplicate items 0.. of the same stack
+        us, v = rand(8, 32, 32), rand(32, 4096, 32)
+        v[:, 4000:] = v[:, :96]
+        excl = ops.exclusion_mask(None, 8, 4096, "cuda")
+        ids = check(us, v, 1024, excl, "duplicated rows b8 n4096 k1024")[0]
+        pairs = 0
+        for row in ids.tolist():
+            for d in range(4000, 4096):
+                if d in row:
+                    if row.index(d - 4000) > row.index(d):
+                        raise AssertionError("topk_score: a duplicate "
+                                             "ranked before its lower id")
+                    pairs += 1
+        if not pairs:
+            raise AssertionError("topk_score: no tied pair was selected")
+        print(f"  topk_score exact ties: {pairs} duplicated pairs, each "
+              "lowest id first")
+
+        entry = {"name": "topk_score", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/topk_score.cu",
+                 "replaces": "src/repro/kernels/topk_score.py:139",
+                 "launches": counts["topk_score"], "ms": 0.0,
+                 "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        by = {"bytes": 0.0, "operations": 0.0}
+        cache = sess.warm_cache()
+        for p in paths:
+            us = sess.user_rows(p["users"][:SERVE_SLOTS], p["block"])
+            _, ie = sess._block_entities(p["block"])
+            v = cache.factors[ie]
+            S, N, K = v.shape
+            excl = torch.zeros((SERVE_SLOTS, N), device="cuda")
+            for r, e in enumerate(p["excl"][:SERVE_SLOTS]):
+                excl[r, torch.as_tensor(e, device="cuda").long()] = 1.0
+            label = f"{p['label']} B={SERVE_SLOTS} S={S} N={N} K={K}"
+            got = check(us, v, SERVE_K, excl, label)
+            for r in range(SERVE_SLOTS):
+                one = ops.topk_score(us[r:r + 1], v, SERVE_K,
+                                     exclude=excl[r:r + 1])
+                for a, b_ in zip(got, one):
+                    if not torch.equal(a[r:r + 1].view(torch.int32),
+                                       b_.view(torch.int32)):
+                        raise AssertionError(
+                            f"topk_score {label}: B={SERVE_SLOTS} differs "
+                            "from B=1 calls")
+            ms = time_ms(lambda: ktopk.topk_score_cuda(us, v, excl,
+                                                       SERVE_K))
+            plain = time_ms(lambda: ref.topk_score_ref(us, v, excl,
+                                                       SERVE_K))
+            lib = time_ms(lambda: library_topk(us, v, SERVE_K, excl))
+            b_ms, b_by = topk_bound(SERVE_SLOTS, S, N, K, SERVE_K)
+            plan = ktopk.plan(SERVE_SLOTS, N, SERVE_K, torch.cuda
+                              .get_device_properties(0)
+                              .multi_processor_count)
+            print(f"  topk_score {label}: {ms:.3f} ms, plain {plain:.3f} "
+                  f"ms, library (einsum + moments + torch.topk) "
+                  f"{lib:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
+                  f"({S * N * K * 4 / 1e9:.3f} GB of items); "
+                  f"{SERVE_SLOTS * S * N * K * 4 / ms / 1e6:.0f} GB/s "
+                  f"counting one read per user; chunk {plan.chunk}, "
+                  f"{plan.lists} lists, {plan.merges} merge passes; "
+                  f"bitwise equal to {SERVE_SLOTS} calls with B=1")
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("library_ms", lib), ("bound_ms", b_ms)):
+                entry[key] += val
+            by[b_by] += b_ms
+        entry["bound_by"] = max(by, key=by.get)
+        entry["max_abs_err"] = max(errs)
+        print(f"  topk_score, one call at each path shape: "
+              f"{entry['ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms")
+        return entry
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def busy_ms(events) -> float:
@@ -506,10 +851,14 @@ def main(argv=None) -> int:
     del sess, res
     print("== witness: the test predictions where the model is well posed")
     phase_witness(train, test, args.seed)
+    torch.cuda.empty_cache()
+    print("== serving: store, PredictSession, RecommendServer, topk_score")
+    topk = phase_serving(train, test, args.seed, gen)
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]
-    print(json.dumps({"kernels": [entries["gram"], entries["sddmm"]]}))
+    print(json.dumps({"kernels": [entries["gram"], entries["sddmm"],
+                                  topk]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

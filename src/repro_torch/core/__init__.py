@@ -3,6 +3,7 @@
 Public API (the slice of ``repro.core`` ported so far):
 
     ModelBuilder, Session, TrainSession       -- compose and run a chain
+    PredictSession, PosteriorCache, RecResult -- serve a saved store
     NormalPrior                               -- prior
     FixedGaussian, AdaptiveGaussian           -- noise models
     SparseMatrix, from_coo, random_sparse     -- inputs
@@ -11,8 +12,8 @@ Public API (the slice of ``repro.core`` ported so far):
 from .blocks import BlockDef, EntityDef, ModelDef
 from .gibbs import MFData, MFState, gibbs_step, init_state, run_sweeps
 from .noise import AdaptiveGaussian, FixedGaussian
-from .predict import (PredictAccumulator, TestSet, make_test_set,
-                      predict_one, rmse)
+from .predict import (PosteriorCache, PredictAccumulator, PredictSession,
+                      RecResult, TestSet, make_test_set, predict_one, rmse)
 from .priors import NormalPrior
 from .session import (BlockResult, ModelBuilder, Session, SessionResult,
                       SweepInfo, TrainSession)
@@ -22,8 +23,8 @@ __all__ = [
     "BlockDef", "EntityDef", "ModelDef",
     "MFData", "MFState", "gibbs_step", "init_state", "run_sweeps",
     "AdaptiveGaussian", "FixedGaussian",
-    "PredictAccumulator", "TestSet", "make_test_set", "predict_one",
-    "rmse", "NormalPrior",
+    "PosteriorCache", "PredictAccumulator", "PredictSession", "RecResult",
+    "TestSet", "make_test_set", "predict_one", "rmse", "NormalPrior",
     "BlockResult", "ModelBuilder", "Session", "SessionResult",
     "SweepInfo", "TrainSession",
     "PaddedRows", "SparseMatrix", "from_coo", "random_sparse",

@@ -12,10 +12,15 @@ and Fixed/Adaptive Gaussian noise:
                 noise=AdaptiveGaussian())
     result = b.session(burnin=4, nsamples=2, seed=0).run()
 
+``save_freq=k`` with ``save_dir`` streams every k-th post-burnin sample
+to disk in the reference's store layout (``model.json`` plus
+``samples/step_<sweep>/``), and the run's split-R-hat and bulk-ESS go
+to ``diagnostics.json``; ``PredictSession`` serves such a store.
+
 Every option outside the slice (side information, other priors, probit,
-dense data, ``chains > 1``, ``save_freq``, ``mesh``, ``resume``) raises
-a ValueError that names what the port supports; ROADMAP.md queues the
-rest.  Errors the two packages share carry the reference's messages.
+dense data, ``chains > 1``, ``mesh``, ``resume``) raises a ValueError
+that names what the port supports; ROADMAP.md queues the rest.  Errors
+the two packages share carry the reference's messages.
 
 Where the reference runs a discarded warm-up sweep to split jit
 compilation from sweep time, the port has nothing to compile but its
@@ -25,6 +30,7 @@ are built already, and on the CPU).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple, Union)
@@ -34,6 +40,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device, synchronize
 from .blocks import BlockDef, EntityDef, ModelDef
+from .diagnostics import Diagnostics, compute_diagnostics, save_diagnostics
 from .gibbs import MFData, MFState, gibbs_step, init_state
 from .noise import AdaptiveGaussian, FixedGaussian
 from .predict import PredictAccumulator, TestSet, make_test_set
@@ -83,7 +90,9 @@ class SessionResult:
     state: MFState
     samples: Optional[List[Tuple[np.ndarray, ...]]] = None
     blocks: List[BlockResult] = dataclasses.field(default_factory=list)
+    save_dir: Optional[str] = None
     n_chains: int = 1
+    diagnostics: Optional[Diagnostics] = None
     compile_s: float = 0.0
 
 
@@ -258,9 +267,12 @@ class Session:
     """Run one Gibbs chain over a built model graph.
 
     ``callbacks`` are called after every sweep with a :class:`SweepInfo`.
-    ``mesh``, ``pipeline``, ``chains > 1``, ``chain_axis``, ``save_freq``
-    and ``save_dir`` exist in the reference and raise here until their
-    slices are ported.
+    ``save_freq=k`` streams every k-th post-burnin state to ``save_dir``
+    (``model.json`` + ``samples/step_<sweep+1>/``, the layout
+    ``PredictSession`` reloads) and writes ``diagnostics.json`` at the
+    end.  ``mesh``, ``pipeline``, ``chains > 1`` and ``chain_axis``
+    exist in the reference and raise here until their slices are
+    ported.
     """
 
     def __init__(self, model: ModelDef, data: MFData, *,
@@ -277,9 +289,10 @@ class Session:
                                "chain_axis=)")
         if chains not in (None, 1):
             raise _unsupported(f"chains={chains}")
-        if save_freq or save_dir is not None:
-            raise _unsupported("posterior-sample streaming (save_freq=, "
-                               "save_dir=)")
+        if save_freq and not save_dir:
+            raise ValueError(
+                "save_freq > 0 streams posterior samples to disk; "
+                "pass save_dir= too")
         self.model = model
         self.data = data
         self.tests = dict(tests or {})
@@ -291,12 +304,40 @@ class Session:
         self.burnin = burnin
         self.nsamples = nsamples
         self.seed = seed
+        self.save_freq = save_freq
+        self.save_dir = save_dir
         self.callbacks = tuple(callbacks)
+
+    # -- persistence -------------------------------------------------------
+
+    def _spec_at(self, directory: str) -> None:
+        """``model.json`` of the run, as the reference's ``_spec_at``
+        writes it for one chain."""
+        from .modelspec import (MODEL_SPEC_FILE, model_to_spec,
+                                save_model_spec)
+        os.makedirs(directory, exist_ok=True)
+        spec = model_to_spec(self.model)
+        spec["run"] = {"burnin": self.burnin, "nsamples": self.nsamples,
+                       "save_freq": self.save_freq, "seed": self.seed,
+                       "chains": 1}
+        save_model_spec(os.path.join(directory, MODEL_SPEC_FILE), spec)
+
+    def _make_saver(self):
+        """The store's ``CheckpointManager``; ``keep=None``, since a
+        posterior-sample store retains every step."""
+        from ..checkpoint import CheckpointManager
+        from .modelspec import SAMPLES_SUBDIR
+        self._spec_at(self.save_dir)
+        return CheckpointManager(
+            os.path.join(self.save_dir, SAMPLES_SUBDIR), keep=None)
+
+    # -- run ---------------------------------------------------------------
 
     def run(self, keep_samples: bool = False,
             resume: bool = False) -> SessionResult:
         if resume:
-            raise _unsupported("resume=True")
+            raise _unsupported("resume=True (continuing a save_freq "
+                               "store)")
         model, data = self.model, self.data
         dev = model.device
         compile_s = 0.0
@@ -307,12 +348,16 @@ class Session:
             compile_s = time.perf_counter() - t_c
 
         state = init_state(model, data, self.seed)
+        saver = self._make_saver() if self.save_freq else None
         accs = {bi: PredictAccumulator(ts) for bi, ts in self.tests.items()}
         total = self.burnin + self.nsamples
         n_blocks = len(model.blocks)
         train_traces: List[List[float]] = [[] for _ in range(n_blocks)]
         test_traces: Dict[int, List[float]] = {bi: [] for bi in self.tests}
         samples: List[Tuple[np.ndarray, ...]] = []
+        # post-burnin traces of the monitored scalars, for split-R-hat
+        # and bulk-ESS at the end of the run
+        diag_traces: Dict[str, List[float]] = {}
 
         synchronize(dev)
         t0 = time.perf_counter()
@@ -331,11 +376,31 @@ class Session:
                 if keep_samples:
                     samples.append(tuple(f.cpu().numpy()
                                          for f in state.factors))
+                for nm, v in metrics.items():
+                    diag_traces.setdefault(nm, []).append(float(v))
+                for e, ent in enumerate(model.entities):
+                    f = state.factors[e]
+                    diag_traces.setdefault(
+                        f"factor_rms_{ent.name}", []).append(
+                        float(torch.sqrt(torch.mean(f * f))))
+                if saver is not None and \
+                        (sweep - self.burnin + 1) % self.save_freq == 0:
+                    saver.save(sweep + 1, state)
             if self.callbacks:
                 phase = "sample" if in_sampling else "burnin"
                 info = SweepInfo(sweep, phase, state, metrics)
                 for cb in self.callbacks:
                     cb(info)
+        if saver is not None:
+            saver.wait()
+
+        diag = None
+        if diag_traces:
+            diag = compute_diagnostics(
+                {k: np.asarray(v, np.float64)[None, :]
+                 for k, v in diag_traces.items()})
+            if saver is not None:
+                save_diagnostics(self.save_dir, diag)
         synchronize(dev)
         runtime = time.perf_counter() - t0
 
@@ -373,6 +438,8 @@ class Session:
             state=state,
             samples=samples if keep_samples else None,
             blocks=block_results,
+            save_dir=self.save_dir,
+            diagnostics=diag,
         )
 
 
@@ -389,6 +456,7 @@ class TrainSession:
                  nsamples: int = 100, seed: int = 0,
                  priors: Sequence[str] = ("normal", "normal"),
                  device: DeviceLike = None,
+                 save_freq: int = 0, save_dir: Optional[str] = None,
                  callbacks: Sequence[Callable[[SweepInfo], None]] = ()):
         self.num_latent = num_latent
         self.burnin = burnin
@@ -397,6 +465,8 @@ class TrainSession:
         self.prior_names = tuple(p.replace("-", "").replace("_", "")
                                  for p in priors)
         self.device = resolve_device(device)
+        self.save_freq = save_freq
+        self.save_dir = save_dir
         self.callbacks = callbacks
         self._train: Optional[SparseMatrix] = None
         self._test: Optional[TestSet] = None
@@ -431,5 +501,6 @@ class TrainSession:
     def run(self, keep_samples: bool = False) -> SessionResult:
         sess = self._builder().session(
             burnin=self.burnin, nsamples=self.nsamples, seed=self.seed,
+            save_freq=self.save_freq, save_dir=self.save_dir,
             callbacks=self.callbacks)
         return sess.run(keep_samples=keep_samples)

@@ -33,6 +33,8 @@ _SIGNATURES = {
              + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]),
     "sddmm": ("sddmm_f32", [ctypes.c_void_p] * 3
               + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]),
+    "topk_score": ("topk_score_f32", [ctypes.c_void_p] * 7
+                   + [ctypes.c_int64] * 7 + [ctypes.c_int, ctypes.c_void_p]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -47,6 +47,7 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         lambda: tc.random_sparse(0, (4, 3), 0.5),
         lambda: tc.ModelDef((), (), 4),
         lambda: tc.make_test_set([0], [0], [0.0]),
+        lambda: tc.PredictSession("no-store-needed"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

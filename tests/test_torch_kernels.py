@@ -10,6 +10,7 @@ shapes.
 Tolerance rtol 1e-5 / atol 1e-4 (gram) and 1e-5 (sddmm): fp32 on both
 sides, summed in another order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,7 +78,7 @@ def test_cpu_dispatch_launches_no_kernel():
     tops.reset_launch_counts()
     tops.gram_and_rhs(*_t(*_gram_inputs(2, 3, 4)))
     tops.sddmm(*_t(*_sddmm_inputs(5, 4)))
-    assert tops.launch_counts() == {"gram": 0, "sddmm": 0}
+    assert tops.launch_counts() == {"gram": 0, "sddmm": 0, "topk_score": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -89,9 +90,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_probe_envelope_mirrors_reference():
-    """The port's probes are the reference's fp32 probes."""
+    """The port's probes are the reference's fp32 probes: the operands'
+    shapes, and for topk_score the k its probe call asks for."""
     for name, probes in tops.KERNELS.items():
-        ref_fp32 = {p.label: p.args[0].shape
-                    for p in jops.KERNELS[name].probes
+        ref_fp32 = {p.label: p for p in jops.KERNELS[name].probes
                     if p.args[0].dtype == jnp.float32}
-        assert probes == ref_fp32
+        assert set(probes) == set(ref_fp32)
+        for label, shape in probes.items():
+            p = ref_fp32[label]
+            if name != "topk_score":
+                assert shape == p.args[0].shape
+                continue
+            us, v, k = shape
+            assert (us, v) == (p.args[0].shape, p.args[1].shape)
+            ids = jax.eval_shape(p.call, *p.args)[0]
+            assert ids.shape == (us[0], k)

@@ -192,7 +192,7 @@ def _builder():
         "r", "c", m, noise=jc.ProbitNoise())),
     ("chains=4", lambda b, m: b.add_block("r", "c", m).session(chains=4)),
     ("save_freq", lambda b, m: b.add_block("r", "c", m).session(
-        save_freq=2, save_dir="unused")),
+        save_freq=2, save_dir="unused").run(resume=True)),
     ("mesh=", lambda b, m: b.add_block("r", "c", m).session(
         mesh=object())),
     ("resume=True", lambda b, m: b.add_block("r", "c", m).session(
