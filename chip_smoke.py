@@ -28,7 +28,16 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    protein -> compounds, each excluding the query's training items),
    holds every answer bitwise against a sequential ``recommend``, and
    holds the ``topk_score`` kernel against its plain version at the
-   reference's probes and at both path shapes, with its times.
+   reference's probes and at both path shapes, with its times;
+8. lm: holds the ``flash`` kernel against its plain version at the
+   reference's probes, a ragged case and the prefill shape, and times
+   it beside the plain version and PyTorch's SDPA; builds Qwen3-4B at
+   full width and depth with random weights on the card; runs
+   ``forward`` on 4 prompts of 4,096 tokens (36 flash launches each,
+   the kernel held against its plain version at the first and last
+   layer's captured inputs), ``generate`` on 8 prompts of 128 tokens
+   (decode held against forward) and ``BatchedServer`` (8 slots: the
+   same 8 prompts, bitwise ``generate``'s tokens; then 16 requests).
 
 Every failed check raises, so the exit code is not 0.  The last two
 lines are the ``kernels`` JSON and the device JSON.  Without a CUDA
@@ -48,8 +57,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = ROOT / "results" / "golden_chains.json"
 
-# H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth
+# H100 SXM data sheet: fp32 outside the tensor cores, bf16 dense in the
+# tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # the slice: bmf_chembl's widths with the compounds cut to one card
@@ -76,10 +87,10 @@ TOL_REASON = ("fp32 on both sides, summed in another order: the kernel "
               "|kernel - plain| <= atol + rtol * f(|inputs|)")
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32_FLOPS):
     """(ms, 'bytes'|'operations'): the least time on the card."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -166,7 +177,7 @@ def phase_card():
     print(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
           + ", ".join(f"{k} {v:.2f} s"
                       for k, v in sorted(_build.build_seconds.items())))
-    for name in ("gram", "sddmm"):
+    for name in ("gram", "sddmm", "flash"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -397,7 +408,7 @@ def phase_slice(train, test, burnin: int, nsamples: int, seed: int):
     # gram: one launch per half-sweep; sddmm: one per sweep for the
     # training residual plus one per posterior sample for the test set
     want = {"gram": 2 * sweeps, "sddmm": sweeps + nsamples,
-            "topk_score": 0}
+            "topk_score": 0, "flash": 0}
     if counts != want:
         raise AssertionError(f"slice: launch counts {counts}, want {want}")
     return sess, res, counts, sweep_ms
@@ -618,7 +629,8 @@ def phase_serving(train, test, seed: int, gen):
         counts = ops.launch_counts()
         sweeps = burnin + nsamples
         want = {"gram": 2 * sweeps, "sddmm": sweeps + 2 * nsamples,
-                "topk_score": sum(p["steps"] + 1 for p in paths)}
+                "topk_score": sum(p["steps"] + 1 for p in paths),
+                "flash": 0}
         if counts != want:
             raise AssertionError(f"serving: launch counts {counts}, "
                                  f"want {want}")
@@ -755,6 +767,314 @@ def phase_serving(train, test, seed: int, gen):
         shutil.rmtree(store, ignore_errors=True)
 
 
+# the LM slice: Qwen3-4B at full width and depth, random weights
+LM_ARCH = "qwen3_4b"
+LM_PREFILL = (4, 4096)      # prompts x tokens: train_4k's sequence length
+LM_GEN = (8, 128, 32)       # prompts, prompt tokens, new tokens
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS = 8, 512, 16
+LM_TOL = dict(rtol=0.08, atol=0.08)   # decode vs forward, test_models.py
+
+
+def flash_bound(q_shape, kv_shape):
+    """(ms, by, operations) of one causal bf16 call from position 0:
+    q, k, v read once, out written once; 4 hd operations per visible
+    (query, key) pair and head, at the tensor cores' bf16 rate."""
+    B, Sq, H, hd = q_shape
+    Sk, KVH = kv_shape[1], kv_shape[2]
+    pairs = sum(min(Sk, s + 1) for s in range(Sq))
+    n_bytes = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * KVH * hd)
+    n_ops = 4 * B * H * hd * pairs
+    return bound(n_bytes, n_ops, PEAK_BF16_FLOPS) + (n_ops,)
+
+
+def sdpa(q, k, v):
+    """PyTorch's fused attention on the same inputs, the yardstick
+    (causal from position 0, Sq = Sk, GQA)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def phase_flash(gen):
+    """The flash kernel against its plain version at the reference's
+    probes, a ragged case and the prefill shape at B = 1; then kernel,
+    plain version and SDPA timed at the forward's shape (B = 4).
+    Returns the kernels-line entry without launches."""
+    import torch
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ops, ref
+    errs = []
+    print(f"flash tolerance: rtol {ref.FLASH_RTOL[torch.float32]} (fp32), "
+          f"{ref.FLASH_RTOL[torch.bfloat16]} (bf16) of |plain| + sum p|v| "
+          "(kernels/ref.py states why)")
+
+    def rand(shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    B, S = LM_PREFILL
+    cases = [(label, q, kv, dt, kw)
+             for label, (q, kv, dt, kw) in ops.KERNELS["flash"].items()]
+    cases += [("ragged sq130 sk257 offset 100 window 96", (2, 130, 4, 16),
+               (2, 257, 2, 16), dt, dict(causal=True, window=96,
+                                         q_offset=100))
+              for dt in (torch.float32, torch.bfloat16)]
+    cases.append((f"prefill b1 s{S} h32/8 hd128", (1, S, 32, 128),
+                  (1, S, 8, 128), torch.bfloat16, dict(causal=True)))
+    for label, q_shape, kv_shape, dt, kw in cases:
+        q, k, v = (rand(s, dt) for s in (q_shape, kv_shape, kv_shape))
+        out = kflash.flash_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = ref.check_attention(out, q, k, v, **kw, what=f"flash {label}")
+        errs.append(e)
+        print(f"  flash {label} {str(dt)[6:]}: max abs err {e:.3e}")
+        del q, k, v, out
+    torch.cuda.empty_cache()
+
+    q_shape, kv_shape = (B, S, 32, 128), (B, S, 8, 128)
+    q, k, v = (rand(s, torch.bfloat16) for s in (q_shape, kv_shape,
+                                                 kv_shape))
+    ms = time_ms(lambda: kflash.flash_cuda(q, k, v, causal=True))
+    lib = time_ms(lambda: sdpa(q, k, v))
+    plain = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
+    b_ms, b_by, n_ops = flash_bound(q_shape, kv_shape)
+    print(f"  flash at the forward's shape b{B} s{S} h32/8 hd128 bf16 "
+          f"causal: {ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain:.3f} ms, SDPA {lib:.3f} ms, bound {b_ms:.3f} ms by "
+          f"{b_by} ({n_ops / 1e9:.1f} GFLOP)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"name": "flash", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash.cu",
+            "replaces": "src/repro/kernels/flash.py:129",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def profile_once(fn, label):
+    """fn() under torch.profiler: wall, device busy, idle share and the
+    kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof.events())
+    if not 0 < busy <= wall:
+        raise AssertionError(f"{label} profile: busy {busy} of {wall} ms")
+    print(f"  profile, {label}: {wall:.1f} ms wall (profiler on), device "
+          f"busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}; by kernel:")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in kernels[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+
+
+def phase_lm(seed: int, flash_entry):
+    """The LM serving path at Qwen3-4B's full width and depth."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import forward, init_model, param_count
+    from repro_torch.obs import Histogram, percentile_summary
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in model.parameters())
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {param_count(cfg)[0]:,} "
+          f"parameters, {held / 1e9:.2f} GB held in "
+          f"{cfg.dtype}; random weights from seed {seed} drawn on the card "
+          f"in {time.perf_counter() - t0:.2f} s")
+    stream = TokenStream(cfg.vocab_size, seed)
+
+    # forward: B x S prompts; the first call captures the first and last
+    # layers' attention inputs by wrapping ops.flash_attention
+    B, S = LM_PREFILL
+    toks = torch.from_numpy(stream.batch(0, B, S)[:, :S]).cuda()
+    captured, calls = {}, [0]
+    orig = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        if calls[0] in (0, cfg.n_layers - 1):
+            captured[calls[0]] = (q.clone(), k.clone(), v.clone(), kw)
+        calls[0] += 1
+        return orig(q, k, v, **kw)
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention = spy
+    try:
+        t0 = time.perf_counter()
+        logits, _ = forward(model, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.flash_attention = orig
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) \
+            or logits.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"forward: logits {tuple(logits.shape)} "
+                             f"{logits.dtype} not finite or not of shape")
+    del logits
+    fwd_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, _ = forward(model, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        del logits
+    peak = torch.cuda.max_memory_allocated()
+    n_fwd = 4
+    if ops.launch_counts()["flash"] != cfg.n_layers * n_fwd:
+        raise AssertionError(f"forward: {ops.launch_counts()} flash launches "
+                             f"in {n_fwd} forwards, want {cfg.n_layers} each")
+    med = statistics.median(fwd_ms)
+    print(f"forward B={B} S={S}: first {first_ms:.1f} ms, then "
+          + ", ".join(f"{t:.1f}" for t in fwd_ms) + f" ms (median {med:.1f} "
+          f"ms, {B * S / med * 1e3:.0f} tokens/s); peak device memory "
+          f"{peak / 1e9:.2f} GB; flash launches "
+          f"{ops.launch_counts()['flash']} in {n_fwd} forwards")
+
+    # generate: greedy; every serve_step timed and its logits kept for
+    # the prompt positions, by wrapping the module's serve_step
+    nb, s0, max_new = LM_GEN
+    prompts = stream.batch(1, nb, s0)[:, :s0]
+    orig_step = tserve.serve_step
+    step_ms, dec = [], []
+
+    def timed_step(*a, **kw):
+        t = time.perf_counter()
+        lg, c = orig_step(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if len(dec) < s0:
+            dec.append(lg[:, 0])
+        return lg, c
+
+    tserve.serve_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        gen_toks = tserve.generate(cfg, model, prompts, max_new=max_new)
+        gen_s = time.perf_counter() - t0
+    finally:
+        tserve.serve_step = orig_step
+    if gen_toks.shape != (nb, s0 + max_new) or not (
+            (gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all():
+        raise AssertionError(f"generate: tokens {gen_toks.shape} out of range")
+    replay, decode = step_ms[:s0], step_ms[s0:s0 + max_new]
+    print(f"generate B={nb}, {s0} prompt + {max_new} new tokens: "
+          f"{gen_s:.2f} s; serve_step median {statistics.median(replay):.2f}"
+          f" ms (prompt replay) and {statistics.median(decode):.2f} ms "
+          f"(decode; p90 {np.percentile(decode, 90):.2f}), "
+          f"{nb / statistics.median(decode) * 1e3:.0f} tokens/s")
+    par, _ = forward(model, cfg, {"tokens": prompts})
+    dec = torch.stack(dec, 1)
+    diff = (dec.float() - par.float()).abs()
+    within = float((diff <= LM_TOL["atol"] + LM_TOL["rtol"]
+                    * par.float().abs()).float().mean())
+    # bf16 logits over 151,936 tokens tie exactly in a few percent of
+    # rows, where the first-index argmax is an arbitrary pick: the
+    # agreement held is that decode's choice is a maximiser of the
+    # forward's logits (the first-index agreement is printed beside it)
+    first = float((dec.argmax(-1) == par.argmax(-1)).float().mean())
+    top = par.max(-1).values
+    agree = float((par.gather(-1, dec.argmax(-1, keepdim=True))[..., 0]
+                   == top).float().mean())
+    top2 = par.float().topk(2, dim=-1).values
+    ties = float((top2[..., 0] == top2[..., 1]).float().mean())
+    print(f"decode vs forward at all {nb} x {s0} prompt positions: decode's "
+          f"argmax a maximiser of forward's logits in {agree:.4f} of rows "
+          f"(first-index argmax agreement {first:.4f}; rows whose top two "
+          f"forward logits tie exactly in bf16 {ties:.4f}); max |diff| "
+          f"{diff.max().item():.4f}, median |diff| "
+          f"{diff.median().item():.5f}, share of logits within rtol/atol "
+          f"0.08 {within:.6f}; forward logits std "
+          f"{par.float().std().item():.3f}")
+    if not agree > 0.95:
+        raise AssertionError(f"decode vs forward: argmax agreement {agree}")
+    del par, dec, diff
+
+    # BatchedServer: the same prompts admitted at once, then 16 requests
+    srv = tserve.BatchedServer(cfg, model, slots=LM_SLOTS,
+                               max_len=LM_MAX_LEN)
+    ids = [srv.submit(p, max_new=max_new) for p in prompts]
+    done = {r["id"]: r for r in srv.run()}
+    got = np.asarray([done[i]["generated"] for i in ids], np.int32)
+    if not np.array_equal(got, gen_toks[:, s0:]):
+        raise AssertionError("BatchedServer: the 8 answers differ from "
+                             "generate's tokens")
+    print(f"BatchedServer, {LM_SLOTS} slots, max_len {LM_MAX_LEN}: the {nb} "
+          "prompts admitted together answer generate's tokens, bitwise")
+    del srv
+    srv = tserve.BatchedServer(cfg, model, slots=LM_SLOTS,
+                               max_len=LM_MAX_LEN)
+    reqs = stream.batch(2, LM_REQUESTS, s0)[:, :s0]
+    for p in reqs:
+        srv.submit(p, max_new=max_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = srv.run()
+    wall = time.perf_counter() - t0
+    hists = srv.metrics_snapshot()["histograms"]
+    ex = percentile_summary(Histogram.from_dict(hists["serve.execute_s"]))
+    steps = Histogram.from_dict(hists["serve.batch_occupancy"]).total
+    n_new = sum(len(r["generated"]) for r in done)
+    if len(done) != LM_REQUESTS or n_new != LM_REQUESTS * max_new:
+        raise AssertionError(f"BatchedServer: {len(done)} done, {n_new} "
+                             "tokens")
+    print(f"BatchedServer, {LM_REQUESTS} requests of {s0} + {max_new} "
+          f"tokens through {LM_SLOTS} slots: {steps} steps in {wall:.2f} s, "
+          f"{n_new / wall:.1f} generated tokens/s; serve.execute_s p50 "
+          f"{ex['p50'] * 1e3:.1f} ms, p99 {ex['p99'] * 1e3:.1f} ms")
+    counts = ops.launch_counts()
+    # forwards: the timed ones, generate's prefill and the one decode is
+    # held against
+    want = {"gram": 0, "sddmm": 0, "topk_score": 0,
+            "flash": cfg.n_layers * (n_fwd + 2)}
+    if counts != want:
+        raise AssertionError(f"lm: launch counts {counts}, want {want}")
+    print(f"lm path launches {counts} ({cfg.n_layers} per forward: {n_fwd} "
+          "timed forwards, generate's prefill and the forward decode is "
+          "held against; decode runs no flash kernel)")
+
+    # where a forward and a decode step spend the card's time
+    profile_once(lambda: forward(model, cfg, {"tokens": toks}),
+                 f"one forward B={B} S={S}")
+    caches = tserve.init_serve_cache(model, cfg, nb, s0 + max_new,
+                                     prefilled=s0)
+    step1 = prompts[:, :1]
+    profile_once(lambda: tserve.serve_step(model, cfg, caches, step1),
+                 f"one decode step B={nb} at position {s0}")
+    del caches
+
+    # the kernel against its plain version at captured layers
+    for layer, (q, k, v, kw) in sorted(captured.items()):
+        out = orig(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = ref.check_attention(out, q, k, v, **kw,
+                                what=f"flash at layer {layer}")
+        flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"], e)
+        print(f"  flash at layer {layer}'s captured inputs "
+              f"{tuple(q.shape)}: max abs err {e:.3e}")
+    flash_entry["launches"] = counts["flash"]
+    return flash_entry
+
+
 def busy_ms(events) -> float:
     """Time in ms that at least one device activity of ``events`` (the
     profiler's FunctionEvents) was running: the union of their
@@ -854,11 +1174,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("== serving: store, PredictSession, RecommendServer, topk_score")
     topk = phase_serving(train, test, args.seed, gen)
+    del train, test
+    torch.cuda.empty_cache()
+    print("== lm: flash, Qwen3-4B forward, generate, BatchedServer")
+    flash = phase_lm(args.seed, phase_flash(gen))
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]
     print(json.dumps({"kernels": [entries["gram"], entries["sddmm"],
-                                  topk]}))
+                                  topk, flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,10 @@ PyTorch versions.
 """
 import torch
 
-# every float32 product in the port is full float32, never TF32
+# every float32 product in the port is full float32, never TF32, and
+# every bf16 product accumulates in float32 to the end: cuBLAS may not
+# reduce split-K partial sums in bf16
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False

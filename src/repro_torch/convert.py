@@ -1,11 +1,14 @@
-"""Carry a chain's state and data over from the JAX package.
+"""Carry a chain's state and data, or an LM's weights, over from the JAX
+package.
 
 ``state_from_reference`` and ``data_from_reference`` take the leaves of
 ``repro``'s ``MFState``/``MFData`` as numpy arrays -- or any objects
 with the same fields whose leaves ``numpy.asarray`` accepts -- and
-return the port's on a given device.  The parity tests use them to
-start both packages from the same state.  This module imports nothing
-of JAX or ``repro``: it reads fields by name.
+return the port's on a given device.  ``lm_params_from_reference``
+takes the reference's LM params tree as nested dicts of such arrays and
+returns the port's ``Transformer``.  The parity tests use them to start
+both packages from the same state and weights.  This module imports
+nothing of JAX or ``repro``: it reads fields and keys by name.
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ import torch
 from ._device import DeviceLike, resolve_device
 from .core.gibbs import MFData, MFState
 from .core.sparse import PaddedRows, SparseMatrix
+from .models import layers as L
+from .models.config import ModelConfig
+from .models.transformer import Layer, Transformer, check_supported
 
 
 def _t(x, dev: torch.device) -> torch.Tensor:
@@ -71,3 +77,53 @@ def data_from_reference(blocks: Sequence[Any], sides: Sequence[Any],
     dev = resolve_device(device)
     return MFData(tuple(sparse_from_reference(b, dev) for b in blocks),
                   (None,) * len(sides))
+
+
+def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
+                             device: DeviceLike = None) -> Transformer:
+    """The port's ``Transformer`` from the reference's params tree
+    (``repro.models.init_model``'s, as nested dicts of arrays).
+
+    ``stack/l{i}`` leaves carry the repeats on a leading axis; repeat r
+    of pattern entry i becomes layer ``r * len(pattern) + i`` of the
+    port's stack, and ``pro{i}`` its prologue layer i.  Projection and
+    embedding weights are cast to the compute dtype once here (the
+    reference casts them inside every apply; the cast is elementwise,
+    so the bits are the same); norm scales stay fp32.  Raises for the
+    families the port does not run yet."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = L.cdtype(cfg)
+
+    def w(x, dtype=dt):
+        return _t(np.asarray(x, np.float32), dev).to(dtype)
+
+    def dense(p):
+        return L.Dense(w(p["w"]), w(p["bias"]) if "bias" in p else None)
+
+    def norm(p):
+        return L.RMSNorm(w(p["scale"], torch.float32))
+
+    def layer(p):
+        a = p["attn"]
+        attn = L.Attention(dense(a["wq"]), dense(a["wk"]), dense(a["wv"]),
+                           dense(a["wo"]))
+        if "q_norm" in a:
+            attn.q_norm, attn.k_norm = norm(a["q_norm"]), norm(a["k_norm"])
+        m = p["mlp"]
+        return Layer(norm(p["norm1"]), attn, norm(p["norm2"]),
+                     L.MLP(dense(m["wi"]), dense(m["wdown"]),
+                           dense(m["wg"]) if "wg" in m else None))
+
+    def repeat(tree, r):
+        if isinstance(tree, dict):
+            return {k: repeat(v, r) for k, v in tree.items()}
+        return np.asarray(tree)[r]
+
+    tok = params["tok"]
+    emb = L.Embed(dense(tok["embed"]),
+                  dense(tok["unembed"]) if "unembed" in tok else None)
+    pro = [layer(params[f"pro{i}"]) for i in range(len(cfg.prologue))]
+    stack = [layer(repeat(params["stack"][f"l{i}"], r))
+             for r in range(cfg.repeats) for i in range(len(cfg.pattern))]
+    return Transformer(cfg, emb, pro, stack, norm(params["final_norm"]))

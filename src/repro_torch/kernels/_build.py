@@ -35,6 +35,8 @@ _SIGNATURES = {
               + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]),
     "topk_score": ("topk_score_f32", [ctypes.c_void_p] * 7
                    + [ctypes.c_int64] * 7 + [ctypes.c_int, ctypes.c_void_p]),
+    "flash": ("flash_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 19
+              + [ctypes.c_void_p]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,92 @@
+"""Launch wrapper of the hand-written CUDA flash-attention kernel.
+
+The kernel (``csrc/flash.cu``) replaces the Pallas-TPU kernel
+``repro/kernels/flash.py::flash_fwd_pallas``; its header says what
+bounds it on the card and how the design answers that.  Its plain
+version is ``ref.attention_ref``.  ``launches`` counts the calls that
+launched the kernel, one per call.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+launches = 0
+HD_MAX = 128      # widest head the kernels' registers and shared memory hold
+
+
+def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool, window: int = 0,
+               q_offset: int = 0) -> torch.Tensor:
+    """out (B, Sq, H, hd) in q's dtype from CUDA tensors q (B, Sq, H, hd)
+    and k, v (B, Sk, KVH, hd), read in place through their strides.
+    fp32 (CUDA cores, no TF32) or bf16 (tensor cores).  Raises on what
+    the kernel does not take: another dtype, mixed dtypes, a head width
+    that is not a multiple of 8 or is above 128, H not a multiple of
+    KVH, a last dimension that is not contiguous, bf16 rows that are not
+    16-byte aligned, or a negative window or offset."""
+    global launches
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_cuda:
+            raise ValueError(f"flash_cuda: {name} is not a CUDA tensor")
+        if x.dim() != 4:
+            raise ValueError(f"flash_cuda: {name} {tuple(x.shape)} is not "
+                             "4-d")
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"flash_cuda: {name} is {x.dtype}; the kernel "
+                            "takes float32 or bfloat16")
+        if x.dtype != q.dtype:
+            raise TypeError(f"flash_cuda: {name} is {x.dtype}, q is "
+                            f"{q.dtype}")
+        if x.device != q.device:
+            raise ValueError("flash_cuda: operands on different devices")
+        if x.shape[-1] > 1 and x.stride(-1) != 1:
+            raise ValueError(f"flash_cuda: {name}'s last dimension is not "
+                             "contiguous")
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Sk, KVH, hd) or v.shape != k.shape:
+        raise ValueError(f"flash_cuda: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} and v {tuple(v.shape)} do not fit "
+                         "(B, Sq, H, hd), (B, Sk, KVH, hd) twice")
+    if KVH < 1 or H % KVH:
+        raise ValueError(f"flash_cuda: H={H} is not a multiple of KVH={KVH}")
+    if hd % 8 or not 8 <= hd <= HD_MAX:
+        raise ValueError(f"flash_cuda: head width {hd} must be a multiple "
+                         f"of 8 in [8, {HD_MAX}]")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_cuda: window={window} and q_offset="
+                         f"{q_offset} must be >= 0")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
+                raise ValueError(
+                    f"flash_cuda: {name}'s bf16 rows are not 16-byte "
+                    "aligned (data pointer and strides)")
+    if B * KVH > 65535:
+        raise ValueError(f"flash_cuda: B*KVH = {B * KVH} exceeds the grid's "
+                         "65535")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    fn = _build.load("flash").flash_fwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*launch_args(q, k, v, out, causal=causal, window=window,
+                              q_offset=q_offset), stream)
+    _build.check(err, "flash_fwd")
+    launches += 1
+    return out
+
+
+def launch_args(q, k, v, out, *, causal: bool, window: int,
+                q_offset: int) -> tuple:
+    """The C entry's arguments but the stream: the four data pointers,
+    the (batch, sequence, head) strides of q, k and v in elements, then
+    B, Sq, Sk, H, KVH, hd, causal, window, q_offset and is_bf16."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            B, Sq, Sk, H, KVH, hd, int(bool(causal)), int(window),
+            int(q_offset), int(q.dtype == torch.bfloat16))

@@ -1,7 +1,7 @@
 """Public kernel entry points, dispatched by the tensors' device.
 
-The counterpart of ``gram_and_rhs``, ``sddmm`` and ``topk_score`` in
-``repro/kernels/ops.py``.  Where the reference chooses between the
+The counterpart of ``gram_and_rhs``, ``sddmm``, ``topk_score`` and the
+``flash`` kernel's entry in ``repro/kernels/ops.py``.  Where the reference chooses between the
 Pallas kernel and the jnp oracle with a ``use_pallas`` flag, here the
 device decides: a CUDA tensor launches the hand-written kernel (or the
 wrapper raises), a CPU tensor runs the plain version of ``ref.py``.
@@ -9,7 +9,9 @@ There is no fallback from the kernel to the plain version.  The CUDA
 kernels mask ragged edges themselves, so no padding happens here.
 
 ``KERNELS`` lists each kernel with its probe shapes: the ``ops.KERNELS``
-envelope of the reference (fp32 probes; bf16 is a later slice).
+envelope of the reference (fp32 probes of gram, sddmm and topk_score;
+their bf16 branches are a later slice; flash's probes with their
+dtypes).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import flash as _flash
 from . import gram as _gram
 from . import ref
 from . import sddmm as _sddmm
@@ -62,6 +65,23 @@ def topk_score(us: torch.Tensor, v: torch.Tensor, k: int, *,
     return finalize_topk(ids, mean, ex2, excl)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """GQA attention forward; see kernels/flash.py.
+
+    q (B, Sq, H, hd), k/v (B, Sk, KVH, hd) -> (B, Sq, H, hd) in q's
+    dtype.  Query position ``q_offset + s``; causal ``kpos <= qpos``,
+    and with a window ``kpos > qpos - window``; softmax scale 1/sqrt(hd);
+    a row with no visible key is 0.
+    """
+    if q.is_cuda:
+        return _flash.flash_cuda(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+
+
 def exclusion_mask(exclude, B: int, N: int, device) -> torch.Tensor:
     """(B, N) float32, 1.0 where ``exclude`` is truthy (zeros for None);
     raises the reference's error on another shape."""
@@ -90,17 +110,19 @@ def finalize_topk(ids, mean, ex2, excl):
 def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
     return {"gram": _gram.launches, "sddmm": _sddmm.launches,
-            "topk_score": _topk.launches}
+            "topk_score": _topk.launches, "flash": _flash.launches}
 
 
 def reset_launch_counts() -> None:
     _gram.launches = 0
     _sddmm.launches = 0
     _topk.launches = 0
+    _flash.launches = 0
 
 
-# probe shapes of the reference's ops.KERNELS envelope, fp32: the
-# operands' shapes and, for topk_score, k
+# probe shapes of the reference's ops.KERNELS envelope: the operands'
+# shapes; for topk_score k; for flash the q and k/v shapes, the dtype
+# and the masking arguments
 KERNELS = {
     "gram": {"production r64 t256 K128": (64, 256, 128),
              "uneven tail r13 t257 K33": (13, 257, 33)},
@@ -112,4 +134,14 @@ KERNELS = {
                                             100),
         "uneven tail + exclusions b3 s8 n130 k7": ((3, 8, 16), (8, 130, 16),
                                                    7)},
+    "flash": {
+        "causal GQA b2 s256 h4/2 hd128": (
+            (2, 256, 4, 128), (2, 256, 2, 128), torch.float32,
+            dict(causal=True)),
+        "windowed decode offset s64 vs 256": (
+            (1, 64, 4, 16), (1, 256, 2, 16), torch.float32,
+            dict(causal=True, window=128, q_offset=192)),
+        "noncausal bf16 uneven s130": (
+            (1, 130, 2, 8), (1, 130, 1, 8), torch.bfloat16,
+            dict(causal=False))},
 }

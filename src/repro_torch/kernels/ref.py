@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels, in fp32.
 
-The counterpart of ``gram_ref``, ``sddmm_ref`` and ``topk_score_ref``
-in ``repro/kernels/ref.py``.  ``kernels/ops.py`` runs these on CPU
+The counterpart of ``gram_ref``, ``sddmm_ref``, ``topk_score_ref`` and
+``attention_ref`` in ``repro/kernels/ref.py``.  ``kernels/ops.py`` runs these on CPU
 tensors, the CPU tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 The bf16 branches of the reference belong to the ``bf16_gather`` slice
@@ -130,3 +130,85 @@ def check_topk_score(got, want, us: torch.Tensor, v: torch.Tensor,
                 f"{TOPK_MEAN_RTOL} of sum |terms|, std "
                 f"{TOPK_STD_RTOL} * sqrt(ex2)")
     return dm.max().item(), ds.max().item()
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Plain-softmax attention, the plain version of the flash kernel.
+
+    Materialises the full (Sq, Sk) fp32 score matrix -- exactly what the
+    kernel exists to avoid -- and masks by position: query position
+    ``q_offset + row``, causal ``kpos <= qpos``, and with a window also
+    ``kpos > qpos - window`` (the window applies to causal attention
+    only, as in the reference).  GQA (H a multiple of KVH) repeats each
+    kv head over its G query heads.  Rows with every key masked return
+    0, as the kernel's ``l == 0`` guard does.  The score matrix is
+    updated in place, so one (B, H, Sq, Sk) fp32 buffer is the peak.
+
+    q (B, Sq, H, hd), k/v (B, Sk, KVH, hd) -> (B, Sq, H, hd) in q's dtype.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qf = q.to(torch.float32)
+    kf = torch.repeat_interleave(k.to(torch.float32), G, dim=2)
+    vf = torch.repeat_interleave(v.to(torch.float32), G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    s.div_(torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        ok = kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        s.masked_fill_(~ok, -torch.inf)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    s.sub_(torch.where(torch.isfinite(m), m, 0.0)).exp_()
+    l = torch.sum(s, dim=-1, keepdim=True)
+    s.div_(torch.where(l == 0.0, 1.0, l))
+    out = torch.einsum("bhqk,bkhd->bqhd", s, vf)
+    return out.to(q.dtype)
+
+
+# The stated tolerance of the flash kernel against ``attention_ref`` on
+# the same inputs: |kernel - plain| <= rtol * (|plain| + sum_k p|v|),
+# sum_k p|v| = attention_ref(q, k, |v|), the magnitude of an output's
+# terms.
+# * fp32: the scores are summed in another order and the kernel takes
+#   exp2 of log2-scaled scores; each p moves by a few 1e-7 relative.
+#   rtol 1e-5;
+# * bf16: the q.k products are exact in the tensor cores (fp32
+#   accumulation), but the kernel rounds p to bf16 for the tensor-core
+#   P.V (at most 2^-9 of sum_k p|v|; the denominator sums the fp32 p),
+#   and both sides round the output to bf16 (2^-9 of |out| each).
+#   rtol 2^-8 covers the three roundings and leaves 2^-9 of the terms'
+#   magnitude for the fp32 sums.
+FLASH_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+
+
+def check_attention(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, what: str = "flash") -> float:
+    """Hold ``got`` against ``attention_ref`` of the same inputs within
+    ``FLASH_RTOL``; raises AssertionError with the worst element and
+    returns the max |got - plain|."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = attention_ref(q, k, v, **kw).to(torch.float32)
+    mag = attention_ref(q.to(torch.float32), k.to(torch.float32),
+                        v.to(torch.float32).abs(), **kw)
+    got = got.to(torch.float32)
+    rtol = FLASH_RTOL[q.dtype]
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: output is not finite")
+    diff = (got - want).abs()
+    bad = diff > rtol * (want.abs() + mag)
+    if bad.any():
+        i = bad.nonzero()[0].tolist()
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {bad.numel()} elements disagree "
+            f"with the plain version, first at {i}: got "
+            f"{got[tuple(i)].item():.6e}, plain {want[tuple(i)].item():.6e}"
+            f"; max |diff| {diff.max().item():.3e}; tolerance rtol {rtol} "
+            "of |plain| + sum p|v| (kernels/ref.py states why)")
+    return diff.max().item()

@@ -1,20 +1,25 @@
-"""Serving: the slot/queue runtime and the recommendation service.
+"""Serving: the slot/queue runtime, LM decoding and the recommendation
+service.
 
-The counterpart of ``SlotServer`` and ``RecommendServer`` in
-``repro/launch/serve.py``.  Requests queue, free slots admit them, and
-one service step advances every active slot at once:
-:class:`RecommendServer` scores all admitted requests in one
-``kernels.ops.topk_score`` call (the hand-written CUDA kernel on the
-card) against the resident posterior cache of a
-:class:`~repro_torch.core.predict.PredictSession`.  Batching changes no
-answer: each query runs one identical float program whatever the
-batch, so results are bitwise equal to sequential
-``PredictSession.recommend`` calls.
+The counterpart of ``make_serve_step``, ``generate``, ``SlotServer``,
+``BatchedServer`` and ``RecommendServer`` in ``repro/launch/serve.py``.
+Requests queue, free slots admit them, and one service step advances
+every active slot at once:
+
+* :class:`BatchedServer` decodes LM tokens over fixed KV-cache slots
+  with ``models.serve_step``;
+* :class:`RecommendServer` scores all admitted requests in one
+  ``kernels.ops.topk_score`` call (the hand-written CUDA kernel on the
+  card) against the resident posterior cache of a
+  :class:`~repro_torch.core.predict.PredictSession`.  Batching changes
+  no answer: each query runs one identical float program whatever the
+  batch, so results are bitwise equal to sequential
+  ``PredictSession.recommend`` calls.
 
 The store is loaded once, when the server is built (``warm_cache``);
-request paths never touch the checkpoint loader.  ``BatchedServer``
-and the LM decode steps of the reference belong to the LM substrate
-(ROADMAP A10) and are not ported yet.
+request paths never touch the checkpoint loader.  The reference's
+``make_sharded_*`` functions describe an XLA program on a TPU mesh and
+are not ported (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -23,7 +28,55 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import random as jr
+from ..models import forward, init_serve_cache, serve_step
+from ..models.config import ModelConfig
 from ..obs import Recorder, clock, integer_buckets
+
+
+def make_serve_step(cfg: ModelConfig):
+    def step(params, caches, tokens):
+        return serve_step(params, cfg, caches, tokens)
+    return step
+
+
+def generate(cfg: ModelConfig, params, prompts: np.ndarray,
+             max_new: int = 32, temperature: float = 0.0,
+             seed: int = 0) -> np.ndarray:
+    """Greedy/temperature decode for a batch of same-length prompts ->
+    (B, S0 + max_new) int32 tokens, the prompts first.
+
+    As the reference does: the prefill runs ``forward`` (flash
+    attention) and its logits are discarded, then the prompt is replayed
+    through the decode path to fill a cache of ``S0 + max_new``
+    positions.  Greedy is argmax, first index on ties; ``temperature >
+    0`` samples ``jax.random.categorical`` from the port's threefry
+    stream (``random.categorical``, keys split from ``PRNGKey(seed)``
+    as the reference splits them) on fp32 logits / temperature.
+    """
+    prompts = np.asarray(prompts)
+    B, S0 = prompts.shape
+    max_len = S0 + max_new
+    dev = params.device
+    forward(params, cfg, {"tokens": prompts})
+    caches = init_serve_cache(params, cfg, B, max_len, prefilled=0)
+    step = make_serve_step(cfg)
+    key = jr.PRNGKey(seed, dev)
+    out = [prompts.astype(np.int32)]
+    lg = None
+    for i in range(S0):
+        lg, caches = step(params, caches, prompts[:, i:i + 1])
+    for _ in range(max_new):
+        if temperature > 0:
+            ks = jr.split(key)
+            key, k2 = ks[0], ks[1]
+            nxt = jr.categorical(k2, lg[:, -1].to(torch.float32)
+                                 / temperature)[:, None]
+        else:
+            nxt = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        out.append(nxt.cpu().numpy().astype(np.int32))
+        lg, caches = step(params, caches, nxt)
+    return np.concatenate(out, axis=1)
 
 
 class SlotServer:
@@ -111,6 +164,63 @@ class SlotServer:
                 break
             self.step()
         return self.done
+
+
+class BatchedServer(SlotServer):
+    """Minimal continuous-batching LM server over fixed decode slots.
+
+    Requests (prompt arrays) queue up; each admitted request feeds its
+    prompt one token a step through the decode path, then decodes
+    greedily until ``max_new`` tokens.  Every step runs the whole slot
+    batch (free slots feed token 0) through ``serve_step``.
+
+    As in the reference, one position counter serves every slot: a
+    request admitted into a slot that served before starts at the
+    server's current position and attends to the cache rows its slot's
+    earlier requests left there, and past ``max_len`` each step
+    overwrites the cache's last row.  Both are the reference's
+    behaviour, reproduced on purpose (ROADMAP, queue C).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, slots: int = 4,
+                 max_len: int = 256,
+                 recorder: Optional[Recorder] = None):
+        super().__init__(slots, recorder=recorder)
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.caches = init_serve_cache(params, cfg, slots, max_len,
+                                       prefilled=0)
+        self._step = make_serve_step(cfg)
+
+    def submit(self, prompt: np.ndarray, max_new: int = 16,
+               req_id: Optional[str] = None) -> str:
+        return self._enqueue(
+            {"prompt": list(prompt), "remaining": max_new,
+             "generated": [], "fed": 0}, req_id)
+
+    def step(self):
+        """One decode step advancing every active slot."""
+        self._observe_batch(sum(r is not None for r in self.active))
+        toks = np.zeros((self.slots, 1), np.int32)
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            if req["fed"] < len(req["prompt"]):
+                toks[s, 0] = req["prompt"][req["fed"]]
+            elif req["generated"]:
+                toks[s, 0] = req["generated"][-1]
+        lg, self.caches = self._step(self.params, self.caches, toks)
+        nxt = torch.argmax(lg[:, -1], dim=-1).cpu().numpy()
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            req["fed"] += 1
+            if req["fed"] >= len(req["prompt"]):
+                req["generated"].append(int(nxt[s]))
+                req["remaining"] -= 1
+                if req["remaining"] <= 0:
+                    self._finish(s)
 
 
 class RecommendServer(SlotServer):

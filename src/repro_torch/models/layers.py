@@ -1,0 +1,299 @@
+"""Model building blocks of the dense decoder: norms, RoPE, GQA attention,
+MLPs, embeddings.
+
+The counterpart of ``repro/models/layers.py`` for the blocks a dense
+decoder-only LM serves with.  Each block is a small ``nn.Module`` that
+holds the reference's parameter leaves under the same names
+(``wq.w``, ``q_norm.scale``, ``wi.w`` ...), and an ``apply_*`` function
+that takes it, as the reference's ``apply_*`` takes its params dict.
+
+Weights are held in the compute dtype (``cdtype``): the reference keeps
+fp32 masters and casts them inside every apply; the cast is
+elementwise, so casting once when the weights are made or loaded gives
+the same bits and saves a read of the fp32 masters (and a write of the
+cast) on every call.  Norm scales stay fp32, as the reference applies
+them.  Nothing here trains: every parameter has ``requires_grad=False``.
+
+Attention has two modes, as in the reference: a causal prefill/forward
+over the whole sequence, which runs ``kernels.ops.flash_attention`` (the
+hand-written CUDA kernel on the card) where the reference runs
+``chunked_attention``; and a decode step against a KV cache, which stays
+plain PyTorch, as the reference's ``decode_attention`` is outside any
+Pallas kernel.  Sliding windows (the ring-buffer decode),
+cross-attention, MLA, MoE and SSM blocks are not ported yet (ROADMAP
+A10): ``models.transformer.check_supported`` refuses their configs.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _frozen(x: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(x, requires_grad=False)
+
+
+def _dense(gen: torch.Generator, fan_in: int, *shape, dtype,
+           device) -> torch.Tensor:
+    """normal * 1/sqrt(fan_in), drawn in fp32 and cast to ``dtype``."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(float(1.0 / np.sqrt(fan_in))).to(dtype)
+
+
+class Dense(nn.Module):
+    """One projection: ``w`` (d_in, d_out) and an optional ``bias``."""
+
+    def __init__(self, w: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.w = _frozen(w)
+        self.bias = None if bias is None else _frozen(bias)
+
+
+class RMSNorm(nn.Module):
+    """``scale`` (d,), fp32."""
+
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.scale = _frozen(scale)
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, device=None) -> RMSNorm:
+    return RMSNorm(torch.ones((d,), dtype=torch.float32, device=device))
+
+
+def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """fp32 inside, times the fp32 scale, then cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p.scale
+    return out.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, H, hd), pos (..., S) int -> rotated, same dtype.
+    Half-split rotation with fp32 angles pos * freqs."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    ang = pos[..., None].to(torch.float32) * freqs            # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                        # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., : hd // 2].to(torch.float32)
+    x2 = x[..., hd // 2:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _gqa_scores_softmax_out(q, k, v, scale):
+    """q (B,Sq,H,hd), k/v (B,Sk,KVH,hd): fp32 scores and softmax, the
+    weights cast to v's dtype for the product with v, as the reference."""
+    B, Sq, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    q = q.reshape(B, Sq, KVH, G, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def decode_attention(q, k_cache, v_cache, cur_len: int):
+    """Single-position decode: q (B,1,H,hd) vs cache (B,Smax,KVH,hd),
+    seeing the cache positions below ``cur_len``.
+
+    The reference masks the positions >= cur_len of the whole cache
+    (weight exactly 0 after its -1e30 mask); here they are cut off
+    instead, which is the same function.  The visible rows are copied
+    out contiguous, so a step's arithmetic is the same whatever the
+    cache's length (``max_len``): a server and ``generate`` with other
+    cache sizes give the same bits.
+    """
+    n = min(int(cur_len), k_cache.shape[1])
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    return _gqa_scores_softmax_out(q, k_cache[:, :n].contiguous(),
+                                   v_cache[:, :n].contiguous(), scale)
+
+
+class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wo`` (and ``q_norm``/``k_norm``)."""
+
+    def __init__(self, wq: Dense, wk: Dense, wv: Dense, wo: Dense,
+                 q_norm: Optional[RMSNorm] = None,
+                 k_norm: Optional[RMSNorm] = None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        self.q_norm, self.k_norm = q_norm, k_norm
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   device=None) -> Attention:
+    D, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=cdtype(cfg), device=device)
+
+    def bias(n):
+        return torch.zeros((n,), **kw) if cfg.qkv_bias else None
+
+    p = Attention(Dense(_dense(gen, D, D, H * hd, **kw), bias(H * hd)),
+                  Dense(_dense(gen, D, D, KVH * hd, **kw), bias(KVH * hd)),
+                  Dense(_dense(gen, D, D, KVH * hd, **kw), bias(KVH * hd)),
+                  Dense(_dense(gen, H * hd, H * hd, D, **kw)))
+    if cfg.qk_norm:
+        p.q_norm = init_rmsnorm(hd, device)
+        p.k_norm = init_rmsnorm(hd, device)
+    return p
+
+
+def _proj(p: Dense, x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    y = torch.matmul(x, p.w)
+    if p.bias is not None:
+        y = y + p.bias
+    return y.reshape(*x.shape[:-1], n_heads, hd)
+
+
+def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
+                    cache: Optional[Params] = None
+                    ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """One causal self-attention layer with RoPE.
+
+    cache: {"k", "v" (B, Smax, KVH, hd), "len" int} -- decode mode.  The
+    new K/V rows are written into the cache's tensors in place (the
+    reference returns new arrays; updating in place saves a copy of the
+    cache a step) at slot ``min(len, Smax - S)``: past the end the
+    reference's ``dynamic_update_slice`` clamps its start, so the last
+    row is overwritten, and so is it here.  Returns (y, new cache) with
+    ``len + 1``.  Without a cache: the whole sequence from position 0,
+    through ``ops.flash_attention``.
+    """
+    B, S, _ = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _proj(p.wq, x, H, hd)
+    k = _proj(p.wk, x, KVH, hd)
+    v = _proj(p.wv, x, KVH, hd)
+    if cfg.qk_norm:
+        q = rms_norm(p.q_norm, q, cfg.norm_eps)
+        k = rms_norm(p.k_norm, k, cfg.norm_eps)
+
+    new_cache = None
+    if cache is not None:
+        cur = int(cache["len"])
+        pos = torch.full((B, S), cur, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        kc, vc = cache["k"], cache["v"]
+        slot = max(0, min(cur, kc.shape[1] - S))
+        kc[:, slot:slot + S] = k.to(kc.dtype)
+        vc[:, slot:slot + S] = v.to(vc.dtype)
+        out = decode_attention(q, kc, vc, cur + 1)
+        new_cache = {"k": kc, "v": vc, "len": cur + 1}
+    else:
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=x.device)[None].expand(B, S)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        out = ops.flash_attention(q, k, v, causal=True)
+
+    y = torch.matmul(out.reshape(B, S, H * hd), p.wo.w)
+    return y, new_cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    device=None) -> Params:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kw = dict(dtype=cdtype(cfg), device=device)
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
+            "len": 0}
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU: ``wi``, ``wg``, ``wdown``; GELU: ``wi``, ``wdown`` with
+    biases."""
+
+    def __init__(self, wi: Dense, wdown: Dense, wg: Optional[Dense] = None):
+        super().__init__()
+        self.wi, self.wdown, self.wg = wi, wdown, wg
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None, device=None) -> MLP:
+    D = cfg.d_model
+    Fd = d_ff or cfg.d_ff
+    kw = dict(dtype=cdtype(cfg), device=device)
+    if cfg.mlp_gelu:
+        return MLP(Dense(_dense(gen, D, D, Fd, **kw), torch.zeros((Fd,), **kw)),
+                   Dense(_dense(gen, Fd, Fd, D, **kw), torch.zeros((D,), **kw)))
+    wi = Dense(_dense(gen, D, D, Fd, **kw))
+    wg = Dense(_dense(gen, D, D, Fd, **kw))
+    return MLP(wi, Dense(_dense(gen, Fd, Fd, D, **kw)), wg)
+
+
+def apply_mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_gelu:
+        h = F.gelu(torch.matmul(x, p.wi.w) + p.wi.bias, approximate="tanh")
+        return torch.matmul(h, p.wdown.w) + p.wdown.bias
+    g = torch.matmul(x, p.wg.w)
+    h = torch.matmul(x, p.wi.w)
+    return torch.matmul(F.silu(g) * h, p.wdown.w)
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """``embed`` (V, D) and, unless tied, ``unembed`` (D, V)."""
+
+    def __init__(self, embed: Dense, unembed: Optional[Dense] = None):
+        super().__init__()
+        self.embed, self.unembed = embed, unembed
+
+
+def init_embed(gen: torch.Generator, cfg: ModelConfig, device=None) -> Embed:
+    kw = dict(dtype=cdtype(cfg), device=device)
+    p = Embed(Dense(_dense(gen, cfg.d_model, cfg.vocab_size, cfg.d_model,
+                           **kw)))
+    if not cfg.tie_embeddings:
+        p.unembed = Dense(_dense(gen, cfg.d_model, cfg.d_model,
+                                 cfg.vocab_size, **kw))
+    return p
+
+
+def embed_tokens(p: Embed, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return p.embed.w[tokens]
+
+
+def unembed(p: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    w = p.embed.w.T if cfg.tie_embeddings else p.unembed.w
+    return torch.matmul(x, w)

@@ -227,3 +227,20 @@ def gamma(key: torch.Tensor, a) -> torch.Tensor:
     keys = split(key, n)
     out = _gamma_one(keys, a.reshape(-1))
     return out.reshape(shape)
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, its default ``mode="low"``:
+    -log(-log(u)) with u uniform on [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for float32
+    logits: the Gumbel-max trick, argmax(gumbel + logits) over the last
+    axis, first index on ties."""
+    g = gumbel(key, tuple(logits.shape)).to(logits.device)
+    return torch.argmax(g + logits, dim=-1)

@@ -39,8 +39,15 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     import repro_torch.core as tc
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import BatchedServer, generate
+    from repro_torch.models import init_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm = get_smoke("qwen3_4b")
     calls = [
+        lambda: init_model(lm),
+        lambda: generate(lm, init_model(lm), [[1, 2, 3]], max_new=2),
+        lambda: BatchedServer(lm, init_model(lm), slots=2),
         lambda: tc.ModelBuilder(num_latent=4),
         lambda: tc.TrainSession(num_latent=4),
         lambda: tc.from_coo([0], [0], [1.0], (1, 1)),

@@ -78,7 +78,8 @@ def test_cpu_dispatch_launches_no_kernel():
     tops.reset_launch_counts()
     tops.gram_and_rhs(*_t(*_gram_inputs(2, 3, 4)))
     tops.sddmm(*_t(*_sddmm_inputs(5, 4)))
-    assert tops.launch_counts() == {"gram": 0, "sddmm": 0, "topk_score": 0}
+    assert tops.launch_counts() == {"gram": 0, "sddmm": 0, "topk_score": 0,
+                                    "flash": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -91,8 +92,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_probe_envelope_mirrors_reference():
     """The port's probes are the reference's fp32 probes: the operands'
-    shapes, and for topk_score the k its probe call asks for."""
+    shapes, and for topk_score the k its probe call asks for.  flash's
+    are all three of the reference's, with their dtypes
+    (``test_torch_flash.py`` holds their masking arguments)."""
     for name, probes in tops.KERNELS.items():
+        if name == "flash":
+            ref_all = {p.label: p for p in jops.KERNELS[name].probes}
+            assert set(probes) == set(ref_all)
+            for label, (q, kv, dtype, _) in probes.items():
+                args = ref_all[label].args
+                assert (q, kv, kv) == tuple(a.shape for a in args)
+                assert str(dtype) == f"torch.{args[0].dtype}"
+            continue
         ref_fp32 = {p.label: p for p in jops.KERNELS[name].probes
                     if p.args[0].dtype == jnp.float32}
         assert set(probes) == set(ref_fp32)

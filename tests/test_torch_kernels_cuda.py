@@ -8,12 +8,14 @@ on the card they run with
 This file imports neither JAX nor ``repro``, so it runs where only the
 port is installed.  Tolerance rtol 1e-5 / atol 1e-4 (gram) and 1e-5
 (sddmm): fp32 on both sides, summed in another order; topk_score is
-held by ``ref.check_topk_score``, whose comment states its tolerance.
+held by ``ref.check_topk_score`` and flash by ``ref.check_attention``,
+whose comments state their tolerances.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash as tflash
 from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -179,3 +181,70 @@ def test_topk_kernel_refuses_what_it_does_not_take(cuda):
         ttopk.topk_score_cuda(us, v, excl, 1025)
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         ttopk.topk_score_cuda(us.cpu(), v, excl, 5)
+
+
+FLASH_CASES = [
+    # (q shape, k/v shape, masking arguments)
+    *[(q, kv, kw) for q, kv, _, kw in tops.KERNELS["flash"].values()],
+    ((2, 130, 4, 16), (2, 257, 2, 16),
+     dict(causal=True, window=96, q_offset=100)),
+    ((1, 8, 2, 8), (1, 4, 1, 8), dict(causal=True, window=2, q_offset=3)),
+    ((2, 80, 9, 64), (2, 80, 3, 64), dict(causal=True)),
+    ((1, 300, 32, 128), (1, 300, 8, 128), dict(causal=True)),
+    ((1, 64, 6, 40), (1, 192, 3, 40), dict(causal=True, q_offset=128)),
+    ((3, 7, 4, 128), (3, 1, 1, 128), dict(causal=False)),
+    ((1, 1, 4, 32), (1, 200, 2, 32), dict(causal=True, q_offset=199)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("q_shape,kv_shape,kw", FLASH_CASES,
+                         ids=[f"{q}-{kv}-{kw}" for q, kv, kw in FLASH_CASES])
+def test_flash_kernel_matches_plain(cuda, q_shape, kv_shape, kw, dtype):
+    rng = np.random.default_rng(sum(q_shape) + sum(kv_shape))
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda, dtype) for s in (q_shape, kv_shape, kv_shape))
+    before = tflash.launches
+    out = tops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tref.check_attention(out, q, k, v, **kw)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_projection_views(cuda):
+    """q, k and v as views of one fused projection (B, S, H + 2 KVH, hd)
+    read in place give the bits of contiguous copies."""
+    qkv = torch.randn(2, 100, 8 + 2 + 2, 64, device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = tops.flash_attention(q, k, v, causal=True)
+    again = tops.flash_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    assert torch.equal(out, again)
+    tref.check_attention(out, q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(1, 8, 4, 16, device=cuda)
+    k = torch.randn(1, 8, 2, 16, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tflash.flash_cuda(q.half(), k.half(), k.half(), causal=True)
+    with pytest.raises(TypeError, match="q is"):
+        tflash.flash_cuda(q, k.bfloat16(), k.bfloat16(), causal=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tflash.flash_cuda(q[..., :12], k[..., :12], k[..., :12],
+                          causal=True)
+    wide = torch.randn(1, 8, 2, 136, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tflash.flash_cuda(wide, wide, wide, causal=True)
+    with pytest.raises(ValueError, match="KVH"):
+        tflash.flash_cuda(q[:, :, :3], k, k, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_cuda(q.transpose(2, 3)[..., :4, :],
+                          k.transpose(2, 3)[..., :2, :],
+                          k.transpose(2, 3)[..., :2, :], causal=True)
