@@ -29,13 +29,17 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    holds every answer bitwise against a sequential ``recommend``, and
    holds the ``topk_score`` kernel against its plain version at the
    reference's probes and at both path shapes, with its times;
-8. lm: holds the ``flash`` kernel against its plain version at the
-   reference's probes, a ragged case and the prefill shape, and times
-   it beside the plain version and PyTorch's SDPA; builds Qwen3-4B at
-   full width and depth with random weights on the card; runs
+8. lm: holds the ``flash`` kernels against their plain version at the
+   reference's probes, ragged cases, GQA groups of 3 and 1 at hd 64
+   and the prefill shape, each through the design ``flash.design``
+   routes it to (``flash_sm90`` for bf16 at hd 64 and 128), and times
+   ``flash_sm90``, the PR-14 kernel of ``flash.cu``, PyTorch's SDPA and
+   the plain version in turns at the forward's shape; builds Qwen3-4B
+   at full width and depth with random weights on the card; runs
    ``forward`` on 4 prompts of 4,096 tokens (36 flash launches each,
-   the kernel held against its plain version at the first and last
-   layer's captured inputs), ``generate`` on 8 prompts of 128 tokens
+   all on ``flash_sm90``, the kernel held against its plain version at
+   the first and last layer's captured inputs), ``generate`` on 8
+   prompts of 128 tokens
    (decode held against forward) and ``BatchedServer`` (8 slots: the
    same 8 prompts, bitwise ``generate``'s tokens; then 16 requests).
 
@@ -177,9 +181,9 @@ def phase_card():
     print(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
           + ", ".join(f"{k} {v:.2f} s"
                       for k, v in sorted(_build.build_seconds.items())))
-    for name in ("gram", "sddmm", "flash"):
+    for name in ("gram", "sddmm", "flash", "flash_sm90"):
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     return smi
 
@@ -797,58 +801,99 @@ def sdpa(q, k, v):
 
 
 def phase_flash(gen):
-    """The flash kernel against its plain version at the reference's
-    probes, a ragged case and the prefill shape at B = 1; then kernel,
-    plain version and SDPA timed at the forward's shape (B = 4).
-    Returns the kernels-line entry without launches."""
+    """The flash kernels against their plain version at the reference's
+    probes, ragged cases, GQA groups of 3 and 1 at hd 64 and the prefill
+    shape at B = 1, each through the design that ``flash.design`` routes
+    it to (and the probe and ragged shapes again in bf16 at hd 128, on
+    flash_sm90); then, in turns within this call at the forward's shape
+    (B = 4): flash_sm90, the PR-14 kernel of flash.cu, SDPA and the plain
+    version.  Returns the kernels-line entry without launches."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import ops, ref
     errs = []
     print(f"flash tolerance: rtol {ref.FLASH_RTOL[torch.float32]} (fp32), "
           f"{ref.FLASH_RTOL[torch.bfloat16]} (bf16) of |plain| + sum p|v| "
           "(kernels/ref.py states why)")
+    for line in _build.build_log("flash_sm90").splitlines():
+        if "registers" in line or "spill" in line or "C75" in line:
+            print(f"  ptxas flash_sm90: {line.strip()}")
 
     def rand(shape, dtype):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
     B, S = LM_PREFILL
+    bf16 = torch.bfloat16
+    ragged = ((2, 130, 4, 16), (2, 257, 2, 16),
+              dict(causal=True, window=96, q_offset=100))
     cases = [(label, q, kv, dt, kw)
              for label, (q, kv, dt, kw) in ops.KERNELS["flash"].items()]
-    cases += [("ragged sq130 sk257 offset 100 window 96", (2, 130, 4, 16),
-               (2, 257, 2, 16), dt, dict(causal=True, window=96,
-                                         q_offset=100))
-              for dt in (torch.float32, torch.bfloat16)]
-    cases.append((f"prefill b1 s{S} h32/8 hd128", (1, S, 32, 128),
-                  (1, S, 8, 128), torch.bfloat16, dict(causal=True)))
+    cases += [("ragged sq130 sk257 offset 100 window 96", *ragged[:2], dt,
+               ragged[2]) for dt in (torch.float32, bf16)]
+    # the same shapes at the Hopper design's head widths
+    cases += [(label + " at hd128", q[:3] + (128,), kv[:3] + (128,), bf16,
+               kw) for label, q, kv, _, kw in cases[:1]]
+    cases += [("ragged sq130 sk257 offset 100 window 96 at hd128",
+               ragged[0][:3] + (128,), ragged[1][:3] + (128,), bf16,
+               ragged[2]),
+              ("smollm G3 hd64 sq300 (900 rows)", (2, 300, 9, 64),
+               (2, 300, 3, 64), bf16, dict(causal=True)),
+              ("whisper G1 hd64 sq150 sk190 noncausal", (2, 150, 16, 64),
+               (2, 190, 16, 64), bf16, dict(causal=False)),
+              ("whisper G1 hd64 sq150 causal", (2, 150, 16, 64),
+               (2, 150, 16, 64), bf16, dict(causal=True)),
+              (f"prefill b1 s{S} h32/8 hd128", (1, S, 32, 128),
+               (1, S, 8, 128), bf16, dict(causal=True))]
     for label, q_shape, kv_shape, dt, kw in cases:
         q, k, v = (rand(s, dt) for s in (q_shape, kv_shape, kv_shape))
+        before = dict(kflash.design_launches)
         out = kflash.flash_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
+        src = [n for n, c in kflash.design_launches.items()
+               if c != before[n]]
+        if src != [kflash.design(dt, q_shape[3])]:
+            raise AssertionError(f"flash {label}: launched {src}")
         e = ref.check_attention(out, q, k, v, **kw, what=f"flash {label}")
         errs.append(e)
-        print(f"  flash {label} {str(dt)[6:]}: max abs err {e:.3e}")
+        print(f"  flash {label} {str(dt)[6:]} on {src[0]}: max abs err "
+              f"{e:.3e}")
         del q, k, v, out
     torch.cuda.empty_cache()
 
     q_shape, kv_shape = (B, S, 32, 128), (B, S, 8, 128)
-    q, k, v = (rand(s, torch.bfloat16) for s in (q_shape, kv_shape,
-                                                 kv_shape))
-    ms = time_ms(lambda: kflash.flash_cuda(q, k, v, causal=True))
-    lib = time_ms(lambda: sdpa(q, k, v))
-    plain = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
+    q, k, v = (rand(s, bf16) for s in (q_shape, kv_shape, kv_shape))
+    fns = {"flash_sm90": lambda: kflash.launch("flash_sm90", q, k, v,
+                                               causal=True),
+           "flash (PR 14)": lambda: kflash.launch("flash", q, k, v,
+                                                  causal=True),
+           "SDPA": lambda: sdpa(q, k, v),
+           "plain": lambda: ref.attention_ref(q, k, v, causal=True)}
+    # in turns: each timed twice, the second round in reverse order
+    times = {n: [] for n in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for n in order:
+            times[n].append(time_ms(fns[n], n=5 if n == "plain" else 20))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
     b_ms, b_by, n_ops = flash_bound(q_shape, kv_shape)
     print(f"  flash at the forward's shape b{B} s{S} h32/8 hd128 bf16 "
-          f"causal: {ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), plain "
-          f"{plain:.3f} ms, SDPA {lib:.3f} ms, bound {b_ms:.3f} ms by "
-          f"{b_by} ({n_ops / 1e9:.1f} GFLOP)")
+          f"causal, bound {b_ms:.3f} ms by {b_by} ({n_ops / 1e9:.1f} GFLOP); "
+          "two rounds in turns, mean:")
+    for n, t in times.items():
+        print(f"    {n}: {ms[n]:.3f} ms ({', '.join(f'{x:.3f}' for x in t)})"
+              f", {n_ops / ms[n] / 1e9:.1f} TFLOP/s, "
+              f"{b_ms / ms[n]:.3f} of the bound")
+    print(f"  flash_sm90 / PR-14 kernel {ms['flash_sm90'] / ms['flash (PR 14)']:.3f}"
+          f", flash_sm90 / SDPA {ms['flash_sm90'] / ms['SDPA']:.3f}")
     del q, k, v
     torch.cuda.empty_cache()
     return {"name": "flash", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_sm90.cu",
             "replaces": "src/repro/kernels/flash.py:129",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "max_abs_err": max(errs), "ms": ms["flash_sm90"],
+            "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": ms["SDPA"], "previous_ms": ms["flash (PR 14)"],
+            "previous_source": "src/repro_torch/kernels/csrc/flash.cu"}
 
 
 def profile_once(fn, label):
@@ -883,6 +928,7 @@ def phase_lm(seed: int, flash_entry):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve as tserve
     from repro_torch.models import forward, init_model, param_count
@@ -940,15 +986,20 @@ def phase_lm(seed: int, flash_entry):
         del logits
     peak = torch.cuda.max_memory_allocated()
     n_fwd = 4
-    if ops.launch_counts()["flash"] != cfg.n_layers * n_fwd:
+    if ops.launch_counts()["flash"] != cfg.n_layers * n_fwd or \
+            kflash.design_launches != {"flash_sm90": cfg.n_layers * n_fwd,
+                                       "flash": 0}:
         raise AssertionError(f"forward: {ops.launch_counts()} flash launches "
-                             f"in {n_fwd} forwards, want {cfg.n_layers} each")
+                             f"({kflash.design_launches} by source) in "
+                             f"{n_fwd} forwards, want {cfg.n_layers} each, "
+                             "all on flash_sm90")
     med = statistics.median(fwd_ms)
     print(f"forward B={B} S={S}: first {first_ms:.1f} ms, then "
           + ", ".join(f"{t:.1f}" for t in fwd_ms) + f" ms (median {med:.1f} "
           f"ms, {B * S / med * 1e3:.0f} tokens/s); peak device memory "
           f"{peak / 1e9:.2f} GB; flash launches "
-          f"{ops.launch_counts()['flash']} in {n_fwd} forwards")
+          f"{ops.launch_counts()['flash']} in {n_fwd} forwards, by source "
+          f"{kflash.design_launches}")
 
     # generate: greedy; every serve_step timed and its logits kept for
     # the prompt positions, by wrapping the module's serve_step
@@ -1046,8 +1097,10 @@ def phase_lm(seed: int, flash_entry):
     # held against
     want = {"gram": 0, "sddmm": 0, "topk_score": 0,
             "flash": cfg.n_layers * (n_fwd + 2)}
-    if counts != want:
-        raise AssertionError(f"lm: launch counts {counts}, want {want}")
+    if counts != want or kflash.design_launches["flash_sm90"] != want["flash"]:
+        raise AssertionError(f"lm: launch counts {counts} "
+                             f"({kflash.design_launches} by source), want "
+                             f"{want}, all flash on flash_sm90")
     print(f"lm path launches {counts} ({cfg.n_layers} per forward: {n_fwd} "
           "timed forwards, generate's prefill and the forward decode is "
           "held against; decode runs no flash kernel)")

@@ -37,6 +37,8 @@ _SIGNATURES = {
                    + [ctypes.c_int64] * 7 + [ctypes.c_int, ctypes.c_void_p]),
     "flash": ("flash_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 19
               + [ctypes.c_void_p]),
+    "flash_sm90": ("flash_sm90_fwd", [ctypes.c_void_p] * 4
+                   + [ctypes.c_int64] * 18 + [ctypes.c_void_p]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -39,8 +39,14 @@
 // tiles stream through a two-stage cp.async ring in shared memory
 // (zero-filled past Sk and hd), so the next tile's load overlaps this
 // tile's products; rows are padded by 8 elements so that ldmatrix is
-// free of bank conflicts.  wgmma, TMA and warp specialisation would
-// take it further; that is later work.
+// free of bank conflicts.
+//
+// Which shapes it serves: kernels/flash.py routes bf16 at hd 64 and 128
+// (every published config's head width, the LM path) to flash_sm90.cu,
+// the Hopper design with wgmma, TMA and warp specialisation.  This
+// file's bf16 kernel serves the other head widths (multiples of 8 up
+// to 128: the smoke configs' hd 16, the probes' hd 8 and 40), and its
+// fp32 kernel every fp32 call.
 //
 // fp32 inputs never touch the tensor cores (no TF32): a second kernel
 // does the same walk on the CUDA cores, four threads to a row, each

@@ -1,10 +1,15 @@
-"""Launch wrapper of the hand-written CUDA flash-attention kernel.
+"""Launch wrapper of the hand-written CUDA flash-attention kernels.
 
-The kernel (``csrc/flash.cu``) replaces the Pallas-TPU kernel
-``repro/kernels/flash.py::flash_fwd_pallas``; its header says what
-bounds it on the card and how the design answers that.  Its plain
+Two sources replace the Pallas-TPU kernel
+``repro/kernels/flash.py::flash_fwd_pallas``, chosen by :func:`design`
+from the dtype and the head width: ``csrc/flash_sm90.cu`` (wgmma, TMA,
+warp specialisation) takes bf16 at hd 64 and 128, the head widths of
+every published config; ``csrc/flash.cu`` (mma.sync in bf16, CUDA cores
+in fp32) takes fp32 and the other bf16 widths.  Each header says what
+bounds it on the card and how the design answers that.  Their plain
 version is ``ref.attention_ref``.  ``launches`` counts the calls that
-launched the kernel, one per call.
+launched a kernel, one per call, and ``design_launches`` splits that
+count by source.
 """
 from __future__ import annotations
 
@@ -13,7 +18,17 @@ import torch
 from . import _build
 
 launches = 0
+design_launches = {"flash_sm90": 0, "flash": 0}
 HD_MAX = 128      # widest head the kernels' registers and shared memory hold
+SM90_HEAD_DIMS = (64, 128)
+
+
+def design(dtype: torch.dtype, hd: int) -> str:
+    """The source whose kernel serves a call: ``flash_sm90`` for bf16 at
+    hd 64 or 128, ``flash`` otherwise."""
+    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
+        return "flash_sm90"
+    return "flash"
 
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -21,11 +36,12 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                q_offset: int = 0) -> torch.Tensor:
     """out (B, Sq, H, hd) in q's dtype from CUDA tensors q (B, Sq, H, hd)
     and k, v (B, Sk, KVH, hd), read in place through their strides.
-    fp32 (CUDA cores, no TF32) or bf16 (tensor cores).  Raises on what
-    the kernel does not take: another dtype, mixed dtypes, a head width
-    that is not a multiple of 8 or is above 128, H not a multiple of
-    KVH, a last dimension that is not contiguous, bf16 rows that are not
-    16-byte aligned, or a negative window or offset."""
+    fp32 (CUDA cores, no TF32) or bf16 (tensor cores), by the kernel of
+    :func:`design`.  Raises on what the kernels do not take: another
+    dtype, mixed dtypes, a head width that is not a multiple of 8 or is
+    above 128, H not a multiple of KVH, a last dimension that is not
+    contiguous, bf16 rows that are not 16-byte aligned, or a negative
+    window or offset."""
     global launches
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
@@ -65,28 +81,47 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(
                     f"flash_cuda: {name}'s bf16 rows are not 16-byte "
                     "aligned (data pointer and strides)")
-    if B * KVH > 65535:
+    source = design(q.dtype, hd)
+    # flash.cu's grid has B*KVH in y; flash_sm90.cu's is one-dimensional
+    if source == "flash" and B * KVH > 65535:
         raise ValueError(f"flash_cuda: B*KVH = {B * KVH} exceeds the grid's "
                          "65535")
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
-    fn = _build.load("flash").flash_fwd
+    out = launch(source, q, k, v, causal=causal, window=window,
+                 q_offset=q_offset)
+    launches += 1
+    design_launches[source] += 1
+    return out
+
+
+def launch(source: str, q, k, v, *, causal: bool, window: int = 0,
+           q_offset: int = 0) -> torch.Tensor:
+    """One launch of ``source``'s kernel on tensors that
+    :func:`flash_cuda` has checked, on the current stream; counts
+    nothing (``chip_smoke.py`` and the card's tests call it to run one
+    design beside the other)."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fn_name = _build._SIGNATURES[source][0]
+    fn = getattr(_build.load(source), fn_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*launch_args(q, k, v, out, causal=causal, window=window,
-                              q_offset=q_offset), stream)
-    _build.check(err, "flash_fwd")
-    launches += 1
+                              q_offset=q_offset, source=source), stream)
+    _build.check(err, fn_name)
     return out
 
 
 def launch_args(q, k, v, out, *, causal: bool, window: int,
-                q_offset: int) -> tuple:
+                q_offset: int, source: str = "flash") -> tuple:
     """The C entry's arguments but the stream: the four data pointers,
     the (batch, sequence, head) strides of q, k and v in elements, then
-    B, Sq, Sk, H, KVH, hd, causal, window, q_offset and is_bf16."""
+    B, Sq, Sk, H, KVH, hd, causal, window, q_offset and, for
+    ``flash.cu``'s entry alone, is_bf16."""
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             B, Sq, Sk, H, KVH, hd, int(bool(causal)), int(window),
-            int(q_offset), int(q.dtype == torch.bfloat16))
+            int(q_offset))
+    if source == "flash":
+        return args + (int(q.dtype == torch.bfloat16),)
+    return args

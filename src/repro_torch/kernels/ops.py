@@ -118,6 +118,7 @@ def reset_launch_counts() -> None:
     _sddmm.launches = 0
     _topk.launches = 0
     _flash.launches = 0
+    _flash.design_launches.update(dict.fromkeys(_flash.design_launches, 0))
 
 
 # probe shapes of the reference's ops.KERNELS envelope: the operands'

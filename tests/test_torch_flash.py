@@ -175,3 +175,44 @@ def test_launch_arguments_fit_the_c_entry():
                                "window", "q_offset", "is_bf16")] == \
         [2, 10, 10, 4, 2, 16, 1, 3, 5, 1]
     assert named["v"] == v.data_ptr() != q.data_ptr()
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 128, "flash_sm90"), (torch.bfloat16, 64, "flash_sm90"),
+    (torch.bfloat16, 16, "flash"), (torch.bfloat16, 8, "flash"),
+    (torch.bfloat16, 40, "flash"), (torch.bfloat16, 120, "flash"),
+    (torch.float32, 128, "flash"), (torch.float32, 64, "flash")])
+def test_design_routes_by_dtype_and_head_width(dtype, hd, want):
+    """bf16 at the published configs' head widths goes to the Hopper
+    design; fp32 and the other bf16 widths stay on flash.cu."""
+    assert tflash.design(dtype, hd) == want
+
+
+def test_sm90_launch_arguments_fit_the_c_entry():
+    """flash_sm90.cu's entry takes flash.cu's arguments without is_bf16:
+    the wrapper's tuple for it fits its signature, in number and order."""
+    src = (_build.CSRC / "flash_sm90.cu").read_text()
+    sig = re.search(r'extern "C" int flash_sm90_fwd\(([^)]*)\)',
+                    src).group(1)
+    params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
+    name, argtypes = _build._SIGNATURES["flash_sm90"]
+    assert name == "flash_sm90_fwd" and len(argtypes) == len(params)
+    assert argtypes[-1] is ctypes.c_void_p and params[-1] == "stream"
+    assert all(t is ctypes.c_void_p for t in argtypes[:4])
+    assert all(t is ctypes.c_int64 for t in argtypes[4:-1])
+    qkv = torch.zeros(2, 10, 8 + 2 + 2, 64, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = torch.empty(2, 10, 8, 64, dtype=torch.bfloat16)
+    args = tflash.launch_args(q, k, v, out, causal=True, window=3,
+                              q_offset=5, source="flash_sm90")
+    named = dict(zip(params, args))
+    assert len(args) == len(params) - 1
+    assert (named["q_sb"], named["q_ss"], named["q_sh"]) == (7680, 768, 64)
+    assert (named["k_sb"], named["v_ss"], named["v_sh"]) == (7680, 768, 64)
+    assert [named[n] for n in ("B", "Sq", "Sk", "H", "KVH", "hd", "causal",
+                               "window", "q_offset")] == \
+        [2, 10, 10, 8, 2, 64, 1, 3, 5]
+    assert named["k"] == k.data_ptr() != q.data_ptr()
+    # flash.cu's entry keeps its is_bf16 as the last argument
+    assert tflash.launch_args(q, k, v, out, causal=True, window=3,
+                              q_offset=5)[:-1] == args

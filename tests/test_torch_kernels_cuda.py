@@ -248,3 +248,93 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tflash.flash_cuda(q.transpose(2, 3)[..., :4, :],
                           k.transpose(2, 3)[..., :2, :],
                           k.transpose(2, 3)[..., :2, :], causal=True)
+
+
+# bf16 cases at the Hopper design's head widths (64, 128) that cross its
+# tiles of 128 folded rows and 128 keys
+SM90_CASES = [
+    # Sq*G = 300 rows, Sk = 100 keys: neither a multiple of 128
+    ((2, 100, 6, 64), (2, 100, 2, 64), dict(causal=True)),
+    # G = 1, Sk = 333 from an offset of 256
+    ((1, 77, 4, 128), (1, 333, 4, 128), dict(causal=True, q_offset=256)),
+    # smollm: 9 query heads on 3 kv heads, G = 3
+    ((2, 200, 9, 64), (2, 200, 3, 64), dict(causal=True)),
+    # whisper: 16 heads of 64, G = 1; causal decoder, non-causal encoder
+    ((2, 150, 16, 64), (2, 150, 16, 64), dict(causal=True)),
+    ((2, 150, 16, 64), (2, 190, 16, 64), dict(causal=False)),
+    # q_offset plus a window at hd 128: tiles before the window skipped
+    ((2, 130, 8, 128), (2, 500, 2, 128),
+     dict(causal=True, window=200, q_offset=370)),
+    ((1, 64, 8, 128), (1, 1000, 2, 128), dict(causal=False)),
+    ((1, 1, 32, 128), (1, 259, 8, 128), dict(causal=True, q_offset=258)),
+]
+WIDE_CASES = [c for c in FLASH_CASES if c[0][3] in tflash.SM90_HEAD_DIMS] \
+    + SM90_CASES
+
+
+def _bf16(shapes, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(device, torch.bfloat16) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["flash_sm90", "flash"])
+@pytest.mark.parametrize("q_shape,kv_shape,kw", WIDE_CASES,
+                         ids=[f"{q}-{kv}-{kw}" for q, kv, kw in WIDE_CASES])
+def test_flash_designs_match_plain(cuda, q_shape, kv_shape, kw, source):
+    """Both designs at bf16 hd 64/128: the one the wrapper routes there
+    (flash_sm90) and the PR-14 kernel of flash.cu, launched directly."""
+    q, k, v = _bf16((q_shape, kv_shape, kv_shape), cuda,
+                    sum(q_shape) + sum(kv_shape))
+    out = tflash.launch(source, q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    tref.check_attention(out, q, k, v, **kw, what=source)
+
+
+@pytest.mark.cuda
+def test_flash_routes_by_dtype_and_head_width(cuda):
+    """bf16 at hd 64 and 128 launches flash_sm90; fp32 at hd 128 and
+    bf16 at hd 16 launch flash.cu's kernels; ``launches`` is the sum."""
+    tops.reset_launch_counts()
+    for dtype, hd, want in ((torch.bfloat16, 128, "flash_sm90"),
+                            (torch.bfloat16, 64, "flash_sm90"),
+                            (torch.float32, 128, "flash"),
+                            (torch.bfloat16, 16, "flash")):
+        q, k, v = (torch.randn(1, 40, 4, hd, device=cuda).to(dtype)
+                   for _ in range(3))
+        before = dict(tflash.design_launches)
+        tops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert {s: n - before[s] for s, n in
+                tflash.design_launches.items()} == \
+            {s: int(s == want) for s in before}, (dtype, hd)
+    assert tops.launch_counts()["flash"] == 4
+    assert tflash.design_launches == {"flash_sm90": 2, "flash": 2}
+
+
+@pytest.mark.cuda
+def test_flash_sm90_reads_strided_projection_views(cuda):
+    """At hd 128, q, k and v as views of one fused projection give the
+    bits of contiguous copies (TMA reads k and v through their strides)."""
+    qkv = torch.randn(2, 300, 8 + 2 + 2, 128, device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    before = tflash.design_launches["flash_sm90"]
+    out = tops.flash_attention(q, k, v, causal=True)
+    again = tops.flash_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    assert tflash.design_launches["flash_sm90"] == before + 2
+    assert torch.equal(out, again)
+    tref.check_attention(out, q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_flash_sm90_gives_the_same_bits_twice(cuda):
+    q, k, v = _bf16(((2, 600, 32, 128), (2, 600, 8, 128),
+                     (2, 600, 8, 128)), cuda, 7)
+    a = tops.flash_attention(q, k, v, causal=True)
+    b = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
