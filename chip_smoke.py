@@ -28,7 +28,15 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    protein -> compounds, each excluding the query's training items),
    holds every answer bitwise against a sequential ``recommend``, and
    holds the ``topk_score`` kernel against its plain version at the
-   reference's probes and at both path shapes, with its times;
+   reference's probes, at both path shapes and at k = 2,048 and k = N
+   of the 8,192 proteins; times it (a call, its scoring pass and its
+   selection pass apart) beside its first design
+   (``scripts_dev/topk_score_v1.cu``), the plain version and one
+   library expression; then writes a store of 512 seeded samples at
+   K = 128 (2,048 compounds x 8,192 proteins) with the port's
+   checkpoint code and serves ``PredictSession.recommend_rows`` from it
+   at k = 100 and k = 2,048, held bitwise against B = 1 calls and
+   against the plain version;
 8. lm: holds the ``flash`` kernels against their plain version at the
    reference's probes, ragged cases, GQA groups of 3 and 1 at hd 64
    and the prefill shape, each through the design ``flash.design``
@@ -76,6 +84,11 @@ WITNESS_SWEEPS = (20, 10)
 SERVE_SWEEPS = (4, 32)    # burn-in, saved posterior samples
 SERVE_SLOTS, SERVE_K, SERVE_REQUESTS = 8, 100, 64
 SERVE_CACHE_BYTES = 8 << 30
+# the 512-sample store: compounds, proteins, samples; served at k = 100
+# and at k = 2,048
+STORE512 = (2048, 8192, 512)
+STORE512_K = 2048
+PREVIOUS_TOPK = "scripts_dev/topk_score_v1.cu"
 # the store's reload runs the in-session accumulator's float program
 # over exact copies of the samples: the same bits are expected, and
 # 1e-6 relative (the reference's reload tolerance) is what is held
@@ -96,6 +109,22 @@ def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """Mean of n launches queued back to back between two CUDA events:
+    the device's time a launch once the host runs ahead of it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
 
 
 def time_ms(fn, n: int = 20) -> float:
@@ -176,12 +205,14 @@ def phase_card():
     print(f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     from repro_torch.kernels import _build
+    import topk_score_v1
+    topk_score_v1.register()   # the previous design, timed beside
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
           + ", ".join(f"{k} {v:.2f} s"
                       for k, v in sorted(_build.build_seconds.items())))
-    for name in ("gram", "sddmm", "flash", "flash_sm90"):
+    for name in ("gram", "sddmm", "topk_score", "flash", "flash_sm90"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -533,6 +564,167 @@ def step_breakdown(sess, path):
           + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in parts.items()))
 
 
+def same_as_single_calls(us, v, k, excl, label):
+    """Raise unless a batched ``ops.topk_score`` call is the same bits as
+    one call per user."""
+    import torch
+    from repro_torch.kernels import ops
+    got = ops.topk_score(us, v, k, exclude=excl)
+    for r in range(us.shape[0]):
+        one = ops.topk_score(us[r:r + 1], v, k, exclude=excl[r:r + 1])
+        for a, b in zip(got, one):
+            if not torch.equal(a[r:r + 1].view(torch.int32),
+                               b.view(torch.int32)):
+                raise AssertionError(f"topk_score {label}: B="
+                                     f"{us.shape[0]} differs from B=1 "
+                                     "calls")
+
+
+def time_topk(us, v, k, excl, label):
+    """The kernel's time a call, its scoring and selection passes apart
+    (over one scratch), one library expression's and the bound; prints
+    them and returns the numbers of the kernels line."""
+    from repro_torch.kernels import topk_score as ktopk
+    B, S, K = us.shape
+    N = v.shape[1]
+    ms = time_ms(lambda: ktopk.topk_score_cuda(us, v, excl, k))
+    queued = queued_ms(lambda: ktopk.topk_score_cuda(us, v, excl, k))
+    bufs = ktopk.launch(us, v, excl, k)
+    t0 = time.perf_counter()
+    for _ in range(100):        # checks, plan, the C entry; no kernel
+        ktopk.launch(us, v, excl, k, 0, bufs)
+    host = (time.perf_counter() - t0) * 10
+    scoring = time_ms(lambda: ktopk.launch(us, v, excl, k, 1, bufs))
+    selection = time_ms(lambda: ktopk.launch(us, v, excl, k, 2, bufs))
+    lib = time_ms(lambda: library_topk(us, v, k, excl))
+    b_ms, b_by = topk_bound(B, S, N, K, k)
+    plan = ktopk.plan(B, N, k, _n_sm())
+    items = S * N * K * 4
+    print(f"  topk_score {label} k={k}: {ms:.3f} ms a call ({queued:.3f} "
+          f"ms a call queued back to back; host work {host:.3f} ms a "
+          "call), library "
+          f"(einsum + moments + torch.topk) {lib:.3f} ms, bound {b_ms:.3f} "
+          f"ms by {b_by} ({items / 1e9:.3f} GB of items), {b_ms / ms:.3f} "
+          f"of it; scoring pass {scoring:.4f} ms ({items / scoring / 1e6:.0f}"
+          f" GB/s of items, one read a group of {ktopk.GROUP} users), "
+          f"selection pass {selection:.4f} ms; plan: {plan.tn} items a "
+          f"scoring block, {plan.route} route, {plan.lists} lists, "
+          f"{plan.merges} merge rounds")
+    return {"ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _n_sm() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def write_store(directory, n_users: int, n_items: int, nsamples: int,
+                seed: int, device="cuda"):
+    """A posterior-sample store of ``nsamples`` seeded N(0, 1) factor
+    draws at K = 128, written by the port's session saver
+    (``checkpoint/ckpt.py``): ``model.json`` and one sample a step.
+    The block holds 8 distinct items a user."""
+    import numpy as np
+    import torch
+    from repro_torch.core import AdaptiveGaussian, ModelBuilder, from_coo
+    from repro_torch.core.gibbs import init_state
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n_users), 8)
+    cols = (rows * 997 + np.tile(np.arange(8) * 1021, n_users)) % n_items
+    vals = rng.normal(size=rows.size).astype(np.float32)
+    train = from_coo(rows, cols, vals, (n_users, n_items), device=device)
+    b = ModelBuilder(num_latent=128, device=device)
+    b.add_entity("compound", n_users)
+    b.add_entity("protein", n_items)
+    b.add_block("compound", "protein", train, noise=AdaptiveGaussian())
+    sess = b.session(burnin=0, nsamples=nsamples, seed=seed, save_freq=1,
+                     save_dir=directory)
+    state = init_state(sess.model, sess.data, seed)
+    saver = sess._make_saver()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for s in range(nsamples):
+        factors = tuple(torch.randn(n, 128, device=device, generator=gen)
+                        for n in (n_users, n_items))
+        saver.save(s + 1, state._replace(factors=factors, step=s + 1))
+    saver.wait()
+
+
+def serve_store512(seed: int):
+    """``PredictSession.recommend_rows`` from a store of 512 samples at
+    K = 128, which the first design refused (S * K above its shared
+    memory): 8 compounds at k = 100 and k = 2,048, each held bitwise
+    against B = 1 calls and against the plain version; the kernel's
+    times at that shape."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import PredictSession
+    from repro_torch.kernels import ops, ref
+    n_users, n_items, nsamples = STORE512
+    block = ("compound", "protein")
+    store = tempfile.mkdtemp(prefix="chip_smoke_store512_")
+    try:
+        t0 = time.perf_counter()
+        write_store(store, n_users, n_items, nsamples, seed)
+        on_disk = sum(f.stat().st_size for f in Path(store).rglob("*")
+                      if f.is_file())
+        print(f"store of {nsamples} samples at K=128 ({n_users} compounds "
+              f"x {n_items} proteins) written in "
+              f"{time.perf_counter() - t0:.2f} s, {on_disk / 1e9:.3f} GB "
+              "on disk")
+        sess = PredictSession(store, cache_bytes=SERVE_CACHE_BYTES)
+        rng = np.random.default_rng(seed + 2)
+        users = rng.choice(n_users, SERVE_SLOTS, replace=False)
+        excl = [np.sort(rng.choice(n_items, 64, replace=False))
+                for _ in users]
+        rows = sess.user_rows(users, block)
+        sess.warm_cache()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        recs = {k: sess.recommend_rows(rows, k=k, block=block,
+                                       exclude=excl)
+                for k in (SERVE_K, STORE512_K)}
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        want = {"gram": 0, "sddmm": 0, "topk_score": 2, "flash": 0}
+        if counts != want:
+            raise AssertionError(f"store512: launch counts {counts}, want "
+                                 f"{want}")
+        print(f"store512: recommend_rows of {SERVE_SLOTS} compounds at "
+              f"k={SERVE_K} and k={STORE512_K}: {wall:.1f} ms for both "
+              f"(host clock), launches {counts}")
+        v = sess.warm_cache().factors[1]
+        mask = torch.from_numpy(sess._exclude_mask(
+            excl, SERVE_SLOTS, n_items)).to("cuda")
+        for k, rec in recs.items():
+            label = (f"store512 B={SERVE_SLOTS} S={nsamples} N={n_items} "
+                     f"K=128 k={k}")
+            got = [torch.from_numpy(x).to("cuda")
+                   for x in (rec.ids, rec.mean, rec.std)]
+            dm, ds = ref.check_topk_score(got, plain_topk(rows, v, k, mask),
+                                          rows, v, f"topk_score {label}")
+            for r, u in enumerate(users):
+                one = sess.recommend_rows(rows[r:r + 1], k=k, block=block,
+                                          exclude=[excl[r]])
+                for key in ("ids", "mean", "std"):
+                    if not same_bits(getattr(rec, key)[r],
+                                     getattr(one, key)[0]):
+                        raise AssertionError(f"{label}: {key} of compound "
+                                             f"{u} differs from a B=1 call")
+                if np.isin(rec.ids[r], excl[r]).any():
+                    raise AssertionError(f"{label}: an excluded protein "
+                                         "was recommended")
+            print(f"  {label}: max |mean diff| {dm:.3e}, max |std diff| "
+                  f"{ds:.3e} against the plain version; bitwise equal to "
+                  f"{SERVE_SLOTS} calls with B=1")
+            time_topk(rows, v, k, mask, f"store512 B={SERVE_SLOTS} "
+                      f"S={nsamples} N={n_items} K=128")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def phase_serving(train, test, seed: int, gen):
     """The serving path: a store trained at the slice's width, reloaded
     by ``PredictSession`` and served through ``RecommendServer`` in both
@@ -544,9 +736,9 @@ def phase_serving(train, test, seed: int, gen):
     import torch
     from repro_torch.core import AdaptiveGaussian, ModelBuilder, PredictSession
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import topk_score as ktopk
     from repro_torch.launch.serve import RecommendServer
     from repro_torch.obs import Histogram, percentile_summary
+    import topk_score_v1 as previous
 
     burnin, nsamples = SERVE_SWEEPS
     # the kernel's first call loads its library and its functions; a
@@ -555,7 +747,7 @@ def phase_serving(train, test, seed: int, gen):
     ops.topk_score(torch.ones(1, 1, 4, device="cuda"),
                    torch.ones(1, 2000, 4, device="cuda"), 1)
     torch.cuda.synchronize()
-    print(f"topk_score first call (library load, scoring and merge "
+    print(f"topk_score first call (library load, scoring and selection "
           f"kernels): {(time.perf_counter() - t0) * 1e3:.1f} ms")
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
@@ -715,57 +907,63 @@ def phase_serving(train, test, seed: int, gen):
         print(f"  topk_score exact ties: {pairs} duplicated pairs, each "
               "lowest id first")
 
-        entry = {"name": "topk_score", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/topk_score.cu",
-                 "replaces": "src/repro/kernels/topk_score.py:139",
-                 "launches": counts["topk_score"], "ms": 0.0,
-                 "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-        by = {"bytes": 0.0, "operations": 0.0}
         cache = sess.warm_cache()
+        shapes = []
         for p in paths:
             us = sess.user_rows(p["users"][:SERVE_SLOTS], p["block"])
             _, ie = sess._block_entities(p["block"])
             v = cache.factors[ie]
-            S, N, K = v.shape
-            excl = torch.zeros((SERVE_SLOTS, N), device="cuda")
+            excl = torch.zeros((SERVE_SLOTS, v.shape[1]), device="cuda")
             for r, e in enumerate(p["excl"][:SERVE_SLOTS]):
                 excl[r, torch.as_tensor(e, device="cuda").long()] = 1.0
-            label = f"{p['label']} B={SERVE_SLOTS} S={S} N={N} K={K}"
-            got = check(us, v, SERVE_K, excl, label)
-            for r in range(SERVE_SLOTS):
-                one = ops.topk_score(us[r:r + 1], v, SERVE_K,
-                                     exclude=excl[r:r + 1])
-                for a, b_ in zip(got, one):
-                    if not torch.equal(a[r:r + 1].view(torch.int32),
-                                       b_.view(torch.int32)):
-                        raise AssertionError(
-                            f"topk_score {label}: B={SERVE_SLOTS} differs "
-                            "from B=1 calls")
-            ms = time_ms(lambda: ktopk.topk_score_cuda(us, v, excl,
-                                                       SERVE_K))
+            shapes.append((p["label"], us, v, excl))
+        # k above 1,024 (the radix route) and k = N, N = 8,192 proteins
+        label, us, v, excl = shapes[0]
+        for k in (STORE512_K, v.shape[1]):
+            lab = f"{label} B={SERVE_SLOTS} N={v.shape[1]} k={k}"
+            check(us, v, k, excl, lab)
+            same_as_single_calls(us, v, k, excl, lab)
+            print(f"  topk_score {lab}: bitwise equal to {SERVE_SLOTS} "
+                  "calls with B=1")
+
+        entry = {"name": "topk_score", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/topk_score.cu",
+                 "replaces": "src/repro/kernels/topk_score.py:139",
+                 "launches": counts["topk_score"], "ms": 0.0,
+                 "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                 "previous_ms": 0.0, "previous_source": PREVIOUS_TOPK}
+        by = {"bytes": 0.0, "operations": 0.0}
+        for label, us, v, excl in shapes:
+            S, N, K = v.shape
+            label = f"{label} B={SERVE_SLOTS} S={S} N={N} K={K}"
+            check(us, v, SERVE_K, excl, label)
+            same_as_single_calls(us, v, SERVE_K, excl, label)
+            prev_out = ops.finalize_topk(*previous.topk(us, v, excl,
+                                                        SERVE_K), excl)
+            ref.check_topk_score(prev_out, plain_topk(us, v, SERVE_K, excl),
+                                 us, v, f"first-design topk_score {label}")
+            t = time_topk(us, v, SERVE_K, excl, label)
+            prev = time_ms(lambda: previous.topk(us, v, excl, SERVE_K))
             plain = time_ms(lambda: ref.topk_score_ref(us, v, excl,
                                                        SERVE_K))
-            lib = time_ms(lambda: library_topk(us, v, SERVE_K, excl))
-            b_ms, b_by = topk_bound(SERVE_SLOTS, S, N, K, SERVE_K)
-            plan = ktopk.plan(SERVE_SLOTS, N, SERVE_K, torch.cuda
-                              .get_device_properties(0)
-                              .multi_processor_count)
-            print(f"  topk_score {label}: {ms:.3f} ms, plain {plain:.3f} "
-                  f"ms, library (einsum + moments + torch.topk) "
-                  f"{lib:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
-                  f"({S * N * K * 4 / 1e9:.3f} GB of items); "
-                  f"{SERVE_SLOTS * S * N * K * 4 / ms / 1e6:.0f} GB/s "
-                  f"counting one read per user; chunk {plan.chunk}, "
-                  f"{plan.lists} lists, {plan.merges} merge passes; "
+            print(f"  topk_score {label}: first design "
+                  f"({PREVIOUS_TOPK}) {prev:.3f} ms, this one {t['ms']:.3f}"
+                  f" ({prev / t['ms']:.2f}x); plain {plain:.3f} ms; "
                   f"bitwise equal to {SERVE_SLOTS} calls with B=1")
-            for key, val in (("ms", ms), ("plain_ms", plain),
-                             ("library_ms", lib), ("bound_ms", b_ms)):
+            for key, val in (("ms", t["ms"]), ("plain_ms", plain),
+                             ("library_ms", t["library_ms"]),
+                             ("bound_ms", t["bound_ms"]),
+                             ("previous_ms", prev)):
                 entry[key] += val
-            by[b_by] += b_ms
+            by[t["bound_by"]] += t["bound_ms"]
         entry["bound_by"] = max(by, key=by.get)
         entry["max_abs_err"] = max(errs)
         print(f"  topk_score, one call at each path shape: "
-              f"{entry['ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms")
+              f"{entry['ms']:.3f} ms (first design {entry['previous_ms']:.3f}"
+              f"), bound {entry['bound_ms']:.3f} ms")
+        del sess, cache, shapes, us, v, excl
+        torch.cuda.empty_cache()
+        serve_store512(seed)
         return entry
     finally:
         shutil.rmtree(store, ignore_errors=True)
@@ -1195,11 +1393,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_file():
+    if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_file() \
+            or not (ROOT / PREVIOUS_TOPK).is_file():
         print("chip_smoke: run it from the root of a checkout of the repo",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(ROOT / "scripts_dev"))
 
     print("== card")
     phase_card()

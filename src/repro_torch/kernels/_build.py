@@ -5,7 +5,9 @@ shared library, ``build/<name>-<hash>.so`` at the repository root (a
 directory git ignores), built for ``sm_90a`` at first use.  The hash
 covers the source and the flags, so an edited source never loads a
 stale library.  All sources build at once, one nvcc each, started
-together.  Nothing is built when a module is imported.
+together.  Nothing is built when a module is imported.  ``register``
+adds a source kept outside ``csrc/`` (an earlier design that a script
+times beside the current one) to the same build.
 
 Every C entry returns the ``cudaError_t`` of its launch; the wrappers
 raise when it is not 0 (:func:`check`).
@@ -34,12 +36,17 @@ _SIGNATURES = {
     "sddmm": ("sddmm_f32", [ctypes.c_void_p] * 3
               + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]),
     "topk_score": ("topk_score_f32", [ctypes.c_void_p] * 7
-                   + [ctypes.c_int64] * 7 + [ctypes.c_int, ctypes.c_void_p]),
+                   + [ctypes.c_int64] * 9
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     "flash": ("flash_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 19
               + [ctypes.c_void_p]),
     "flash_sm90": ("flash_sm90_fwd", [ctypes.c_void_p] * 4
                    + [ctypes.c_int64] * 18 + [ctypes.c_void_p]),
 }
+
+# sources outside csrc/ (a kept design timed beside the current one),
+# by name; see register()
+_SOURCES: Dict[str, Path] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
@@ -62,8 +69,20 @@ def nvcc_path() -> str:
         "first use; set CUDA_HOME to the CUDA toolkit or put nvcc on PATH")
 
 
+def register(name: str, source, fn_name: str, argtypes) -> None:
+    """Build ``source``, a .cu file with a plain C interface outside
+    ``csrc/``, as library ``name`` beside the package's own sources,
+    with the C entry ``fn_name`` of ctypes ``argtypes``."""
+    _SOURCES[name] = Path(source)
+    _SIGNATURES[name] = (fn_name, list(argtypes))
+
+
+def _source(name: str) -> Path:
+    return _SOURCES.get(name, CSRC / f"{name}.cu")
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -82,7 +101,7 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             log = open(out.with_suffix(".log"), "w")
             procs[n] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_source(n))],
                 stdout=log, stderr=subprocess.STDOUT), tmp, log,
                 time.perf_counter())
         failed = []

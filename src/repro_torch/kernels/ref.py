@@ -87,7 +87,9 @@ def topk_score_ref(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor,
 #   roundings of the sums) that is 1e-3 * sqrt(ex2);
 # * ids: equal, except where the selected means of neighbouring slots
 #   lie within the mean tolerance of each other (near-ties, which
-#   another summation order may swap).  Exact ties agree.
+#   another summation order may swap).  Exact ties agree.  The std is
+#   held item for item (by id), so a swapped near-tie compares each
+#   item's std with its own.
 TOPK_MEAN_RTOL = 1e-5
 TOPK_STD_RTOL = 1e-3
 
@@ -112,7 +114,15 @@ def check_topk_score(got, want, us: torch.Tensor, v: torch.Tensor,
     stol = TOPK_STD_RTOL * torch.sqrt(wmean * wmean + wstd * wstd)
     zero = torch.zeros_like(wmean)
     dm = torch.where(valid, (mean - wmean).abs(), zero)
-    ds = torch.where(valid, (std - wstd).abs(), zero)
+    # std item for item: a near-tie may hold two items in the other order
+    # on the two sides (the ids rule below), and then the slot holds
+    # another item's std; an item that only one side selected (the last
+    # slot against the first item left out) has no std to compare
+    gids, order = torch.sort(ids.long(), dim=1)
+    at = torch.searchsorted(gids, wids.long().contiguous()).clamp_max(k - 1)
+    same = valid & (gids.gather(1, at) == wids.long())
+    ds = torch.where(same, (std.gather(1, order.gather(1, at)) - wstd).abs(),
+                     zero)
     pair_tol = torch.maximum(mtol[:, 1:], mtol[:, :-1])
     gap = (wmean[:, 1:] - wmean[:, :-1]).abs() <= pair_tol
     no = torch.zeros((B, 1), dtype=torch.bool, device=v.device)

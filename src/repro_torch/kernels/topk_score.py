@@ -2,10 +2,16 @@
 
 The kernel (``csrc/topk_score.cu``) replaces the Pallas-TPU kernel
 ``repro/kernels/topk_score.py::topk_score_pallas``; its header says what
-bounds it on the card and how the two-pass design answers that.  Its
-plain version is ``ref.topk_score_ref``.  ``launches`` counts the calls
-that launched the kernel: one scoring pass and its merge passes each
-(:func:`plan` gives their number).
+bounds it on the card and how its two passes answer that.  Its plain
+version is ``ref.topk_score_ref``.
+
+``launches`` counts the calls that launched the kernel, one per call.
+A call launches ``2 + merges`` CUDA kernels when k <= 1,024 (scoring,
+the first selecting round over chunks, the later rounds over their
+lists) and ``3 + merges`` above (scoring, the radix select, the tile
+sort, the merge rounds); :func:`plan` gives ``merges``.  Any 1 <= k <= N, S and K are taken: the limit is device
+memory, for the scratch of 12 bytes per (user, item) and the sorted
+runs of 64-bit keys (:func:`scratch_bytes`).
 """
 from __future__ import annotations
 
@@ -17,17 +23,22 @@ import torch
 from . import _build
 
 launches = 0
-CHUNK = 1024          # most items one scoring block ranks; k's limit
-MIN_CHUNK = 128
-MERGE_CAP = 4096      # candidates one merge block sorts
-SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (bytes)
+GROUP = 8             # users a scoring block serves
+SELECT_CAP = 1024     # largest k of the chunk route; above, radix select
+SEGMENT = 8192        # keys a selecting block holds
+SORT_CAP = 4096       # keys a sorting block holds
+_n_sm = {}            # multiprocessors, by device index
 
 
 class Plan(NamedTuple):
-    chunk: int        # items per scoring block, a power of 2
-    group: int        # candidate lists per merge block
-    lists: int        # scoring blocks per user
-    merges: int       # merge passes after the scoring pass
+    tn: int           # items a scoring block scores: 256, 128, 64 or 32
+    route: str        # "chunk" (k <= 1,024) or "radix"
+    chunk: int        # chunk: items a block selects from in the first
+                      # round; radix: keys a block sorts
+    group: int        # lists (chunk) or sorted runs (radix) a later
+                      # round folds into one
+    lists: int        # lists or runs per user after the first round
+    merges: int       # rounds after it
 
 
 def _pow2_at_least(n: int) -> int:
@@ -35,36 +46,48 @@ def _pow2_at_least(n: int) -> int:
 
 
 def plan(B: int, N: int, k: int, n_sm: int = 132) -> Plan:
-    """Chunk size and merge fan-in for a (B users, N items, top-k)
-    call.  Chunks of up to ``CHUNK`` items; at small B * N they are
-    halved (down to ``MIN_CHUNK``, and never below k) until the scoring
-    grid has two blocks per SM.  Selection is exact, so the chunk size
-    changes no answer."""
-    if k > CHUNK:
-        raise ValueError(
-            f"topk_score_cuda: k={k} exceeds the kernel's chunk of "
-            f"{CHUNK} items (one scoring block keeps its chunk's top k)")
-    chunk = min(CHUNK, _pow2_at_least(max(N, k)))
-    while chunk > MIN_CHUNK and chunk // 2 >= k \
-            and B * math.ceil(N / chunk) < 2 * n_sm:
-        chunk //= 2
-    group = MERGE_CAP // k
-    lists = math.ceil(N / chunk)
+    """The launch plan of a (B users, N items, top-k) call.  Scoring
+    tiles of 256 items are halved (down to 32) while the halved grid
+    still fits one wave of ``n_sm`` blocks.  k <= 1,024: chunks of up to
+    8,192 items, then rounds over groups of ``8192 // k`` of their
+    lists; above, the k survivors of the radix select sorted in tiles of
+    4,096 and merged in pairs.  Scoring is one float program per
+    (user, item) and selection is exact, so the plan changes no
+    answer."""
+    if not 1 <= k <= N:
+        raise ValueError(f"topk_score_cuda: k={k} must be in [1, N={N}]")
+    groups = math.ceil(B / GROUP)
+    tn = 256
+    while tn > 32 and math.ceil(N / (tn // 2)) * groups <= n_sm:
+        tn //= 2
+    if k <= SELECT_CAP:
+        route = "chunk"
+        chunk = min(SEGMENT, _pow2_at_least(N))
+        group = SEGMENT // k
+        lists = math.ceil(N / chunk)
+    else:
+        route, chunk, group = "radix", SORT_CAP, 2
+        lists = math.ceil(k / chunk)
     merges, n = 0, lists
     while n > 1:
         n = math.ceil(n / group)
         merges += 1
-    return Plan(chunk, group, lists, merges)
+    return Plan(tn, route, chunk, group, lists, merges)
 
 
-def topk_score_cuda(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor,
-                    k: int):
-    """ids (B, k) int32, mean (B, k), ex2 (B, k) of fp32 contiguous CUDA
-    tensors us (B, S, K), v (S, N, K), excl (B, N) (1.0 = excluded),
-    for 1 <= k <= N.  Raises on anything the kernel does not take: bf16,
-    a tensor that is not contiguous, k above the chunk size, or us[b]
-    too large for shared memory."""
-    global launches
+def _align256(n: int) -> int:
+    return (n + 255) // 256 * 256
+
+
+def scratch_bytes(B: int, N: int, k: int, p: Plan) -> int:
+    """Device scratch of a call: (B, N) rank keys, means and ex2, then
+    two sets of sorted runs of 64-bit keys, each part 256-byte aligned
+    (the layout ``topk_score_f32`` takes)."""
+    runs = B * (p.lists if p.route == "chunk" else 1) * k
+    return 3 * _align256(4 * B * N) + 2 * _align256(8 * runs)
+
+
+def _check(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor, k: int):
     for name, x in (("us", us), ("v", v), ("excl", excl)):
         if not x.is_cuda:
             raise ValueError(f"topk_score_cuda: {name} is not a CUDA "
@@ -88,33 +111,51 @@ def topk_score_cuda(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor,
         raise ValueError("topk_score_cuda: operands on different devices")
     if not 1 <= k <= N:
         raise ValueError(f"topk_score_cuda: k={k} must be in [1, N={N}]")
-    n_sm = torch.cuda.get_device_properties(us.device).multi_processor_count
-    p = plan(B, N, k, n_sm)
-    # a scoring block holds us[b] and its chunk's keys, means and E[s^2]
-    if 4 * ((S * K + 3) // 4 * 4) + 16 * p.chunk > SMEM_LIMIT:
-        raise ValueError(
-            f"topk_score_cuda: S*K = {S}*{K} floats of a user's rows do "
-            f"not fit the {SMEM_LIMIT} bytes of shared memory a block "
-            "may use")
-    if p.lists > 65535:
-        raise ValueError(f"topk_score_cuda: N={N} needs {p.lists} "
-                         "chunks; the grid takes at most 65535")
-    fn = _build.load("topk_score").topk_score_f32
-    dev = us.device
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    mean = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ex2 = torch.empty((B, k), dtype=torch.float32, device=dev)
-    # two sets of (B, lists, k) candidate lists, 16 bytes an entry
-    scratch = torch.empty((2 * 4 * B * p.lists * k,), dtype=torch.int32,
-                          device=dev)
-    vec = int(K % 4 == 0 and us.data_ptr() % 16 == 0
+    dev = us.device.index
+    if dev not in _n_sm:
+        _n_sm[dev] = torch.cuda.get_device_properties(
+            us.device).multi_processor_count
+    return B, S, N, K, plan(B, N, k, _n_sm[dev])
+
+
+def buffers(B: int, N: int, k: int, p: Plan, device):
+    """(ids, mean, ex2, scratch) of a call with plan ``p``; the three
+    outputs share one allocation."""
+    out = torch.empty((3, B, k), dtype=torch.int32, device=device)
+    return (out[0], out[1].view(torch.float32), out[2].view(torch.float32),
+            torch.empty((scratch_bytes(B, N, k, p),), dtype=torch.uint8,
+                        device=device))
+
+
+def launch(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor, k: int,
+           passes: int = 3, bufs=None):
+    """Run the kernel's passes without counting the call: 1 scoring, 2
+    selection (over the scratch of ``bufs`` that a scoring pass left),
+    3 both.  How ``chip_smoke.py`` times the two passes apart.  Returns
+    ``bufs`` (ids, mean, ex2, scratch)."""
+    B, S, N, K, p = _check(us, v, excl, k)
+    ids, mean, ex2, scratch = (buffers(B, N, k, p, us.device)
+                               if bufs is None else bufs)
+    tma = int(K % 4 == 0 and us.data_ptr() % 16 == 0
               and v.data_ptr() % 16 == 0)
-    with torch.cuda.device(dev):
+    fn = _build.load("topk_score").topk_score_f32
+    with torch.cuda.device(us.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(us.data_ptr(), v.data_ptr(), excl.data_ptr(),
                  ids.data_ptr(), mean.data_ptr(), ex2.data_ptr(),
-                 scratch.data_ptr(), B, S, N, K, k, p.chunk, p.group, vec,
-                 stream)
+                 scratch.data_ptr(), scratch.numel(), B, S, N, K, k, p.tn,
+                 p.chunk, p.group, tma, passes, stream)
     _build.check(err, "topk_score_f32")
+    return ids, mean, ex2, scratch
+
+
+def topk_score_cuda(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor,
+                    k: int):
+    """ids (B, k) int32, mean (B, k), ex2 (B, k) of fp32 contiguous CUDA
+    tensors us (B, S, K), v (S, N, K), excl (B, N) (1.0 = excluded),
+    for 1 <= k <= N.  Raises on anything the kernel does not take: a
+    CPU tensor, bf16, or a tensor that is not contiguous."""
+    global launches
+    ids, mean, ex2, _ = launch(us, v, excl, k)
     launches += 1
     return ids, mean, ex2

@@ -112,7 +112,14 @@ def _topk_inputs(B, S, N, K, seed=0, excl_frac=0.0):
     (8, 32, 4096, 32, 100, 0.0), (4, 64, 2048, 64, 100, 0.0),
     (3, 8, 130, 16, 7, 0.5), (1, 1, 1, 1, 1, 0.0), (2, 3, 50, 7, 50, 0.9),
     (2, 5, 70000, 12, 300, 0.1), (3, 6, 5000, 130, 1024, 0.0),
-    (8, 32, 8192, 128, 100, 0.01)])
+    (8, 32, 8192, 128, 100, 0.01),
+    # S*K above the old kernel's shared memory; k above 1,024 (radix
+    # select); k = N; more users than a scoring block's group of 8; K
+    # that TMA does not take (plain-load staging) and K below a box
+    (2, 512, 3000, 128, 100, 0.0), (3, 8, 5000, 16, 2048, 0.3),
+    (2, 3, 777, 36, 777, 0.2), (9, 4, 3000, 32, 100, 0.1),
+    (11, 3, 1000, 7, 750, 0.0), (4, 2, 20000, 4, 1500, 0.05),
+    (17, 2, 9000, 64, 9000, 0.0)])
 def test_topk_kernel_matches_plain(cuda, B, S, N, K, k, excl_frac):
     us, v, excl = _t(*_topk_inputs(B, S, N, K, excl_frac=excl_frac),
                      device=cuda)
@@ -127,33 +134,40 @@ def test_topk_kernel_matches_plain(cuda, B, S, N, K, k, excl_frac):
 
 
 @pytest.mark.cuda
-def test_topk_kernel_batch_invariant_and_deterministic(cuda):
+@pytest.mark.parametrize("B,S,N,K,k", [(8, 32, 8192, 128, 100),
+                                       (8, 512, 3000, 128, 100),
+                                       (10, 6, 4000, 20, 2000),
+                                       (9, 5, 2000, 7, 50)])
+def test_topk_kernel_batch_invariant_and_deterministic(cuda, B, S, N, K, k):
     """A batched call is the same bits as one call per user, whatever
-    chunk size each picks, and as itself run again."""
-    us, v, excl = _t(*_topk_inputs(8, 32, 8192, 128, excl_frac=0.01),
+    scoring tile and chunk size each picks, and as itself run again."""
+    us, v, excl = _t(*_topk_inputs(B, S, N, K, excl_frac=0.01),
                      device=cuda)
-    batched = tops.topk_score(us, v, 100, exclude=excl)
-    again = tops.topk_score(us, v, 100, exclude=excl)
+    batched = tops.topk_score(us, v, k, exclude=excl)
+    again = tops.topk_score(us, v, k, exclude=excl)
     for x, y in zip(batched, again):
-        assert torch.equal(x, y)
-    for b in range(8):
-        one = tops.topk_score(us[b:b + 1], v, 100, exclude=excl[b:b + 1])
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    for b in range(B):
+        one = tops.topk_score(us[b:b + 1], v, k, exclude=excl[b:b + 1])
         for x, y in zip(batched, one):
-            assert torch.equal(x[b:b + 1], y)
+            assert torch.equal(x[b:b + 1].view(torch.int32),
+                               y.view(torch.int32))
 
 
 @pytest.mark.cuda
-def test_topk_kernel_ties_go_to_the_lowest_id(cuda):
+@pytest.mark.parametrize("k", [1000, 2500])
+def test_topk_kernel_ties_go_to_the_lowest_id(cuda, k):
     """Duplicated item rows and +-0.0 means tie exactly; the lowest item
-    id comes first, as in the plain version."""
+    id comes first, as in the plain version, on the chunk route
+    (k <= 1,024) and the radix route."""
     us, v, _ = _topk_inputs(2, 4, 3000, 8)
     v[:, 2000:2600] = v[:, 100:700]          # duplicates of lower ids
     v[:, 1500:1510] = 0.0
     v[:, 1510:1520] = -0.0
     us_t, v_t = _t(us, v, device=cuda)
-    ids, mean, _ = tops.topk_score(us_t, v_t, 1000)
+    ids, mean, _ = tops.topk_score(us_t, v_t, k)
     wids, _, _ = tops.topk_score(torch.from_numpy(us),
-                                 torch.from_numpy(v), 1000)
+                                 torch.from_numpy(v), k)
     assert torch.equal(ids.cpu(), wids)
     for b in range(2):
         row = ids[b].tolist()
@@ -168,6 +182,10 @@ def test_topk_kernel_ties_go_to_the_lowest_id(cuda):
     zeros[0, 1::2] = -0.0
     zids, _, _ = tops.topk_score(neg, zeros, 6)
     assert zids.tolist() == [[0, 1, 2, 3, 4, 5]]
+    zeros = torch.zeros((1, 3000, 1), device=cuda)
+    zeros[0, 1::2] = -0.0
+    zids, _, _ = tops.topk_score(neg, zeros, 2000)
+    assert zids.tolist() == [list(range(2000))]
 
 
 @pytest.mark.cuda
@@ -177,10 +195,43 @@ def test_topk_kernel_refuses_what_it_does_not_take(cuda):
         ttopk.topk_score_cuda(us.bfloat16(), v, excl, 5)
     with pytest.raises(ValueError, match="not contiguous"):
         ttopk.topk_score_cuda(us.transpose(1, 2), v, excl, 5)
-    with pytest.raises(ValueError, match="chunk"):
-        ttopk.topk_score_cuda(us, v, excl, 1025)
+    with pytest.raises(ValueError, match=r"must be in \[1, N=3000\]"):
+        ttopk.topk_score_cuda(us, v, excl, 3001)
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         ttopk.topk_score_cuda(us.cpu(), v, excl, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1025, 3000])
+def test_topk_kernel_answers_k_above_1024(cuda, k):
+    """k = 1,025 and k = N, which the chunk route could not take, answer
+    through the radix route and equal the plain version; one call is
+    one count, whatever number of kernels it launches."""
+    us, v, excl = _t(*_topk_inputs(3, 6, 3000, 24, excl_frac=0.05),
+                     device=cuda)
+    before = ttopk.launches
+    got = tops.topk_score(us, v, k, exclude=excl)
+    torch.cuda.synchronize()
+    assert ttopk.launches == before + 1
+    want = tops.topk_score(us.cpu(), v.cpu(), k, exclude=excl.cpu())
+    tref.check_topk_score([x.cpu() for x in got], want, us.cpu(), v.cpu())
+    assert ttopk.plan(3, 3000, k).route == "radix"
+
+
+@pytest.mark.cuda
+def test_topk_kernel_passes_run_apart(cuda):
+    """``launch`` runs scoring and selection apart over one scratch, as
+    chip_smoke.py times them, and gives the call's answer, uncounted."""
+    us, v, excl = _t(*_topk_inputs(8, 16, 5000, 64, excl_frac=0.02),
+                     device=cuda)
+    want = ttopk.topk_score_cuda(us, v, excl, 100)
+    before = ttopk.launches
+    bufs = ttopk.launch(us, v, excl, 100, passes=1)
+    bufs[0].fill_(-7)
+    ttopk.launch(us, v, excl, 100, passes=2, bufs=bufs)
+    assert ttopk.launches == before
+    for x, y in zip(bufs[:3], want):
+        assert torch.equal(x, y)
 
 
 FLASH_CASES = [

@@ -3,9 +3,11 @@
 On the CPU ``repro_torch.kernels.ops.topk_score`` runs the plain version
 ``ref.topk_score_ref``; it is held against ``repro``'s
 ``ops.topk_score`` through both its jnp reference and its Pallas kernel
-in interpret mode, at the reference's three ``ops.KERNELS`` probes.  The
-CUDA kernel needs the card: ``test_torch_kernels_cuda.py`` and
-``chip_smoke.py`` hold it against the plain version.
+in interpret mode, at the reference's three ``ops.KERNELS`` probes, and
+through the jnp reference at shapes the card refused before the kernel's
+redesign (S*K above 54,000 floats, k above 1,024).  The CUDA kernel
+needs the card: ``test_torch_kernels_cuda.py`` and ``chip_smoke.py``
+hold it against the plain version.
 
 Tolerance (``ref.check_topk_score``): mean rtol 1e-5 of
 (1/S) sum |u| |v|, the magnitude of a score's terms; std 1e-3 *
@@ -26,6 +28,19 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import topk_score as ttopk
 
 PROBES = list(tops.KERNELS["topk_score"].items())
+# shapes the card refused before the kernel streamed a user's rows in
+# sample tiles (S*K above 54,000 floats) and selected k above 1,024;
+# held to the reference's jnp path (its Pallas kernel unrolls k steps)
+LARGE = [("rows above shared memory b2 s480 n300 K128 k50",
+          ((2, 480, 128), (480, 300, 128), 50)),
+         ("k above 1024 + exclusions b2 s4 n3000 K16 k2048",
+          ((2, 4, 16), (4, 3000, 16), 2048))]
+CASES = [pytest.param(label, probe, use_pallas, id=f"{name}-{label}")
+         for use_pallas, name in ((False, "jnp-reference"),
+                                  (True, "pallas-interpret"))
+         for label, probe in PROBES] + \
+        [pytest.param(label, probe, False, id=f"jnp-reference-{label}")
+         for label, probe in LARGE]
 
 
 def _inputs(us_shape, v_shape, seed=0, excl_frac=0.0):
@@ -53,9 +68,7 @@ def _port(us, v, k, excl):
                            else torch.from_numpy(excl))
 
 
-@pytest.mark.parametrize("label,probe", PROBES, ids=[p[0] for p in PROBES])
-@pytest.mark.parametrize("use_pallas", [False, True],
-                         ids=["jnp-reference", "pallas-interpret"])
+@pytest.mark.parametrize("label,probe,use_pallas", CASES)
 def test_plain_topk_matches_reference(label, probe, use_pallas):
     us_shape, v_shape, k = probe
     us, v, excl = _inputs(us_shape, v_shape,
@@ -150,18 +163,57 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 
 @pytest.mark.parametrize("B,N,k,want", [
-    (8, 8192, 100, (128, 40, 64, 2)),     # compound -> proteins
-    (8, 131072, 100, (1024, 40, 128, 2)),  # protein -> compounds
-    (1, 8192, 100, (128, 40, 64, 2)),
-    (3, 130, 7, (128, 585, 2, 1)),
-    (2, 70000, 1024, (1024, 4, 69, 4)),
+    (8, 8192, 100, (64, "chunk", 8192, 81, 1, 0)),      # compound -> proteins
+    (8, 131072, 100, (256, "chunk", 8192, 81, 16, 1)),  # protein -> compounds
+    (1, 8192, 100, (64, "chunk", 8192, 81, 1, 0)),
+    (3, 130, 7, (32, "chunk", 256, 1170, 1, 0)),
+    (2, 70000, 1024, (256, "chunk", 8192, 8, 9, 2)),
 ])
 def test_plan_picks_chunks_and_merge_rounds(B, N, k, want):
-    """Chunks shrink until the grid fills the card and never below k;
-    merge rounds fold the lists to one."""
+    """Scoring tiles shrink while the halved grid still fits one wave;
+    a selecting block takes a chunk of up to 8,192 items, and rounds
+    over groups of 8,192 // k lists fold them to one."""
     assert tuple(ttopk.plan(B, N, k)) == want
 
 
 def test_plan_refuses_k_above_the_chunk():
-    with pytest.raises(ValueError, match="chunk of 1024"):
-        ttopk.plan(1, 5000, 1025)
+    """The chunk no longer bounds k: k = 1,025 and k = N take the radix
+    route (survivors sorted in tiles of 4,096, merged in pairs), and
+    only k outside [1, N] is refused."""
+    assert tuple(ttopk.plan(1, 5000, 1025)) == (64, "radix", 4096, 2, 1, 0)
+    assert tuple(ttopk.plan(8, 8192, 8192)) == (64, "radix", 4096, 2, 2, 1)
+    assert ttopk.plan(2, 70000, 70000).merges == 5
+    assert ttopk.plan(8, 8192, 1024).route == "chunk"
+    for k in (0, 5001):
+        with pytest.raises(ValueError, match=r"must be in \[1, N=5000\]"):
+            ttopk.plan(1, 5000, k)
+
+
+@pytest.mark.parametrize("B,N,k", [(8, 131072, 100), (2, 70000, 1024),
+                                   (8, 8192, 2048), (3, 5000, 5000)])
+def test_scratch_holds_the_scores_and_two_sets_of_runs(B, N, k):
+    """12 bytes of scratch per (user, item) and two sets of the first
+    sort's runs of 64-bit keys, each part 256-byte aligned."""
+    p = ttopk.plan(B, N, k)
+    runs = B * k * (p.lists if p.route == "chunk" else 1)
+    got = ttopk.scratch_bytes(B, N, k, p)
+    assert got % 256 == 0
+    assert 12 * B * N + 16 * runs <= got < 12 * B * N + 16 * runs + 5 * 256
+
+
+def test_exact_ties_above_1024_go_to_the_lowest_id():
+    """Duplicated rows tie exactly; at k above 1,024 (the card's radix
+    route) the plain version keeps the reference's stable order."""
+    us, v, _ = _inputs((2, 3, 8), (3, 3000, 8), seed=4)
+    v[:, 2000:2600] = v[:, 100:700]     # item 2000 + i duplicates 100 + i
+    ids, mean, _ = _port(us, v, 2048, None)
+    jids, _, _ = _jax(us, v, 2048, None)
+    np.testing.assert_array_equal(ids.numpy(), jids)
+    for b in range(2):
+        row = ids[b].tolist()
+        pos = {d: i for i, d in enumerate(row)}
+        tied = [d for d in range(2000, 2600) if d in pos]
+        assert tied
+        for d in tied:
+            assert pos[d - 1900] < pos[d]
+            assert mean[b, pos[d]] == mean[b, pos[d - 1900]]
