@@ -10,7 +10,11 @@ From the root of a checkout, on a machine with one NVIDIA H100:
 2. kernels: holds each kernel against its plain PyTorch version at the
    reference's probe shapes and at the shapes of the main path, and
    times kernel, plain version and one library call (CUDA events,
-   median of 20 launches);
+   median of 20 launches).  gram's gathered entry (the sweep's: gather,
+   Gram, alpha and Lambda_p in one launch) is also held bitwise against
+   the pipeline it replaced (``index_select``, the first design
+   ``scripts_dev/gram_v1.cu``, ``mul_``, ``add_``) at both half-sweep
+   shapes and timed beside it, part by part;
 3. golden chain: replays the ``gaussian`` chain of
    ``results/golden_chains.json`` on the card;
 4. slice: runs ``ModelBuilder(num_latent=128)`` -> ``session(...).run()``
@@ -89,6 +93,7 @@ SERVE_CACHE_BYTES = 8 << 30
 STORE512 = (2048, 8192, 512)
 STORE512_K = 2048
 PREVIOUS_TOPK = "scripts_dev/topk_score_v1.cu"
+PREVIOUS_GRAM = "scripts_dev/gram_v1.cu"
 # the store's reload runs the in-session accumulator's float program
 # over exact copies of the samples: the same bits are expected, and
 # 1e-6 relative (the reference's reload tolerance) is what is held
@@ -205,8 +210,10 @@ def phase_card():
     print(f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     from repro_torch.kernels import _build
+    import gram_v1
     import topk_score_v1
-    topk_score_v1.register()   # the previous design, timed beside
+    gram_v1.register()         # the previous designs, timed beside
+    topk_score_v1.register()
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
@@ -216,7 +223,37 @@ def phase_card():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    # the main path launches gram_rows_kernel<float>: its ptxas lines,
+    # named, and no spill
+    spills = gram_ptxas(_build.build_log("gram"))
+    for kernel, lines in spills.items():
+        print(f"  ptxas gram {kernel}: " + "; ".join(lines))
+    main = [k for k in spills if k == "gram_rows_kernel<float>"]
+    if not main or any(" 0 bytes spill stores" not in line
+                       for line in spills[main[0]] if "spill" in line):
+        raise AssertionError(f"gram's main-path kernel spills or is "
+                             f"missing: {spills}")
     return smi
+
+
+def gram_ptxas(log: str):
+    """{kernel: its ptxas lines} of gram.cu's build log, kernels named
+    from their mangled entry names."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"(gram_rows_kernel|gram_tiled_kernel)I"
+                          r"(13__nv_bfloat16|f)(Lb[01])?", mangled)
+            name = mangled if k is None else (
+                f"{k.group(1)}<{'bf16' if 'bfloat' in k.group(2) else 'float'}"
+                + (f", {k.group(3)[-1] == '1'}" if k.group(3) else "") + ">")
+            out[name] = []
+        elif name and ("spill" in line or "registers" in line):
+            out[name].append(line.strip())
+    return out
 
 
 def phase_kernels(train, gen):
@@ -262,9 +299,10 @@ def phase_kernels(train, gen):
         errs["sddmm"] = max(errs["sddmm"], e)
         print(f"  sddmm {label}: max abs err {e:.3e}")
 
-    for label, (R, T, k) in ops.KERNELS["gram"].items():
+    for label, ((R, T, k), dtype) in ops.KERNELS["gram"].items():
         mask = (torch.rand(R, T, device=dev, generator=gen) > 0.2).float()
-        check_gram(rand(R, T, k), rand(R, T), mask, label)
+        check_gram(rand(R, T, k).to(dtype), rand(R, T).to(dtype),
+                   mask.to(dtype), f"{label} {str(dtype)[6:]}")
     for label, (E, k) in ops.KERNELS["sddmm"].items():
         check_sddmm(rand(E, k), rand(E, k), label)
 
@@ -290,38 +328,7 @@ def phase_kernels(train, gen):
                 V.index_select(0, train.coo_j[:n1m]),
                 f"{n1m} entries of the slice K={K}")
 
-    # timing at the main path's shapes: both gram launches of a sweep;
-    # the bound is the sum of each launch's own bound
-    gram_t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "bound_ms": 0.0, "bound_by": {"bytes": 0.0, "operations": 0.0}}
-    for name, padded, fixed in (("rows", train.rows, V),
-                                ("cols", train.cols, U)):
-        vg, val, mask = slab(padded, fixed)
-        label = f"{name} R={vg.shape[0]} T={vg.shape[1]} K={K}"
-        check_gram(vg, val, mask, f"main path {label}")
-        R, T, _ = vg.shape
-        nnz = float(mask.sum())
-        n_bytes = 4 * (nnz * K + 2 * R * T + R * K * K + R * K)
-        # the Gram is symmetric: its lower triangle is K(K+1)/2 FMAs per
-        # entry; the rhs is K more
-        n_ops = nnz * K * (K + 1) + 2 * nnz * K
-        ms = time_ms(lambda: kgram.gram_cuda(vg, val, mask))
-        plain = time_ms(lambda: ref.gram_ref(vg, val, mask))
-        vgm = vg * mask[..., None]
-        lib = time_ms(lambda: torch.bmm(vgm.mT, vg))
-        del vgm
-        b_ms, b_by = bound(n_bytes, n_ops)
-        print(f"  gram {label}: {ms:.3f} ms, plain {plain:.3f} ms, "
-              f"torch.bmm (Gram only, pre-masked) {lib:.3f} ms, bound "
-              f"{b_ms:.3f} ms by {b_by} ({n_ops / 1e9:.1f} GFLOP, "
-              f"{n_bytes / 1e9:.2f} GB), {n_ops / ms / 1e9:.1f} TFLOP/s, "
-              f"{n_bytes / ms / 1e6:.0f} GB/s")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", b_ms)):
-            gram_t[key] += v
-        gram_t["bound_by"][b_by] += b_ms
-        del vg, val, mask
-        torch.cuda.empty_cache()
+    gram = gram_main_path(train, U, V, gen, errs)
 
     ug = U.index_select(0, train.coo_i)
     vg = V.index_select(0, train.coo_j)
@@ -337,21 +344,9 @@ def phase_kernels(train, gen):
           f"{sb_by}, {s_bytes / s_ms / 1e6:.0f} GB/s")
     del ug, vg, U, V
     torch.cuda.empty_cache()
-
-    # the launch whose bound weighs most names what bounds the pair
-    g_by = max(gram_t["bound_by"], key=gram_t["bound_by"].get)
-    print(f"  gram, both launches: {gram_t['ms']:.3f} ms, bound "
-          f"{gram_t['bound_ms']:.3f} ms ("
-          + ", ".join(f"{v:.3f} by {k}"
-                      for k, v in gram_t["bound_by"].items()) + ")")
+    gram["max_abs_err"] = errs["gram"]
     return {
-        "gram": {
-            "name": "gram", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/gram.cu",
-            "replaces": "src/repro/kernels/gram.py:83",
-            "max_abs_err": errs["gram"], "ms": gram_t["ms"],
-            "plain_ms": gram_t["plain_ms"], "bound_ms": gram_t["bound_ms"],
-            "bound_by": g_by, "library_ms": gram_t["library_ms"]},
+        "gram": gram,
         "sddmm": {
             "name": "sddmm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sddmm.cu",
@@ -359,6 +354,137 @@ def phase_kernels(train, gen):
             "max_abs_err": errs["sddmm"], "ms": s_ms, "plain_ms": s_plain,
             "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": s_lib},
     }
+
+
+def gram_library(fixed, idx, val, mask, alpha, lam):
+    """One PyTorch expression of the gathered entry, the yardstick:
+    gather, mask, ``torch.bmm`` for the Gram and the rhs, ``mul_`` by
+    alpha, ``add_`` of Lambda_p."""
+    import torch
+    R, T = idx.shape
+    vg = fixed.index_select(0, idx.reshape(-1)).reshape(R, T, -1)
+    vgm = vg * mask[..., None]
+    g = torch.bmm(vgm.mT, vg).mul_(alpha).add_(lam)
+    r = torch.bmm(vg.mT, (val * mask)[..., None])[..., 0].mul_(alpha)
+    return g, r
+
+
+def gram_main_path(train, U, V, gen, errs):
+    """The sweep's gathered gram at both half-sweep shapes: held against
+    its plain version (``ref.gathered_gram_ref``) at GRAM_TOL, with the
+    slice's noise precision for alpha and a Lambda_p that is not
+    symmetric, once with acc; bitwise against the pipeline it replaced;
+    timed beside that pipeline part by part, the pre-gathered entry, the
+    plain version and one library expression.  Returns the kernels-line
+    entry (without launches and max_abs_err)."""
+    import torch
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import ref
+    import gram_v1 as previous
+    K = U.shape[1]
+    dev = U.device
+    # the adaptive noise's precision near the planted noise, and a
+    # Wishart-like precision with an asymmetric perturbation
+    alpha = torch.tensor(1.0 / NOISE ** 2, device=dev)
+    W = torch.randn(K, K, device=dev, generator=gen)
+    lam = W @ W.mT / K + 1e-3 * torch.randn(K, K, device=dev, generator=gen)
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+         "previous_ms": 0.0}
+    by = {"bytes": 0.0, "operations": 0.0}
+    for name, padded, fixed in (("rows", train.rows, V),
+                                ("cols", train.cols, U)):
+        idx, val, mask = padded.idx, padded.val, padded.mask
+        R, T = idx.shape
+        label = f"{name} R={R} T={T} K={K}"
+        for with_acc in (False, True):
+            acc = None
+            if with_acc:
+                acc = (torch.randn(R, K, K, device=dev, generator=gen),
+                       torch.randn(R, K, device=dev, generator=gen))
+            got = kgram.gathered_gram_cuda(
+                fixed, idx, val, mask, alpha, lam=lam,
+                acc=None if acc is None else tuple(a.clone() for a in acc))
+            torch.cuda.synchronize()
+            want = ref.gathered_gram_ref(
+                fixed, idx, val, mask, alpha, lam=lam,
+                acc=None if acc is None else tuple(a.clone() for a in acc))
+            scale = ref.gathered_gram_ref(
+                fixed.abs(), idx, val.abs(), mask, alpha, lam=lam.abs(),
+                acc=None if acc is None else tuple(a.abs() for a in acc))
+            e = max(max_err(got[0], want[0], scale[0], GRAM_TOL,
+                            f"gathered gram {label}"),
+                    max_err(got[1], want[1], scale[1], GRAM_TOL,
+                            f"gathered rhs {label}"))
+            del want, scale
+            prev = previous.pipeline(
+                fixed, idx, val, mask, alpha, lam=lam,
+                acc=None if acc is None else tuple(a.clone() for a in acc))
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, prev))
+            if not same:
+                raise AssertionError(
+                    f"gathered gram {label}: not the bits of the previous "
+                    f"pipeline (index_select, {PREVIOUS_GRAM}, mul_, add_)")
+            errs["gram"] = max(errs["gram"], e)
+            print(f"  gathered gram {label} alpha={alpha.item():.4f} lam not "
+                  f"symmetric{', acc' if with_acc else ''}: gram and rhs max "
+                  f"abs err {e:.3e} against the plain version; bitwise "
+                  f"equal to the previous pipeline (index_select, "
+                  f"{PREVIOUS_GRAM}, mul_, add_)")
+            del got, prev, acc
+            torch.cuda.empty_cache()
+        # times: the launch, the previous pipeline part by part, the
+        # pre-gathered entry, the plain version, the library expression
+        nnz = float(mask.sum())
+        n_bytes = 4 * (fixed.numel() + 3 * R * T + R * K * K + R * K)
+        n_ops = nnz * K * (K + 1) + 2 * nnz * K
+        b_ms, b_by = bound(n_bytes, n_ops)
+        ms = time_ms(lambda: kgram.gathered_gram_cuda(fixed, idx, val, mask,
+                                                      alpha, lam=lam))
+        vg = previous.gather(fixed, idx)
+        parts = {"gather": time_ms(lambda: previous.gather(fixed, idx))}
+        g, r = previous.gram(vg, val, mask)
+        parts["gram_v1"] = time_ms(lambda: previous.gram(vg, val, mask))
+        parts["mul_ (gram, rhs)"] = time_ms(
+            lambda: (g.mul_(alpha), r.mul_(alpha)))
+        parts["add_ (Lambda_p)"] = time_ms(lambda: g.add_(lam))
+        del g, r
+        pre = time_ms(lambda: kgram.gram_cuda(vg, val, mask))
+        del vg
+        torch.cuda.empty_cache()
+        prev_ms = time_ms(lambda: previous.pipeline(fixed, idx, val, mask,
+                                                    alpha, lam=lam))
+        plain = time_ms(lambda: ref.gathered_gram_ref(fixed, idx, val, mask,
+                                                      alpha, lam=lam), n=5)
+        lib = time_ms(lambda: gram_library(fixed, idx, val, mask, alpha,
+                                           lam), n=5)
+        torch.cuda.empty_cache()
+        print(f"  gathered gram {label}: {ms:.3f} ms, bound {b_ms:.3f} ms by "
+              f"{b_by} ({n_ops / 1e9:.1f} GFLOP, {n_bytes / 1e9:.2f} GB; "
+              f"{b_ms / ms:.3f} of it, {n_ops / ms / 1e9:.1f} TFLOP/s, "
+              f"{n_bytes / ms / 1e6:.0f} GB/s); previous pipeline "
+              f"{prev_ms:.3f} ms ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f"); pre-gathered entry on the slab {pre:.3f} ms; plain "
+              f"{plain:.3f} ms; library (gather, mask, torch.bmm, mul_, "
+              f"add_) {lib:.3f} ms")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", b_ms), ("previous_ms", prev_ms)):
+            t[key] += v
+        by[b_by] += b_ms
+    g_by = max(by, key=by.get)
+    print(f"  gathered gram, both half-sweeps: {t['ms']:.3f} ms, bound "
+          f"{t['bound_ms']:.3f} ms (" + ", ".join(
+              f"{v:.3f} by {k}" for k, v in by.items())
+          + f"), previous pipeline {t['previous_ms']:.3f} ms, library "
+          f"{t['library_ms']:.3f} ms")
+    return {"name": "gram", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gram.cu",
+            "replaces": "src/repro/kernels/gram.py:83", "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": g_by, "library_ms": t["library_ms"],
+            "previous_ms": t["previous_ms"],
+            "previous_source": PREVIOUS_GRAM}
 
 
 def phase_golden():
@@ -1381,6 +1507,19 @@ def phase_profile(sess, res, sweep_ms):
     for e in kernels[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
+    # gram gathers in its loads and folds alpha and Lambda_p into its
+    # epilogue: the sweep's only gathers are sddmm's two
+    counts = {e.key: e.count for e in stats}
+    largest = {k: max((e.device_time_total / 1e3 for e in ops_
+                       if e.key == k), default=0.0)
+               for k in ("aten::mul_", "aten::add_")}
+    print(f"  gram's pipeline: aten::index_select x"
+          f"{counts.get('aten::index_select', 0)} (sddmm's U and V rows); "
+          + ", ".join(f"{k} x{counts.get(k, 0)}, {v:.3f} ms in all"
+                      for k, v in largest.items()))
+    if counts.get("aten::index_select", 0) != 2:
+        raise AssertionError(f"profile: {counts.get('aten::index_select')} "
+                             "index_select in a sweep, want sddmm's 2")
 
 
 def main(argv=None) -> int:
@@ -1394,7 +1533,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_file() \
-            or not (ROOT / PREVIOUS_TOPK).is_file():
+            or not (ROOT / PREVIOUS_TOPK).is_file() \
+            or not (ROOT / PREVIOUS_GRAM).is_file():
         print("chip_smoke: run it from the root of a checkout of the repo",
               file=sys.stderr)
         return 2

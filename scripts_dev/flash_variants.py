@@ -76,7 +76,7 @@ def build(variants):
              str(so)], capture_output=True, text=True).stdout
         (ROOT / "chiprun_out" / f"sass_{name}.txt").write_text(sass)
         fn = getattr(ctypes.CDLL(str(so)), "flash_sm90_fwd")
-        fn.argtypes = _build._SIGNATURES["flash_sm90"][1]
+        fn.argtypes = _build._SIGNATURES["flash_sm90"]["flash_sm90_fwd"]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns

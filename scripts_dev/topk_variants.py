@@ -58,7 +58,7 @@ def build(variants):
             print(name, "build failed:", log[-2000:])
             continue
         fn = getattr(ctypes.CDLL(str(so)), "topk_score_f32")
-        fn.argtypes = _build._SIGNATURES["topk_score"][1]
+        fn.argtypes = _build._SIGNATURES["topk_score"]["topk_score_f32"]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns

@@ -7,10 +7,12 @@ noise.  One ``gibbs_step`` performs, per entity in order:
   1. resample the entity's prior hyper-parameters from its current
      factor matrix,
   2. resample the whole factor matrix from its conditional in one
-     batched pass: gather of the fixed factor over the padded rows,
-     masked Gram + rhs (``kernels/ops.gram_and_rhs``: the CUDA kernel
-     on the card), batched Cholesky and triangular solves, one
-     counter-based N(0, 1) draw per row,
+     batched pass: the fixed factor's rows gathered over the padded
+     rows, their masked Gram + rhs weighted by the noise's alpha and,
+     for the entity's last block, Lambda_p added
+     (``kernels/ops.gathered_gram_and_rhs``: one CUDA kernel a block on
+     the card, which gathers in its loads), batched Cholesky and
+     triangular solves, one counter-based N(0, 1) draw per row,
 
 then resamples every block's noise state from the residuals at the
 observed entries (``kernels/ops.sddmm``) and reports train-RMSE
@@ -20,6 +22,8 @@ draws the same numbers as ``repro``'s.
 Unlike the reference's pure functions, the factor update works in place
 on the freshly allocated (N, K, K) Gram: at 131,072 rows and K = 128
 each such buffer is 8.6 GB, and an out-of-place sum would hold two.
+The float program is the reference's, ``(g1 * a1 + g2 * a2) + Lam_p``,
+each operation rounded apart, on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -90,16 +94,14 @@ def init_state(model: ModelDef, data: MFData, seed: int = 0) -> MFState:
 # ---------------------------------------------------------------------------
 
 def _sparse_contrib(mat: SparseMatrix, as_row: bool, fixed: torch.Tensor,
-                    noise, nstate, key):
-    """alpha-weighted (gram, rhs) of one sparse block for one entity."""
+                    noise, nstate, key, acc=None, lam=None):
+    """alpha-weighted (gram, rhs) of one sparse block for one entity,
+    (R,K,K) and (R,K); added in place to ``acc`` = (gram, rhs) when
+    given, and ``lam`` added to the Gram when given."""
     padded = mat.rows if as_row else mat.cols
-    R, T = padded.idx.shape
-    vg = fixed.index_select(0, padded.idx.reshape(-1)).reshape(
-        R, T, fixed.shape[1])                     # (R, T, K)
     vals, alpha = noise.augment(key, nstate, None, padded.val, padded.mask)
-    gram, rhs = ops.gram_and_rhs(vg, vals, padded.mask)
-    del vg
-    return gram.mul_(alpha), rhs.mul_(alpha)      # (R,K,K), (R,K)
+    return ops.gathered_gram_and_rhs(fixed, padded.idx, vals, padded.mask,
+                                     alpha, acc=acc, lam=lam)
 
 
 # ---------------------------------------------------------------------------
@@ -118,15 +120,14 @@ def row_normals(key, n_rows: int, num_latent: int, row_offset=0):
     return random.normal(random.fold_in(key, rows), (num_latent,))
 
 
-def _sample_normal_factor(key, gram_rows, rhs, Lam_p, b_p):
+def _sample_normal_factor(key, Lam, rhs, b_p):
     """u_i ~ N(Lam_i^{-1} b_i, Lam_i^{-1}) batched over rows.
 
-    gram_rows (N,K,K), rhs (N,K), Lam_p (K,K), b_p (K,).  ``gram_rows``
-    becomes the precision in place.
+    Lam (N,K,K) the precision (the blocks' Grams with Lambda_p added),
+    rhs (N,K), b_p (K,).
     """
     b = rhs + b_p[None, :]
     z = row_normals(key, b.shape[0], b.shape[1])
-    Lam = gram_rows.add_(Lam_p[None, :, :])
     L = cholesky(Lam)                                        # (N,K,K)
     mean = chol_solve(L, b)
     dz = solve_lower(L, z[..., None], transpose=True)[..., 0]
@@ -148,23 +149,23 @@ def _entity_update(model: ModelDef, data: MFData, key, e: int,
     Lam_p = prior.precision_term(hyper)
     b_p = prior.mean_term(hyper, ent.n_rows)
 
-    gram_rows = None
-    rhs_acc = torch.zeros((ent.n_rows, model.num_latent),
-                          dtype=torch.float32, device=u.device)
+    # each block adds its alpha-weighted Gram and rhs to the entity's
+    # in place; the last adds Lambda_p too
+    acc = None
     bkeys = random.split(k_blk, max(1, len(model.blocks)))
-    for bi, as_row in model.blocks_touching(e):
+    touching = list(model.blocks_touching(e))
+    for n, (bi, as_row) in enumerate(touching):
         blk = model.blocks[bi]
-        fixed = factors[blk.other(e)]
-        g, r = _sparse_contrib(data.blocks[bi], as_row, fixed, blk.noise,
-                               noises[bi], bkeys[bi])
-        gram_rows = g if gram_rows is None else gram_rows.add_(g)
-        rhs_acc = rhs_acc + r
-
-    if gram_rows is None:
-        gram_rows = torch.zeros((ent.n_rows, model.num_latent,
-                                 model.num_latent), dtype=torch.float32,
-                                device=u.device)
-    u_new = _sample_normal_factor(k_fac, gram_rows, rhs_acc, Lam_p, b_p)
+        acc = _sparse_contrib(data.blocks[bi], as_row, factors[blk.other(e)],
+                              blk.noise, noises[bi], bkeys[bi], acc=acc,
+                              lam=Lam_p if n == len(touching) - 1 else None)
+    if acc is None:
+        K = model.num_latent
+        acc = (torch.zeros((ent.n_rows, K, K), dtype=torch.float32,
+                           device=u.device).add_(Lam_p[None, :, :]),
+               torch.zeros((ent.n_rows, K), dtype=torch.float32,
+                           device=u.device))
+    u_new = _sample_normal_factor(k_fac, *acc, b_p)
     return u_new, hyper
 
 

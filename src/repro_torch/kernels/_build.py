@@ -29,19 +29,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# ctypes signatures of the C entries, by source
+_GRAM_PRE = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
+             + [ctypes.c_int, ctypes.c_void_p])
+
+# ctypes signatures of the C entries, by source: {entry: argtypes}
 _SIGNATURES = {
-    "gram": ("gram_f32", [ctypes.c_void_p] * 5
-             + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]),
-    "sddmm": ("sddmm_f32", [ctypes.c_void_p] * 3
-              + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]),
-    "topk_score": ("topk_score_f32", [ctypes.c_void_p] * 7
+    "gram": {"gram_f32": _GRAM_PRE, "gram_bf16": _GRAM_PRE,
+             "gram_gathered_f32": [ctypes.c_void_p] * 10
+             + [ctypes.c_int64] * 4 + [ctypes.c_void_p]},
+    "sddmm": {"sddmm_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+              + [ctypes.c_int, ctypes.c_void_p]},
+    "topk_score": {"topk_score_f32": [ctypes.c_void_p] * 7
                    + [ctypes.c_int64] * 9
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
-    "flash": ("flash_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 19
-              + [ctypes.c_void_p]),
-    "flash_sm90": ("flash_sm90_fwd", [ctypes.c_void_p] * 4
-                   + [ctypes.c_int64] * 18 + [ctypes.c_void_p]),
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
+    "flash": {"flash_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 19
+              + [ctypes.c_void_p]},
+    "flash_sm90": {"flash_sm90_fwd": [ctypes.c_void_p] * 4
+                   + [ctypes.c_int64] * 18 + [ctypes.c_void_p]},
 }
 
 # sources outside csrc/ (a kept design timed beside the current one),
@@ -74,7 +78,7 @@ def register(name: str, source, fn_name: str, argtypes) -> None:
     ``csrc/``, as library ``name`` beside the package's own sources,
     with the C entry ``fn_name`` of ctypes ``argtypes``."""
     _SOURCES[name] = Path(source)
-    _SIGNATURES[name] = (fn_name, list(argtypes))
+    _SIGNATURES[name] = {fn_name: list(argtypes)}
 
 
 def _source(name: str) -> Path:
@@ -132,10 +136,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

@@ -100,7 +100,7 @@ def launch(source: str, q, k, v, *, causal: bool, window: int = 0,
     nothing (``chip_smoke.py`` and the card's tests call it to run one
     design beside the other)."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    fn_name = _build._SIGNATURES[source][0]
+    (fn_name,) = _build._SIGNATURES[source]
     fn = getattr(_build.load(source), fn_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

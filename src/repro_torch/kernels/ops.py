@@ -9,9 +9,10 @@ There is no fallback from the kernel to the plain version.  The CUDA
 kernels mask ragged edges themselves, so no padding happens here.
 
 ``KERNELS`` lists each kernel with its probe shapes: the ``ops.KERNELS``
-envelope of the reference (fp32 probes of gram, sddmm and topk_score;
-their bf16 branches are a later slice; flash's probes with their
-dtypes).
+envelope of the reference (gram's probes with their dtypes; fp32 probes
+of sddmm and topk_score, whose bf16 branches are a later slice; flash's
+probes with their dtypes).  ``gathered_gram_and_rhs`` is the port's own
+entry: the sweep's gather, Gram, alpha and Lambda_p in one launch.
 """
 from __future__ import annotations
 
@@ -32,6 +33,28 @@ def gram_and_rhs(vg: torch.Tensor, val: torch.Tensor, mask: torch.Tensor):
         return _gram.gram_cuda(vg.contiguous(), val.contiguous(),
                                mask.contiguous())
     return ref.gram_ref(vg, val, mask)
+
+
+def gathered_gram_and_rhs(fixed: torch.Tensor, idx: torch.Tensor,
+                          val: torch.Tensor, mask: torch.Tensor, alpha, *,
+                          acc=None, lam=None):
+    """The sweep's alpha-weighted Gram of gathered rows; see
+    kernels/gram.py.
+
+    fixed (n_fixed, K), idx (R, T) int32, val and mask (R, T), alpha a
+    0-d tensor -> gram (R, K, K) = (alpha * g + acc[0]) + lam and rhs
+    (R, K) = alpha * b + acc[1], where g and b are ``gram_and_rhs`` of
+    ``fixed[idx]``.  ``acc`` = (gram, rhs) is updated in place and
+    returned; ``lam`` (K, K) is added at each place's own index.  On the
+    card the kernel gathers in its loads; on the CPU the plain version
+    gathers the (R, T, K) slab.
+    """
+    if fixed.is_cuda:
+        return _gram.gathered_gram_cuda(
+            fixed.contiguous(), idx.contiguous(), val.contiguous(),
+            mask.contiguous(), alpha, acc=acc, lam=lam)
+    return ref.gathered_gram_ref(fixed, idx, val, mask, alpha, acc=acc,
+                                 lam=lam)
 
 
 def sddmm(ug: torch.Tensor, vg: torch.Tensor) -> torch.Tensor:
@@ -122,11 +145,13 @@ def reset_launch_counts() -> None:
 
 
 # probe shapes of the reference's ops.KERNELS envelope: the operands'
-# shapes; for topk_score k; for flash the q and k/v shapes, the dtype
+# shapes; for gram the (R, T, K) shape and the dtype of all three
+# operands; for topk_score k; for flash the q and k/v shapes, the dtype
 # and the masking arguments
 KERNELS = {
-    "gram": {"production r64 t256 K128": (64, 256, 128),
-             "uneven tail r13 t257 K33": (13, 257, 33)},
+    "gram": {"production r64 t256 K128": ((64, 256, 128), torch.float32),
+             "uneven tail r13 t257 K33": ((13, 257, 33), torch.float32),
+             "bf16 gathered operands": ((16, 130, 32), torch.bfloat16)},
     "sddmm": {"production e4096 K128": (4096, 128),
               "uneven tail e1025 K200": (1025, 200)},
     "topk_score": {

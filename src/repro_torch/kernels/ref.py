@@ -4,8 +4,9 @@ The counterpart of ``gram_ref``, ``sddmm_ref``, ``topk_score_ref`` and
 ``attention_ref`` in ``repro/kernels/ref.py``.  ``kernels/ops.py`` runs these on CPU
 tensors, the CPU tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
-The bf16 branches of the reference belong to the ``bf16_gather`` slice
-(ROADMAP) and are not ported yet.
+``gathered_gram_ref`` is the plain version of the port's own fused
+entry.  Of the reference's bf16 branches only ``gram_ref``'s is ported;
+the others belong to the ``bf16_gather`` slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -20,12 +21,48 @@ def gram_ref(vg: torch.Tensor, val: torch.Tensor, mask: torch.Tensor):
         rhs[r]  = sum_t mask[r,t] * val[r,t] * vg[r,t,:]      (K,)
 
     vg (R, T, K), val (R, T), mask (R, T) -> gram (R, K, K), rhs (R, K).
+
+    bf16 ``vg`` (the reference's ``bf16_gather`` operands) runs the
+    reference's bf16 program: the mask and ``val * mask`` in bf16, the
+    masked operand ``vg * m`` rounded to bf16, the products and sums in
+    fp32 (exact widening of the bf16 operands).
     """
+    if vg.dtype == torch.bfloat16:
+        m = mask.to(torch.bfloat16)
+        w = (val * mask).to(torch.bfloat16)
+        gram = torch.einsum("rtk,rtl->rkl", (vg * m[..., None]).float(),
+                            vg.float())
+        rhs = torch.einsum("rtk,rt->rk", vg.float(), w.float())
+        return gram, rhs
     vg = vg.to(torch.float32)
     w = (val * mask).to(torch.float32)
     m = mask.to(torch.float32)
     gram = torch.einsum("rtk,rtl->rkl", vg * m[..., None], vg)
     rhs = torch.einsum("rtk,rt->rk", vg, w)
+    return gram, rhs
+
+
+def gathered_gram_ref(fixed: torch.Tensor, idx: torch.Tensor,
+                      val: torch.Tensor, mask: torch.Tensor, alpha, *,
+                      acc=None, lam=None):
+    """The sweep's alpha-weighted Gram of gathered rows, in the float
+    program of separate ops: ``fixed.index_select`` over ``idx`` (the
+    (R, T, K) slab), ``gram_ref``, ``* alpha``, then ``acc + x`` and
+    ``x + lam``, each rounded apart.  ``acc`` = (gram, rhs) is updated in
+    place and returned.  An idx outside [0, n_fixed) raises here (the
+    kernel reads zeros there)."""
+    R, T = idx.shape
+    vg = fixed.index_select(0, idx.reshape(-1)).reshape(R, T,
+                                                         fixed.shape[1])
+    gram, rhs = gram_ref(vg, val, mask)
+    del vg
+    gram.mul_(alpha)
+    rhs.mul_(alpha)
+    if acc is not None:
+        gram = acc[0].add_(gram)
+        rhs = acc[1].add_(rhs)
+    if lam is not None:
+        gram.add_(lam)
     return gram, rhs
 
 

@@ -159,7 +159,7 @@ def test_launch_arguments_fit_the_c_entry():
     src = (_build.CSRC / "flash.cu").read_text()
     sig = re.search(r'extern "C" int flash_fwd\(([^)]*)\)', src).group(1)
     params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
-    name, argtypes = _build._SIGNATURES["flash"]
+    ((name, argtypes),) = _build._SIGNATURES["flash"].items()
     assert name == "flash_fwd" and len(argtypes) == len(params)
     assert argtypes[-1] is ctypes.c_void_p and params[-1] == "stream"
     qkv = torch.zeros(2, 10, 4 + 2 + 2, 16, dtype=torch.bfloat16)
@@ -195,7 +195,7 @@ def test_sm90_launch_arguments_fit_the_c_entry():
     sig = re.search(r'extern "C" int flash_sm90_fwd\(([^)]*)\)',
                     src).group(1)
     params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
-    name, argtypes = _build._SIGNATURES["flash_sm90"]
+    ((name, argtypes),) = _build._SIGNATURES["flash_sm90"].items()
     assert name == "flash_sm90_fwd" and len(argtypes) == len(params)
     assert argtypes[-1] is ctypes.c_void_p and params[-1] == "stream"
     assert all(t is ctypes.c_void_p for t in argtypes[:4])

@@ -20,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sddmm as tsddmm
 
 GRAM_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -92,10 +93,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_probe_envelope_mirrors_reference():
     """The port's probes are the reference's fp32 probes: the operands'
-    shapes, and for topk_score the k its probe call asks for.  flash's
-    are all three of the reference's, with their dtypes
-    (``test_torch_flash.py`` holds their masking arguments)."""
+    shapes, and for topk_score the k its probe call asks for.  gram's
+    are all three of the reference's (the bf16 one included), with
+    their shapes and dtypes; flash's all three of the reference's, with
+    their dtypes (``test_torch_flash.py`` holds their masking
+    arguments)."""
     for name, probes in tops.KERNELS.items():
+        if name == "gram":
+            ref_all = {p.label: p for p in jops.KERNELS[name].probes}
+            assert set(probes) == set(ref_all)
+            for label, (shape, dtype) in probes.items():
+                args = ref_all[label].args
+                assert shape == args[0].shape
+                assert all(str(dtype) == f"torch.{a.dtype}" for a in args)
+            continue
         if name == "flash":
             ref_all = {p.label: p for p in jops.KERNELS[name].probes}
             assert set(probes) == set(ref_all)
@@ -116,3 +127,95 @@ def test_probe_envelope_mirrors_reference():
             assert (us, v) == (p.args[0].shape, p.args[1].shape)
             ids = jax.eval_shape(p.call, *p.args)[0]
             assert ids.shape == (us[0], k)
+
+
+def _gathered_inputs(R, T, K, n_fixed, empty_rows, seed):
+    rng = np.random.default_rng(seed)
+    fixed = rng.normal(size=(n_fixed, K)).astype(np.float32)
+    idx = rng.integers(0, n_fixed, size=(R, T)).astype(np.int32)
+    val = rng.normal(size=(R, T)).astype(np.float32)
+    mask = (rng.random((R, T)) > 0.3).astype(np.float32)
+    mask[:empty_rows] = 0.0
+    return fixed, idx, val, mask
+
+
+# K = 1, 7, 33 and 128; T not a multiple of the kernel's 16-step
+# stages; rows with no entry
+@pytest.mark.parametrize("R,T,K,n_fixed,empty", [
+    (3, 5, 1, 4, 1), (9, 37, 7, 20, 2), (13, 257, 33, 50, 3),
+    (16, 40, 128, 300, 2)])
+def test_gathered_gram_matches_jax_two_block_order(R, T, K, n_fixed, empty):
+    """Two blocks of one entity through ``ops.gathered_gram_and_rhs``,
+    the second with acc and a Lambda_p that is not symmetric, against
+    the reference's ``(a1 * gram_and_rhs(fixed1[idx1]) + a2 *
+    gram_and_rhs(fixed2[idx2])) + Lambda_p`` (jnp oracle and the Pallas
+    kernel in interpret mode) at GRAM_TOL; and bitwise against the
+    separate ops it replaces (gather, gram_ref, mul_, add_, add_)."""
+    f1, i1, v1, m1 = _gathered_inputs(R, T, K, n_fixed, empty, 0)
+    f2, i2, v2, m2 = _gathered_inputs(R, T + 3, K, n_fixed + 5, 0, 1)
+    a1, a2 = np.float32(1.7), np.float32(0.45)
+    lam = np.random.default_rng(2).normal(size=(K, K)).astype(np.float32)
+    assert K == 1 or not np.array_equal(lam, lam.T)
+    tf1, ti1, tv1, tm1, tf2, ti2, tv2, tm2, tlam = _t(
+        f1, i1, v1, m1, f2, i2, v2, m2, lam)
+    ta1, ta2 = torch.tensor(a1), torch.tensor(a2)
+    acc = tops.gathered_gram_and_rhs(tf1, ti1, tv1, tm1, ta1)
+    g, r = tops.gathered_gram_and_rhs(tf2, ti2, tv2, tm2, ta2, acc=acc,
+                                      lam=tlam)
+    assert g.data_ptr() == acc[0].data_ptr()   # updated in place
+
+    def jax_side(use_pallas):
+        outs = []
+        for f, i, v, m in ((f1, i1, v1, m1), (f2, i2, v2, m2)):
+            outs.append(jops.gram_and_rhs(
+                jnp.asarray(f)[jnp.asarray(i)], jnp.asarray(v),
+                jnp.asarray(m), use_pallas=use_pallas, interpret=True))
+        (g1, r1), (g2, r2) = outs
+        return (a1 * g1 + a2 * g2) + jnp.asarray(lam), a1 * r1 + a2 * r2
+
+    for jg, jr in (jax_side(False), jax_side(True)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), **GRAM_TOL)
+        np.testing.assert_allclose(r.numpy(), np.asarray(jr), **GRAM_TOL)
+
+    # the float program of the separate ops, to the bit
+    def slab(f, i):
+        return f.index_select(0, i.reshape(-1)).reshape(*i.shape, K)
+    wg, wr = tref.gram_ref(slab(tf1, ti1), tv1, tm1)
+    wg.mul_(ta1)
+    wr.mul_(ta1)
+    g2_, r2_ = tref.gram_ref(slab(tf2, ti2), tv2, tm2)
+    wg.add_(g2_.mul_(ta2)).add_(tlam)
+    wr = wr + r2_.mul_(ta2)
+    assert torch.equal(g, wg) and torch.equal(r, wr)
+
+
+def test_gathered_gram_cpu_launches_no_kernel_and_wrapper_refuses_cpu():
+    fixed, idx, val, mask = _t(*_gathered_inputs(2, 3, 4, 5, 0, 0))
+    tops.reset_launch_counts()
+    tops.gathered_gram_and_rhs(fixed, idx, val, mask, torch.tensor(2.0))
+    assert tops.launch_counts()["gram"] == 0
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        tgram.gathered_gram_cuda(fixed, idx, val, mask, torch.tensor(2.0))
+
+
+# the reference's bf16 probe, and a ragged shape
+@pytest.mark.parametrize("R,T,K", [(16, 130, 32), (5, 37, 9)])
+def test_gram_bf16_plain_matches_jax_oracle_and_pallas(R, T, K):
+    """bf16 operands (the reference's ``bf16_gather`` probe) through
+    ``ops.gram_and_rhs``'s plain version against the reference's bf16
+    oracle and the Pallas kernel in interpret mode.  Tolerance GRAM_TOL:
+    bf16 widens to fp32 exactly, and with masks of 0 and 1 the programs
+    (bf16 masked operand and val * mask; fp32 in the Pallas kernel)
+    differ only in the order of the fp32 sums."""
+    vg, val, mask = _gram_inputs(R, T, K, seed=3)
+    bf = [torch.from_numpy(a).bfloat16() for a in (vg, val, mask)]
+    g, r = tops.gram_and_rhs(*bf)
+    assert g.dtype == r.dtype == torch.float32
+    jin = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in bf]
+    jg, jr = jref.gram_ref(*jin)
+    pg, pr = jops.gram_and_rhs(*jin, use_pallas=True, interpret=True)
+    for want_g, want_r in ((jg, jr), (pg, pr)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want_g),
+                                   **GRAM_TOL)
+        np.testing.assert_allclose(r.numpy(), np.asarray(want_r),
+                                   **GRAM_TOL)

@@ -81,13 +81,28 @@ def test_sddmm_kernel_matches_plain(cuda, E, K):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_bf16(cuda):
-    vg, val, mask = _t(*_gram_inputs(2, 3, 4), device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        tgram.gram_cuda(vg.bfloat16(), val, mask)
-    u, v = _t(*_sddmm_inputs(5, 4), device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        tsddmm.sddmm_cuda(u.bfloat16(), v.bfloat16())
+@pytest.mark.parametrize("kernel", ["gram", "sddmm"])
+def test_kernels_refuse_bf16(cuda, kernel):
+    """sddmm's bf16 branch is not ported: it refuses bf16 operands.
+    gram takes them now (the reference's bf16 probe, and a K that is
+    not a multiple of 8, whose rows the kernel loads element-wise) and
+    matches the bf16 branch of its plain version."""
+    if kernel == "sddmm":
+        u, v = _t(*_sddmm_inputs(5, 4), device=cuda)
+        with pytest.raises(TypeError, match="float32"):
+            tsddmm.sddmm_cuda(u.bfloat16(), v.bfloat16())
+        return
+    for R, T, K in ((16, 130, 32), (5, 37, 9)):
+        vg, val, mask = (x.bfloat16() for x in
+                         _t(*_gram_inputs(R, T, K), device=cuda))
+        before = tgram.launches
+        g, r = tops.gram_and_rhs(vg, val, mask)
+        torch.cuda.synchronize()
+        assert tgram.launches == before + 1
+        assert g.dtype == r.dtype == torch.float32
+        gw, rw = tref.gram_ref(vg, val, mask)
+        torch.testing.assert_close(g, gw, **GRAM_TOL)
+        torch.testing.assert_close(r, rw, **GRAM_TOL)
 
 
 @pytest.mark.cuda
@@ -97,6 +112,150 @@ def test_gram_kernel_is_deterministic_and_symmetric(cuda):
     g2, r2 = tgram.gram_cuda(vg, val, mask)
     assert torch.equal(g1, g2) and torch.equal(r1, r2)
     assert torch.equal(g1, g1.mT)
+
+
+def _gathered_inputs(R, T, K, n_fixed, empty, device, seed=0):
+    rng = np.random.default_rng(seed)
+    fixed = rng.normal(size=(n_fixed, K)).astype(np.float32)
+    idx = rng.integers(0, n_fixed, size=(R, T)).astype(np.int32)
+    val = rng.normal(size=(R, T)).astype(np.float32)
+    mask = (rng.random((R, T)) > 0.3).astype(np.float32)
+    mask[:empty] = 0.0
+    return _t(fixed, idx, val, mask, device=device)
+
+
+def _first_design():
+    """scripts_dev/gram_v1.py, the kernel's first design, registered."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]
+                           / "scripts_dev"))
+    import gram_v1
+    gram_v1.register()
+    return gram_v1
+
+
+# K = 1, 7, 33, 128 and 256 (the tiled path); T not a multiple of the
+# 32-step stage; R = 300 not a multiple of the persistent grid's groups
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T,K,n_fixed,empty", [
+    (3, 5, 1, 4, 1), (9, 37, 7, 20, 2), (13, 257, 33, 50, 3),
+    (300, 70, 128, 1000, 5), (4, 40, 256, 30, 1)])
+def test_gathered_gram_kernel_matches_plain(cuda, R, T, K, n_fixed, empty):
+    """Two blocks' order: the first without acc, the second with it and
+    a Lambda_p that is not symmetric, against ``ref.gathered_gram_ref``
+    at GRAM_TOL; one launch a call for K <= 128, two above."""
+    f1, i1, v1, m1 = _gathered_inputs(R, T, K, n_fixed, empty, cuda, 0)
+    f2, i2, v2, m2 = _gathered_inputs(R, T + 3, K, n_fixed, 0, cuda, 1)
+    a1 = torch.tensor(1.7, device=cuda)
+    a2 = torch.tensor(0.45, device=cuda)
+    lam = torch.randn(K, K, device=cuda)
+    before = tgram.launches
+    acc = tops.gathered_gram_and_rhs(f1, i1, v1, m1, a1)
+    g, r = tops.gathered_gram_and_rhs(f2, i2, v2, m2, a2, acc=acc, lam=lam)
+    torch.cuda.synchronize()
+    assert tgram.launches == before + 2 * (1 if K <= tgram.TILE else 2)
+    assert g.data_ptr() == acc[0].data_ptr()
+    w1 = tref.gathered_gram_ref(f1.cpu(), i1.cpu(), v1.cpu(), m1.cpu(),
+                                a1.cpu())
+    gw, rw = tref.gathered_gram_ref(f2.cpu(), i2.cpu(), v2.cpu(), m2.cpu(),
+                                    a2.cpu(), acc=w1, lam=lam.cpu())
+    torch.testing.assert_close(g.cpu(), gw, **GRAM_TOL)
+    torch.testing.assert_close(r.cpu(), rw, **GRAM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T,K", [(300, 64, 128), (40, 1150, 128),
+                                   (7, 40, 256), (13, 257, 33)])
+def test_gathered_gram_kernel_is_the_first_designs_bits(cuda, R, T, K):
+    """With masks of 0 and 1 the fused kernel gives the bits of the
+    pipeline it replaces: gather, the first design
+    (scripts_dev/gram_v1.cu), mul_ by alpha, add_ of acc, add_ of
+    Lambda_p; and the same bits on a second run."""
+    prev = _first_design()
+    fixed, idx, val, mask = _gathered_inputs(R, T, K, 500, 2, cuda)
+    alpha = torch.tensor(2.3, device=cuda)
+    lam = torch.randn(K, K, device=cuda)
+    accs = (torch.randn(R, K, K, device=cuda), torch.randn(R, K, device=cuda))
+    for acc in (None, accs):
+        want = prev.pipeline(fixed, idx, val, mask, alpha, lam=lam,
+                             acc=None if acc is None else
+                             tuple(a.clone() for a in acc))
+        runs = [tops.gathered_gram_and_rhs(
+            fixed, idx, val, mask, alpha, lam=lam,
+            acc=None if acc is None else tuple(a.clone() for a in acc))
+            for _ in range(2)]
+        torch.cuda.synchronize()
+        for got in runs:
+            for a, b in zip(got, want):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_gathered_gram_symmetry_and_lam_per_place(cuda):
+    """alpha * g is symmetric to the bit; Lambda_p is added at each
+    place's own index: with a Lambda_p that is not symmetric the result
+    is (alpha * g) + Lambda_p place by place, and with a symmetric one
+    it stays symmetric."""
+    fixed, idx, val, mask = _gathered_inputs(200, 90, 128, 700, 3, cuda)
+    alpha = torch.tensor(0.8, device=cuda)
+    g0, _ = tops.gathered_gram_and_rhs(fixed, idx, val, mask, alpha)
+    lam = torch.randn(128, 128, device=cuda)
+    g1, _ = tops.gathered_gram_and_rhs(fixed, idx, val, mask, alpha,
+                                       lam=lam)
+    sym = lam + lam.T
+    g2, _ = tops.gathered_gram_and_rhs(fixed, idx, val, mask, alpha,
+                                       lam=sym)
+    torch.cuda.synchronize()
+    assert torch.equal(g0, g0.mT)
+    assert torch.equal(g1, g0 + lam)
+    assert not torch.equal(g1, g1.mT)
+    assert torch.equal(g2, g2.mT)
+
+
+@pytest.mark.cuda
+def test_gathered_gram_reads_zeros_for_an_idx_out_of_range(cuda):
+    """An idx outside [0, n_fixed) is never read: the kernel takes its
+    row as zeros (the plain version would raise)."""
+    fixed, idx, val, mask = _gathered_inputs(50, 40, 128, 100, 0, cuda)
+    bad = idx.clone()
+    bad[::3, ::5] = 100
+    bad[1::3, 2::7] = -4
+    g, r = tops.gathered_gram_and_rhs(fixed, bad, val, mask, 1.5)
+    zero = torch.cat([fixed, torch.zeros(1, 128, device=cuda)])
+    safe = torch.where((bad < 0) | (bad >= 100), 100, bad).int()
+    gw, rw = tref.gathered_gram_ref(zero, safe, val, mask,
+                                    torch.tensor(1.5, device=cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(g, gw, **GRAM_TOL)
+    torch.testing.assert_close(r, rw, **GRAM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["pre-gathered", "gathered"])
+@pytest.mark.parametrize("K", [33, 128, 256])
+def test_gram_kernels_answer_rows_of_no_steps(cuda, entry, K):
+    """T = 0: both entries return (and do not hang), the Gram and rhs of
+    no steps, with alpha, acc and lam applied as the plain version does."""
+    R = 5
+    fixed, idx, val, mask = _gathered_inputs(R, 0, K, 10, 0, cuda)
+    if entry == "pre-gathered":
+        vg = torch.zeros(R, 0, K, device=cuda)
+        g, r = tops.gram_and_rhs(vg, val, mask)
+        gw, rw = tref.gram_ref(vg, val, mask)
+    else:
+        alpha = torch.tensor(1.3, device=cuda)
+        lam = torch.randn(K, K, device=cuda)
+        acc = (torch.randn(R, K, K, device=cuda),
+               torch.randn(R, K, device=cuda))
+        g, r = tops.gathered_gram_and_rhs(
+            fixed, idx, val, mask, alpha, lam=lam,
+            acc=tuple(a.clone() for a in acc))
+        gw, rw = tref.gathered_gram_ref(fixed, idx, val, mask, alpha,
+                                        lam=lam, acc=acc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(g, gw, **GRAM_TOL)
+    torch.testing.assert_close(r, rw, **GRAM_TOL)
 
 
 def _topk_inputs(B, S, N, K, seed=0, excl_frac=0.0):
