@@ -14,9 +14,12 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    Gram, alpha and Lambda_p in one launch) is also held bitwise against
    the pipeline it replaced (``index_select``, the first design
    ``scripts_dev/gram_v1.cu``, ``mul_``, ``add_``) at both half-sweep
-   shapes and timed beside it, part by part;
-3. golden chain: replays the ``gaussian`` chain of
-   ``results/golden_chains.json`` on the card;
+   shapes and timed beside it, part by part; sddmm's fused-gather entry
+   (the sweeps' predictions at gathered rows) likewise, bitwise against
+   ``index_select`` x 2 + ``sddmm_f32``, at the observed entries and at
+   the rows side of probit's padded prediction;
+3. golden chains: replays the ``gaussian``, ``probit`` and ``gfa``
+   chains of ``results/golden_chains.json`` on the card;
 4. slice: runs ``ModelBuilder(num_latent=128)`` -> ``session(...).run()``
    on a ChEMBL-shaped matrix (131,072 compounds x 8,192 proteins, 64
    proteins per compound, a planted rank-16 signal plus 0.3 noise, and
@@ -41,7 +44,23 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    checkpoint code and serves ``PredictSession.recommend_rows`` from it
    at k = 100 and k = 2,048, held bitwise against B = 1 calls and
    against the plain version;
-8. lm: holds the ``flash`` kernels against their plain version at the
+8. macau (``macau_chembl``): the slice's compounds and widths with
+   2,048-bit side information (about 50 bits a compound, a planted
+   link) through ``add_entity(side_info=)``; a save_freq store, its
+   reload, ``predict_new`` for 1,024 held-out compounds (held against
+   the fp64 formula) and 64 cold-start requests through
+   ``RecommendServer(features=)``, each bitwise a sequential
+   ``recommend(features=)``; the Macau hyper-sample timed alone;
+9. probit (``probit_chembl``): the slice's entries as binary
+   activities through probit noise;
+10. dense (``dense_views``): one fully observed 131,072 x 4,096 block,
+    K = 128, the shared-Gram path;
+11. gfa (``gfa_views``): 131,072 samples with FixedNormal priors
+    against views of 8,192, 4,096 and 2,048 features with
+    spike-and-slab loadings, K = 32;
+12. chains: two chains of the probit model at 16,384 compounds, each
+    bitwise the single-chain run with its key;
+13. lm: holds the ``flash`` kernels against their plain version at the
    reference's probes, ragged cases, GQA groups of 3 and 1 at hd 64
    and the prefill shape, each through the design ``flash.design``
    routes it to (``flash_sm90`` for bf16 at hd 64 and 128), and times
@@ -342,7 +361,10 @@ def phase_kernels(train, gen):
     print(f"  sddmm E={E} K={K}: {s_ms:.3f} ms, plain {s_plain:.3f} ms, "
           f"torch.linalg.vecdot {s_lib:.3f} ms, bound {sb_ms:.3f} ms by "
           f"{sb_by}, {s_bytes / s_ms / 1e6:.0f} GB/s")
-    del ug, vg, U, V
+    del ug, vg
+    torch.cuda.empty_cache()
+    gathered = gathered_sddmm_main_path(train, U, V, gen)
+    del U, V
     torch.cuda.empty_cache()
     gram["max_abs_err"] = errs["gram"]
     return {
@@ -353,7 +375,116 @@ def phase_kernels(train, gen):
             "replaces": "src/repro/kernels/sddmm.py:53",
             "max_abs_err": errs["sddmm"], "ms": s_ms, "plain_ms": s_plain,
             "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": s_lib},
+        "sddmm_gathered": gathered,
     }
+
+
+def gathered_sddmm_main_path(train, U, V, gen):
+    """sddmm's fused-gather entry at its probes and at the three shapes
+    the sweeps give it: the observed entries (``_block_pred_observed``)
+    and both sides of probit's padded prediction (every slot of the
+    131,072 x 64 padded rows, and of the 8,192 padded columns, whose
+    entries outnumber the grid's warps).  Held against its plain version at
+    SDDMM_TOL and bitwise against ``index_select`` x 2 + ``sddmm_f32``
+    (the pipeline it replaces); timed beside that pipeline, the plain
+    version and one library expression (``index_select`` x 2 +
+    ``torch.linalg.vecdot``).  Returns the kernels-line entry (without
+    launches); ``ms`` and the other times are the observed entries'."""
+    import torch
+    from repro_torch.core.gibbs import _slot_rows
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sddmm as ksddmm
+    dev = U.device
+    err = 0.0
+
+    def check(U_, V_, i, j, label):
+        got = ksddmm.sddmm_gathered_cuda(U_, V_, i, j)
+        torch.cuda.synchronize()
+        ug, vg = U_.index_select(0, i), V_.index_select(0, j)
+        e = max_err(got, ref.sddmm_ref(ug, vg),
+                    ref.sddmm_ref(ug.abs(), vg.abs()), SDDMM_TOL,
+                    f"gathered sddmm {label}")
+        if not same_bits(got.cpu().numpy(),
+                         ksddmm.sddmm_cuda(ug, vg).cpu().numpy()):
+            raise AssertionError(f"gathered sddmm {label}: not the bits of "
+                                 "index_select x 2 + sddmm_f32")
+        print(f"  gathered sddmm {label}: max abs err {e:.3e}; bitwise "
+              "equal to index_select x 2 + sddmm_f32")
+        return e
+
+    for label, (E, K, n_u, n_v) in ops.KERNELS["sddmm_gathered"].items():
+        U_ = torch.randn(n_u, K, device=dev, generator=gen)
+        V_ = torch.randn(n_v, K, device=dev, generator=gen)
+        i = torch.randint(0, n_u, (E,), device=dev, generator=gen,
+                          dtype=torch.int32)
+        j = torch.randint(0, n_v, (E,), device=dev, generator=gen,
+                          dtype=torch.int32)
+        err = max(err, check(U_, V_, i, j, label))
+
+    R, T = train.rows.idx.shape
+    C, Tc = train.cols.idx.shape
+    shapes = (("observed entries", U, V, train.coo_i, train.coo_j),
+              (f"probit rows side {R} x {T} slots", U, V,
+               _slot_rows(R, T, dev), train.rows.idx.reshape(-1)),
+              (f"probit cols side {C} x {Tc} slots", V, U,
+               _slot_rows(C, Tc, dev), train.cols.idx.reshape(-1)))
+    out = {}
+    for label, U_, V_, i, j in shapes:
+        E, K = i.shape[0], U_.shape[1]
+        label = f"{label} E={E} K={K}"
+        err = max(err, check(U_, V_, i, j, label))
+        ms = time_ms(lambda: ksddmm.sddmm_gathered_cuda(U_, V_, i, j))
+        prev = time_ms(lambda: ksddmm.sddmm_cuda(U_.index_select(0, i),
+                                                 V_.index_select(0, j)))
+        plain = time_ms(lambda: ref.gathered_sddmm_ref(U_, V_, i, j))
+        lib = time_ms(lambda: torch.linalg.vecdot(U_.index_select(0, i),
+                                                  V_.index_select(0, j)))
+        n_bytes = 4 * (U_.numel() + V_.numel() + 3 * E)
+        b_ms, b_by = bound(n_bytes, 2 * E * K)
+        rate = 2 * E * K * 4 / ms / 1e6
+        print(f"  gathered sddmm {label}: {ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"by {b_by} (U, V, i, j, out once: {n_bytes / 1e6:.1f} MB; "
+              f"{b_ms / ms:.3f} of it; rows read {rate:.0f} GB/s through "
+              f"the caches), previous pipeline (index_select x 2 + "
+              f"sddmm_f32) {prev:.3f} ms, plain {plain:.3f} ms, library "
+              f"(index_select x 2 + torch.linalg.vecdot) {lib:.3f} ms")
+        out[label] = dict(ms=ms, previous_ms=prev, plain_ms=plain,
+                          library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    main, rows, cols = out.values()
+    # the observed entries are distinct cells: one library call computes
+    # the same function, cuSPARSE's SDDMM over their CSR pattern (the
+    # probit slots repeat a cell at their padding, which CSR does not
+    # hold)
+    nnz = int(train.nnz)
+    i64, j64 = train.coo_i[:nnz].long(), train.coo_j[:nnz].long()
+    order = torch.argsort(i64 * V.shape[0] + j64)
+    crow = torch.zeros(U.shape[0] + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(i64, minlength=U.shape[0]), 0)
+    pattern = torch.sparse_csr_tensor(
+        crow, j64[order], torch.zeros(nnz, device=dev),
+        size=(U.shape[0], V.shape[0]), check_invariants=True)
+    Vt = V.T.contiguous()
+    lib_sddmm = torch.sparse.sampled_addmm(pattern, U, Vt, beta=0.0)
+    got = ksddmm.sddmm_gathered_cuda(U, V, train.coo_i[:nnz],
+                                     train.coo_j[:nnz])[order]
+    max_err(lib_sddmm.values(), got,
+            ref.gathered_sddmm_ref(U.abs(), V.abs(), train.coo_i[:nnz],
+                                   train.coo_j[:nnz])[order], SDDMM_TOL,
+            "torch.sparse.sampled_addmm against the gathered sddmm")
+    sampled = time_ms(lambda: torch.sparse.sampled_addmm(pattern, U, Vt,
+                                                         beta=0.0))
+    print(f"  observed entries: torch.sparse.sampled_addmm (cuSPARSE SDDMM "
+          f"over the CSR pattern) {sampled:.3f} ms, within SDDMM_TOL of "
+          f"the gathered sddmm ({main['ms']:.3f} ms)")
+    del pattern, lib_sddmm, got, order
+    return {"name": "sddmm_gathered", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sddmm.cu",
+            "replaces": "src/repro/kernels/sddmm.py:53",
+            "max_abs_err": err, **main, "library_ms": sampled,
+            "library_expression_ms": main["library_ms"],
+            **{f"probit_{side}_{key}": d[key]
+               for side, d in (("rows", rows), ("cols", cols))
+               for key in ("ms", "previous_ms", "bound_ms", "library_ms")}}
 
 
 def gram_library(fixed, idx, val, mask, alpha, lam):
@@ -487,39 +618,120 @@ def gram_main_path(train, U, V, gen, errs):
             "previous_source": PREVIOUS_GRAM}
 
 
-def phase_golden():
-    """The golden ``gaussian`` chain (48 x 32, K=4, seed 11) on the card."""
+def golden_model(name: str, seed: int, device):
+    """(model, data) of ``results/golden_chains.json``'s chain ``name``,
+    built as ``tests/test_golden_chain.py`` builds it: K = 4; 48 x 32
+    sparse with adaptive (``gaussian``) or probit (``probit``) noise, or
+    FixedNormal samples against two fully observed dense views with
+    spike-and-slab loadings (``gfa``)."""
     import numpy as np
-    from repro_torch.core import (AdaptiveGaussian, BlockDef, EntityDef,
-                                  MFData, ModelDef, NormalPrior,
-                                  gibbs_step, init_state, random_sparse)
+    from repro_torch import core as tc
+    K = 4
+    if name == "gfa":
+        rng = np.random.default_rng(seed)
+        N, dims = 48, (16, 12)
+        Z = rng.normal(size=(N, K)).astype(np.float32)
+        ents = [tc.EntityDef("samples", N, tc.FixedNormalPrior(K))]
+        blocks, payloads = [], []
+        for m, D in enumerate(dims):
+            W = rng.normal(size=(D, K)).astype(np.float32)
+            X = (Z @ W.T + 0.1 * rng.normal(size=(N, D))).astype(np.float32)
+            ents.append(tc.EntityDef(f"view{m}", D, tc.SpikeAndSlabPrior(K)))
+            blocks.append(tc.BlockDef(0, m + 1, tc.AdaptiveGaussian(),
+                                      sparse=False))
+            payloads.append(tc.dense_block(X, device=device))
+        model = tc.ModelDef(tuple(ents), tuple(blocks), K, device=device)
+        return model, tc.MFData(tuple(payloads), (None,) * len(ents))
+    binary = name == "probit"
+    mat, _, _ = tc.random_sparse(seed, (48, 32), 0.3, rank=3, binary=binary,
+                                 device=device)
+    noise = tc.ProbitNoise() if binary else tc.AdaptiveGaussian()
+    model = tc.ModelDef((tc.EntityDef("r", 48, tc.NormalPrior(K)),
+                         tc.EntityDef("c", 32, tc.NormalPrior(K))),
+                        (tc.BlockDef(0, 1, noise, sparse=True),), K,
+                        device=device)
+    return model, tc.MFData((mat,), (None, None))
+
+
+def phase_golden():
+    """The golden ``gaussian``, ``probit`` and ``gfa`` chains (seed 11,
+    3 sweeps) on the card, at the fixture tolerance."""
+    import numpy as np
+    from repro_torch.core import gibbs_step, init_state
     golden = json.loads(GOLDEN.read_text())
     seed, sweeps = golden["seed"], golden["sweeps"]
-    K = 4
-    mat, _, _ = random_sparse(seed, (48, 32), 0.3, rank=3, device="cuda")
-    model = ModelDef((EntityDef("r", 48, NormalPrior(K)),
-                      EntityDef("c", 32, NormalPrior(K))),
-                     (BlockDef(0, 1, AdaptiveGaussian(), sparse=True),), K,
-                     device="cuda")
-    data = MFData((mat,), (None, None))
-    state = init_state(model, data, seed=seed)
-    got = {"rmse_train": [], "alpha": []}
-    for _ in range(sweeps):
-        state, m = gibbs_step(model, data, state)
-        got["rmse_train"].append(float(m["rmse_train_0"]))
-        got["alpha"].append(float(m["alpha_0"]))
-    want = golden["chains"]["gaussian"]
-    for key in ("rmse_train", "alpha"):
-        np.testing.assert_allclose(got[key], want[key], rtol=1e-3,
-                                   atol=1e-5, err_msg=f"golden {key}")
-    print(f"golden gaussian chain on cuda: rmse_train {got['rmse_train']}"
-          f", alpha {got['alpha']} (fixture {want}); rtol 1e-3 atol 1e-5")
+    for name in ("gaussian", "probit", "gfa"):
+        model, data = golden_model(name, seed, "cuda")
+        state = init_state(model, data, seed=seed)
+        got = {"rmse_train": [], "alpha": []}
+        for _ in range(sweeps):
+            state, m = gibbs_step(model, data, state)
+            got["rmse_train"].append(float(m["rmse_train_0"]))
+            got["alpha"].append(float(m["alpha_0"]))
+        want = golden["chains"][name]
+        for key in ("rmse_train", "alpha"):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-3,
+                                       atol=1e-5,
+                                       err_msg=f"golden {name} {key}")
+        rel = max(abs(g - w) / abs(w) for key in ("rmse_train", "alpha")
+                  for g, w in zip(got[key], want[key]))
+        print(f"golden {name} chain on cuda: rmse_train "
+              f"{got['rmse_train']}, alpha {got['alpha']} (fixture {want});"
+              f" largest relative difference {rel:.2e}; rtol 1e-3 atol "
+              "1e-5")
+
+
+def run_timed(sess):
+    """``sess.run()`` with the card synchronized after every sweep:
+    (result, ms of each sweep, peak device bytes).  The first sweep's
+    time includes ``init_state``."""
+    import torch
+    stamps = []
+
+    def stamp(info):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    sess.callbacks = tuple(sess.callbacks) + (stamp,)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sess.run()
+    peak = torch.cuda.max_memory_allocated()
+    edges = [t0] + stamps
+    return res, [(b - a) * 1e3 for a, b in zip(edges, edges[1:])], peak
+
+
+def sweep_summary(label, ms, peak, extra=""):
+    med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    print(f"{label}: sweeps " + ", ".join(f"{m:.1f}" for m in ms)
+          + f" ms (the first with init_state); median after the first "
+          f"{med:.1f} ms; peak device memory {peak / 1e9:.2f} GB{extra}")
+    return med
+
+
+def check_launches(label, counts, want):
+    from repro_torch.kernels import ops
+    full = dict.fromkeys(ops.launch_counts(), 0)
+    full.update(want)
+    if counts != full:
+        raise AssertionError(f"{label}: launch counts {counts}, want {full}")
+
+
+def check_finite(label, res):
+    import math
+    import torch
+    if not all(math.isfinite(v) for v in res.rmse_train_trace):
+        raise AssertionError(f"{label}: non-finite rmse_train "
+                             f"{res.rmse_train_trace}")
+    for f in res.state.factors:
+        if not torch.isfinite(f).all():
+            raise AssertionError(f"{label}: non-finite factor")
 
 
 def phase_slice(train, test, burnin: int, nsamples: int, seed: int):
     """The main path through the entry points a user calls."""
     import math
-    import torch
     from repro_torch.core import AdaptiveGaussian, ModelBuilder
     from repro_torch.kernels import ops
 
@@ -529,23 +741,10 @@ def phase_slice(train, test, burnin: int, nsamples: int, seed: int):
     b.add_block("compound", "protein", train, test=test,
                 noise=AdaptiveGaussian())
     sess = b.session(burnin=burnin, nsamples=nsamples, seed=seed)
-    stamps = []
-
-    def stamp(info):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    sess.callbacks = (stamp,)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = sess.run()
+    res, sweep_ms, peak = run_timed(sess)
     counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     sweeps = burnin + nsamples
-    edges = [t0] + stamps
-    sweep_ms = [(edges[i + 1] - edges[i]) * 1e3 for i in range(sweeps)]
     for s in range(sweeps):
         print(f"  sweep {s} ({'burnin' if s < burnin else 'sample'}): "
               f"{sweep_ms[s]:.1f} ms, rmse_train "
@@ -553,12 +752,9 @@ def phase_slice(train, test, burnin: int, nsamples: int, seed: int):
     print(f"slice: rmse_test {res.rmse_test:.6f}, runtime_s "
           f"{res.runtime_s:.3f}, peak device memory "
           f"{peak / 1e9:.2f} GB, launches {counts}")
-    vals = res.rmse_train_trace + [res.rmse_test]
-    if not all(math.isfinite(v) for v in vals):
-        raise AssertionError(f"slice: non-finite metrics {vals}")
-    for f in res.state.factors:
-        if not torch.isfinite(f).all():
-            raise AssertionError("slice: non-finite factor")
+    check_finite("slice", res)
+    if not math.isfinite(res.rmse_test):
+        raise AssertionError(f"slice: rmse_test {res.rmse_test}")
     # the chain must learn: some later sweep fits the training entries
     # better than the first (in burn-in the trace need not be monotone)
     first, later = res.rmse_train_trace[0], res.rmse_train_trace[1:]
@@ -566,12 +762,11 @@ def phase_slice(train, test, burnin: int, nsamples: int, seed: int):
         raise AssertionError(
             f"slice: rmse_train never fell below the first sweep's: "
             f"{res.rmse_train_trace}")
-    # gram: one launch per half-sweep; sddmm: one per sweep for the
-    # training residual plus one per posterior sample for the test set
-    want = {"gram": 2 * sweeps, "sddmm": sweeps + nsamples,
-            "topk_score": 0, "flash": 0}
-    if counts != want:
-        raise AssertionError(f"slice: launch counts {counts}, want {want}")
+    # gram: one launch per half-sweep; the gathered sddmm one per sweep
+    # for the training residual; sddmm one per posterior sample for the
+    # test set
+    check_launches("slice", counts, {"gram": 2 * sweeps, "sddmm": nsamples,
+                                     "sddmm_gathered": sweeps})
     return sess, res, counts, sweep_ms
 
 
@@ -814,7 +1009,8 @@ def serve_store512(seed: int):
                 for k in (SERVE_K, STORE512_K)}
         wall = (time.perf_counter() - t0) * 1e3
         counts = ops.launch_counts()
-        want = {"gram": 0, "sddmm": 0, "topk_score": 2, "flash": 0}
+        want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0,
+                "topk_score": 2, "flash": 0}
         if counts != want:
             raise AssertionError(f"store512: launch counts {counts}, want "
                                  f"{want}")
@@ -950,16 +1146,14 @@ def phase_serving(train, test, seed: int, gen):
                     hists["serve.execute_s"]))))
         counts = ops.launch_counts()
         sweeps = burnin + nsamples
-        want = {"gram": 2 * sweeps, "sddmm": sweeps + 2 * nsamples,
-                "topk_score": sum(p["steps"] + 1 for p in paths),
-                "flash": 0}
-        if counts != want:
-            raise AssertionError(f"serving: launch counts {counts}, "
-                                 f"want {want}")
-        print(f"serving path launches {counts} (gram 2 per sweep; sddmm 1 "
-              "per sweep, 1 per sample in the session and 1 per sample "
-              "in the reload; topk_score 1 per server step, the first "
-              "request's included)")
+        check_launches("serving", counts,
+                       {"gram": 2 * sweeps, "sddmm": 2 * nsamples,
+                        "sddmm_gathered": sweeps,
+                        "topk_score": sum(p["steps"] + 1 for p in paths)})
+        print(f"serving path launches {counts} (gram 2 per sweep; the "
+              "gathered sddmm 1 per sweep; sddmm 1 per sample in the "
+              "session and 1 per sample in the reload; topk_score 1 per "
+              "server step, the first request's included)")
 
         # batching changes no answer
         for p in paths:
@@ -1093,6 +1287,356 @@ def phase_serving(train, test, seed: int, gen):
         return entry
     finally:
         shutil.rmtree(store, ignore_errors=True)
+
+
+# the rest of the sweep at the reference's production cells
+# (src/repro/launch/mf_dryrun.py:114-127), compounds cut as for the slice
+MACAU_FEATURES, MACAU_BITS = 2048, 50    # ECFP bits, bits set a compound
+MACAU_SWEEPS = (3, 4)                    # burn-in, saved samples
+MACAU_HELDOUT, MACAU_REQUESTS = 1024, 64
+PROBIT_SWEEPS = (3, 2)
+DENSE = (131072, 4096)
+DENSE_SWEEPS = 4
+GFA = (131072, (8192, 4096, 2048), 32)   # samples, views, K
+GFA_SWEEPS = 3
+CHAINS = (16384, 2, 3)                   # compounds, chains, sweeps
+PLANTED_RANK = 16
+
+
+def with_values(mat, vals):
+    """``mat``'s pattern with new values ``vals`` (one per COO entry):
+    the padded rows and columns take them through the COO's flat
+    positions (padding entries land in the one-past-end slot)."""
+    import dataclasses
+    import torch
+    vals = vals * mat.coo_mask
+
+    def scatter(padded, pos):
+        flat = torch.zeros(padded.val.numel() + 1, device=vals.device)
+        flat[pos.long()] = vals
+        return dataclasses.replace(padded,
+                                   val=flat[:-1].view_as(padded.val))
+
+    return dataclasses.replace(mat, rows=scatter(mat.rows, mat.coo_rpos),
+                               cols=scatter(mat.cols, mat.coo_cpos),
+                               coo_v=vals)
+
+
+def macau_data(train, seed):
+    """Side information and values for ``macau_chembl``: 2,048-bit
+    binary fingerprints with about 50 bits set a compound, a planted
+    link (compound factor = fingerprint @ B, rank 16) and values at the
+    slice's observed entries plus 0.3 noise; 1,024 more compounds held
+    out of training with their fingerprints and true values.  Drawn on
+    the card from ``seed``."""
+    import math
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    D, n, m = MACAU_FEATURES, train.n_rows, train.n_cols
+    side = (torch.rand(n + MACAU_HELDOUT, D, device="cuda", generator=g)
+            < MACAU_BITS / D).float()
+    B = torch.randn(D, PLANTED_RANK, device="cuda",
+                    generator=g) / math.sqrt(MACAU_BITS)
+    V = torch.randn(m, PLANTED_RANK, device="cuda", generator=g)
+    U = side @ B
+    i, j, step = train.coo_i, train.coo_j, 1 << 20
+    vals = torch.cat([torch.linalg.vecdot(U.index_select(0, i[a:a + step]),
+                                          V.index_select(0, j[a:a + step]))
+                      for a in range(0, i.shape[0], step)])
+    vals += NOISE * torch.randn(vals.shape, device="cuda", generator=g)
+    return (side[:n].contiguous(), side[n:].contiguous(),
+            with_values(train, vals), U[n:] @ V.T)
+
+
+def phase_macau(train, seed: int):
+    """``macau_chembl``: the slice's compounds and widths with 2,048-bit
+    side information through the Macau prior; a save_freq store, its
+    reload, ``predict_new`` for held-out compounds and cold-start
+    requests through ``RecommendServer(features=)``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import AdaptiveGaussian, ModelBuilder, PredictSession
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RecommendServer
+    from repro_torch.obs import Histogram, percentile_summary
+
+    t0 = time.perf_counter()
+    side, side_new, mat, truth_new = macau_data(train, seed)
+    torch.cuda.synchronize()
+    print(f"macau data: side {tuple(side.shape)}, "
+          f"{float(side.sum(1).mean()):.1f} bits a compound, "
+          f"{side.numel() * 4 / 1e9:.2f} GB on the card; "
+          f"{MACAU_HELDOUT} held-out compounds; "
+          f"{time.perf_counter() - t0:.1f} s")
+    burnin, nsamples = MACAU_SWEEPS
+    sweeps = burnin + nsamples
+    store = tempfile.mkdtemp(prefix="chip_smoke_macau_")
+    try:
+        ops.reset_launch_counts()
+        b = ModelBuilder(num_latent=128)
+        b.add_entity("compound", train.n_rows, side_info=side)
+        b.add_entity("protein", train.n_cols)
+        b.add_block("compound", "protein", mat, noise=AdaptiveGaussian())
+        sess = b.session(burnin=burnin, nsamples=nsamples, seed=seed,
+                         save_freq=1, save_dir=store)
+        res, ms, peak = run_timed(sess)
+        counts = ops.launch_counts()
+        check_finite("macau", res)
+        check_launches("macau session", counts,
+                       {"gram": 2 * sweeps, "sddmm_gathered": sweeps})
+        trace = [round(v, 6) for v in res.rmse_train_trace]
+        med = sweep_summary("macau", ms, peak,
+                            f"; rmse_train {trace}; launches {counts}")
+        profile_sweep(sess.model, sess.data, res.state, med,
+                      "macau profile", top=8)
+        # the hyper-sample alone, at the chain's last state
+        prior = sess.model.entities[0].prior
+        st = res.state
+        FtF = sess.data.side_grams[0]
+        hyp = time_ms(lambda: prior.sample_hyper(
+            st.key, st.factors[0], st.hypers[0], side=side, FtF=FtF), n=5)
+        ftf = time_ms(lambda: side.T @ side, n=3)
+        print(f"  Macau hyper-sample: {hyp:.3f} ms a sweep (side^T side "
+              f"held with the data, computed once when the builder makes "
+              f"them: {ftf:.3f} ms; the reference recomputes it every "
+              "sweep); beta_prec "
+              f"{float(st.hypers[0]['beta_prec']):.4f}")
+        del res, st, sess, b
+
+        ps = PredictSession(store, cache_bytes=SERVE_CACHE_BYTES)
+        F_new = side_new.cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = ps.predict_new("compound", F_new)
+        new_s = time.perf_counter() - t0
+        cache = ps.warm_cache()
+        want = torch.zeros(pred.shape, dtype=torch.float64, device="cuda")
+        for s_ in range(cache.n_samples):
+            h = cache.hyper_at(0, s_)
+            u = h["mu"].double()[None, :] + side_new.double() @ \
+                h["beta"].double()
+            want += u @ cache.factors[1][s_].double().T
+        want /= cache.n_samples
+        got = torch.from_numpy(pred).to("cuda")
+        if pred.shape != (MACAU_HELDOUT, train.n_cols) \
+                or not torch.isfinite(got).all():
+            raise AssertionError(f"macau: predict_new gave {pred.shape}")
+        err = (got.double() - want).abs().max().item()
+        if err > 1e-4 * (1.0 + want.abs().max().item()):
+            raise AssertionError(f"macau: predict_new differs from the "
+                                 f"fp64 formula by {err:.3e}")
+        rmse = (got - truth_new).square().mean().sqrt().item()
+        zero = truth_new.square().mean().sqrt().item()
+        print(f"  predict_new for {MACAU_HELDOUT} held-out compounds x "
+              f"{train.n_cols} proteins: {new_s:.2f} s (the cache's warm "
+              f"included, {ps.num_samples} samples); max |diff| vs "
+              f"mean_s (mu_s + F beta_s) V_s^T in fp64 {err:.3e}; RMSE "
+              f"against the planted values {rmse:.4f} (predicting 0: "
+              f"{zero:.4f})")
+
+        block = ("compound", "protein")
+        srv = RecommendServer(ps, slots=SERVE_SLOTS, k=SERVE_K, block=block)
+        srv.submit(features=F_new[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.run()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        srv.obs.reset()
+        reqs = {srv.submit(features=F_new[q]): q
+                for q in range(MACAU_REQUESTS)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = {r["id"]: r for r in srv.run()}
+        wall = (time.perf_counter() - t0) * 1e3
+        for rid, q in reqs.items():
+            seq = ps.recommend(features=F_new[q], k=SERVE_K, block=block)
+            for key in ("ids", "mean", "std"):
+                if not same_bits(done[rid][key], getattr(seq, key)[0]):
+                    raise AssertionError(
+                        f"macau: cold-start request {q} {key} differs "
+                        "from a sequential recommend(features=)")
+        hists = srv.metrics_snapshot()["histograms"]
+        ex = percentile_summary(Histogram.from_dict(hists["serve.execute_s"]))
+        counts = ops.launch_counts()
+        print(f"  cold start: first request {first_ms:.1f} ms; then "
+              f"{MACAU_REQUESTS} requests by features, {SERVE_SLOTS} slots, "
+              f"k={SERVE_K} over {train.n_cols} proteins in {wall:.1f} ms; "
+              f"serve.execute_s p50 {ex['p50'] * 1e3:.3f} ms, p99 "
+              f"{ex['p99'] * 1e3:.3f} ms; every answer bitwise a sequential "
+              f"recommend(features=); macau path launches {counts}")
+        if counts["topk_score"] < 1:
+            raise AssertionError("macau: no topk_score launch")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def phase_probit(train, test, seed: int):
+    """``probit_chembl``: the slice's entries as binary activities
+    (value > 0) through probit noise; every augmentation draws its
+    latents around the gathered sddmm's predictions at the padded
+    slots."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ModelBuilder, ProbitNoise
+    from repro_torch.kernels import ops
+    mat = with_values(train, (train.coo_v > 0).float())
+    test_b = (test[0], test[1], (test[2] > 0).astype(np.float32))
+    burnin, nsamples = PROBIT_SWEEPS
+    sweeps = burnin + nsamples
+    ops.reset_launch_counts()
+    b = ModelBuilder(num_latent=128)
+    b.add_entity("compound", train.n_rows)
+    b.add_entity("protein", train.n_cols)
+    b.add_block("compound", "protein", mat, test=test_b,
+                noise=ProbitNoise())
+    sess = b.session(burnin=burnin, nsamples=nsamples, seed=seed)
+    res, ms, peak = run_timed(sess)
+    counts = ops.launch_counts()
+    check_finite("probit", res)
+    # the gathered sddmm: one a half-sweep for the latents, one a sweep
+    # for the residual; sddmm one a sample for the test set
+    check_launches("probit", counts,
+                   {"gram": 2 * sweeps, "sddmm_gathered": 3 * sweeps,
+                    "sddmm": nsamples})
+    trace = [round(v, 6) for v in res.rmse_train_trace]
+    med = sweep_summary("probit", ms, peak,
+                        f"; rmse_train {trace}; test AUC "
+                        f"{res.auc_test:.4f}, rmse_test {res.rmse_test:.4f}"
+                        f"; launches {counts}")
+    if not np.isfinite(res.auc_test):
+        raise AssertionError(f"probit: test AUC {res.auc_test}")
+    profile_sweep(sess.model, sess.data, res.state, med, "probit profile",
+                  top=8)
+    del res, mat, sess
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase_dense(seed: int):
+    """``dense_views``: one fully observed 131,072 x 4,096 block at
+    K = 128 (a planted rank-16 product plus 0.3 noise, drawn on the
+    card); every row shares one (K, K) Gram, so each half-sweep is one
+    Cholesky and matrix solves."""
+    import torch
+    from repro_torch.core import AdaptiveGaussian, ModelBuilder
+    from repro_torch.kernels import ops
+    N, C = DENSE
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    X = torch.randn(N, PLANTED_RANK, device="cuda", generator=g) @ \
+        torch.randn(C, PLANTED_RANK, device="cuda", generator=g).T
+    X += NOISE * torch.randn(X.shape, device="cuda", generator=g)
+    ops.reset_launch_counts()
+    b = ModelBuilder(num_latent=128)
+    b.add_entity("sample", N).add_entity("feature", C)
+    b.add_block("sample", "feature", X, noise=AdaptiveGaussian())
+    del X
+    sess = b.session(burnin=DENSE_SWEEPS, nsamples=0, seed=seed)
+    res, ms, peak = run_timed(sess)
+    check_finite("dense", res)
+    check_launches("dense", ops.launch_counts(), {})
+    tr = res.rmse_train_trace
+    med = sweep_summary(f"dense {N} x {C}", ms, peak,
+                        f"; rmse_train {[round(v, 6) for v in tr]}")
+    if not min(tr[1:]) < tr[0]:
+        raise AssertionError(f"dense: rmse_train never fell: {tr}")
+    profile_sweep(sess.model, sess.data, res.state, med, "dense profile",
+                  top=8)
+    del res, b, sess
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase_gfa(seed: int):
+    """``gfa_views``: FixedNormal samples against three fully observed
+    views with spike-and-slab loadings, K = 32; each view's planted
+    loadings use 2 of every 3 components."""
+    import torch
+    from repro_torch.core import AdaptiveGaussian, ModelBuilder
+    from repro_torch.kernels import ops
+    N, dims, K = GFA
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    Z = torch.randn(N, K, device="cuda", generator=g)
+    b = ModelBuilder(num_latent=K)
+    b.add_entity("samples", N, prior="fixednormal")
+    planted = []
+    for m, D in enumerate(dims):
+        W = torch.randn(D, K, device="cuda", generator=g)
+        W[:, torch.arange(K, device="cuda") % 3 == m] = 0.0
+        planted.append(int((W != 0).any(0).sum()))
+        X = Z @ W.T
+        X += 0.1 * torch.randn(X.shape, device="cuda", generator=g)
+        b.add_entity(f"view{m}", D, prior="spikeandslab")
+        b.add_block("samples", f"view{m}", X, noise=AdaptiveGaussian())
+        del X
+    del Z
+    ops.reset_launch_counts()
+    sess = b.session(burnin=GFA_SWEEPS, nsamples=0, seed=seed)
+    res, ms, peak = run_timed(sess)
+    check_finite("gfa", res)
+    check_launches("gfa", ops.launch_counts(), {})
+    active = [int((f != 0).any(0).sum()) for f in res.state.factors[1:]]
+    trace = [round(v, 6) for v in res.rmse_train_trace]
+    med = sweep_summary(
+        f"gfa {N} samples x views {dims}, K={K}", ms, peak,
+        f"; rmse_train (view 0) {trace}; active components per view "
+        f"{active} (planted {planted})")
+    profile_sweep(sess.model, sess.data, res.state, med, "gfa profile",
+                  top=8)
+    del res, b, sess
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase_chains(seed: int):
+    """Two chains of the probit model at 16,384 compounds (full widths):
+    ``multi_chain_step`` loops over the chains, and each must be bitwise
+    the single-chain run keyed ``chain_keys(seed, 2)[c]``."""
+    import torch
+    from repro_torch.core import (ModelBuilder, ProbitNoise, chain_keys,
+                                  gibbs_step, init_chain_states, init_state,
+                                  multi_chain_step, stack_states,
+                                  unstack_state)
+    n, C, sweeps = CHAINS
+    train, _ = slice_data(n, seed, "cuda")
+    b = ModelBuilder(num_latent=128)
+    b.add_entity("compound", n).add_entity("protein", train.n_cols)
+    b.add_block("compound", "protein",
+                with_values(train, (train.coo_v > 0).float()),
+                noise=ProbitNoise())
+    model, data, _ = b.build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stacked = stack_states(init_chain_states(model, data, seed, C))
+    traces = []
+    for _ in range(sweeps):
+        stacked, m = multi_chain_step(model, data, stacked)
+        traces.append(m)
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    for c, key in enumerate(chain_keys(seed, C, "cuda")):
+        st = init_state(model, data, key=key)
+        for s_ in range(sweeps):
+            st, m = gibbs_step(model, data, st)
+            for name, v in m.items():
+                if not torch.equal(traces[s_][name][c], v):
+                    raise AssertionError(f"chains: chain {c} sweep {s_} "
+                                         f"{name} differs")
+        mine = unstack_state(stacked, c)
+        same = torch.equal(mine.key, st.key) and all(
+            torch.equal(a, b_) for a, b_ in zip(mine.factors, st.factors))
+        same = same and all(torch.equal(ha[k], hb[k])
+                            for ha, hb in zip(mine.hypers, st.hypers)
+                            for k in ha)
+        if not same:
+            raise AssertionError(f"chains: chain {c} is not the single-"
+                                 "chain run with its key")
+    print(f"chains: {C} chains of the probit model at {n} compounds x "
+          f"{train.n_cols} proteins, K=128, {sweeps} sweeps through "
+          f"multi_chain_step in {multi_s:.2f} s; each chain bitwise the "
+          "single-chain run keyed chain_keys(seed, 2)[c] (factors, hypers,"
+          " metrics)")
 
 
 # the LM slice: Qwen3-4B at full width and depth, random weights
@@ -1419,7 +1963,7 @@ def phase_lm(seed: int, flash_entry):
     counts = ops.launch_counts()
     # forwards: the timed ones, generate's prefill and the one decode is
     # held against
-    want = {"gram": 0, "sddmm": 0, "topk_score": 0,
+    want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0, "topk_score": 0,
             "flash": cfg.n_layers * (n_fwd + 2)}
     if counts != want or kflash.design_launches["flash_sm90"] != want["flash"]:
         raise AssertionError(f"lm: launch counts {counts} "
@@ -1467,28 +2011,28 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def phase_profile(sess, res, sweep_ms):
-    """One more sweep under torch.profiler: the device's idle share and
-    device time by kernel."""
+def profile_sweep(model, data, state, plain_wall, label, top=12):
+    """One more sweep from ``state`` under torch.profiler: prints the
+    device's idle share and device time by operation and by kernel;
+    returns the profiler's key averages."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import gibbs_step
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gibbs_step(sess.model, sess.data, res.state)
+        gibbs_step(model, data, state)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
     busy = busy_ms(prof.events())
     if not 0 < busy <= wall:
-        raise AssertionError(f"profile: device busy {busy:.3f} ms in a "
+        raise AssertionError(f"{label}: device busy {busy:.3f} ms in a "
                              f"sweep of {wall:.3f} ms wall")
     # the profiler slows the host, not the kernels: the busy time set
     # against the unprofiled sweeps' wall is the share without it
-    plain_wall = statistics.median(sweep_ms[1:])
-    print(f"profile: one sweep {wall:.1f} ms wall (profiler on), device "
+    print(f"{label}: one sweep {wall:.1f} ms wall (profiler on), device "
           f"busy {busy:.1f} ms (union of kernel and copy intervals), idle "
           f"share {1 - busy / wall:.3f} with the profiler on, "
           f"{1 - busy / plain_wall:.3f} against the median unprofiled "
@@ -1499,27 +2043,34 @@ def phase_profile(sess, res, sweep_ms):
     ops_ = [e for e in stats if e.device_type != DeviceType.CUDA
             and e.key.startswith("aten::") and e.device_time_total > 0]
     ops_.sort(key=lambda e: e.device_time_total, reverse=True)
-    for e in ops_[:12]:
+    for e in ops_[:top]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key}")
     print("  by kernel:")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in kernels[:12]:
+    for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
-    # gram gathers in its loads and folds alpha and Lambda_p into its
-    # epilogue: the sweep's only gathers are sddmm's two
+    return stats
+
+
+def phase_profile(sess, res, sweep_ms):
+    """One more sweep of the slice under torch.profiler; the sweep runs
+    no gather (gram and the gathered sddmm read their rows in their
+    loads) and no mul_ or add_ over a Gram buffer."""
+    stats = profile_sweep(sess.model, sess.data, res.state,
+                          statistics.median(sweep_ms[1:]), "profile")
     counts = {e.key: e.count for e in stats}
-    largest = {k: max((e.device_time_total / 1e3 for e in ops_
+    largest = {k: max((e.device_time_total / 1e3 for e in stats
                        if e.key == k), default=0.0)
                for k in ("aten::mul_", "aten::add_")}
-    print(f"  gram's pipeline: aten::index_select x"
-          f"{counts.get('aten::index_select', 0)} (sddmm's U and V rows); "
+    print(f"  gathers: aten::index_select x"
+          f"{counts.get('aten::index_select', 0)}; "
           + ", ".join(f"{k} x{counts.get(k, 0)}, {v:.3f} ms in all"
                       for k, v in largest.items()))
-    if counts.get("aten::index_select", 0) != 2:
+    if counts.get("aten::index_select", 0) != 0:
         raise AssertionError(f"profile: {counts.get('aten::index_select')} "
-                             "index_select in a sweep, want sddmm's 2")
+                             "index_select in a sweep, want none")
 
 
 def main(argv=None) -> int:
@@ -1567,7 +2118,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("== serving: store, PredictSession, RecommendServer, topk_score")
     topk = phase_serving(train, test, args.seed, gen)
+    torch.cuda.empty_cache()
+    print("== macau: side information, store, predict_new, cold start")
+    phase_macau(train, args.seed)
+    torch.cuda.empty_cache()
+    print("== probit: binary activities through probit noise")
+    phase_probit(train, test, args.seed)
     del train, test
+    torch.cuda.empty_cache()
+    print("== dense: one fully observed block, the shared-Gram path")
+    phase_dense(args.seed)
+    print("== gfa: spike-and-slab loadings over dense views")
+    phase_gfa(args.seed)
+    print("== chains: two chains, each bitwise its single-chain run")
+    phase_chains(args.seed)
     torch.cuda.empty_cache()
     print("== lm: flash, Qwen3-4B forward, generate, BatchedServer")
     flash = phase_lm(args.seed, phase_flash(gen))
@@ -1575,7 +2139,8 @@ def main(argv=None) -> int:
     for name, entry in entries.items():
         entry["launches"] = counts[name]
     print(json.dumps({"kernels": [entries["gram"], entries["sddmm"],
-                                  topk, flash]}))
+                                  entries["sddmm_gathered"], topk,
+                                  flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

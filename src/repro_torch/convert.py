@@ -4,7 +4,9 @@ package.
 ``state_from_reference`` and ``data_from_reference`` take the leaves of
 ``repro``'s ``MFState``/``MFData`` as numpy arrays -- or any objects
 with the same fields whose leaves ``numpy.asarray`` accepts -- and
-return the port's on a given device.  ``lm_params_from_reference``
+return the port's on a given device: sparse and dense blocks, side
+information, and every prior's hyper-state (Macau's ``beta`` and
+``beta_prec``, spike-and-slab's ``rho`` and ``tau`` among them).  ``lm_params_from_reference``
 takes the reference's LM params tree as nested dicts of such arrays and
 returns the port's ``Transformer``.  The parity tests use them to start
 both packages from the same state and weights.  This module imports
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
-from .core.gibbs import MFData, MFState
+from .core.blocks import DenseBlock
+from .core.gibbs import MFData, MFState, with_side_grams
 from .core.sparse import PaddedRows, SparseMatrix
 from .models import layers as L
 from .models.config import ModelConfig
@@ -67,16 +70,34 @@ def sparse_from_reference(mat, device: DeviceLike = None) -> SparseMatrix:
                         **i32, **f32)
 
 
+def dense_from_reference(block, device: DeviceLike = None) -> DenseBlock:
+    """The port's ``DenseBlock`` from a reference ``DenseBlock``: both
+    orientations copied, a fully observed block's masks as broadcast
+    views of one 1.0."""
+    dev = resolve_device(device)
+    X = _t(np.asarray(block.X, np.float32), dev)
+    XT = _t(np.asarray(block.XT, np.float32), dev)
+    if block.fully:
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        return DenseBlock(X, one.expand(X.shape), XT, one.expand(XT.shape),
+                          fully=True)
+    return DenseBlock(X, _t(np.asarray(block.mask, np.float32), dev), XT,
+                      _t(np.asarray(block.maskT, np.float32), dev),
+                      fully=False)
+
+
 def data_from_reference(blocks: Sequence[Any], sides: Sequence[Any],
                         device: DeviceLike = None) -> MFData:
-    """The port's ``MFData`` from the reference's sparse blocks and
-    per-entity side information (not ported yet: all must be None)."""
-    if any(s is not None for s in sides):
-        raise ValueError("side information (Macau) is not ported yet; "
-                         "see ROADMAP.md, queue A")
+    """The port's ``MFData`` from the reference's blocks (sparse, or
+    dense: those with a ``fully`` field) and per-entity side
+    information (None or an (N, D) array), with side^T side computed
+    once (``with_side_grams``)."""
     dev = resolve_device(device)
-    return MFData(tuple(sparse_from_reference(b, dev) for b in blocks),
-                  (None,) * len(sides))
+    return with_side_grams(MFData(
+        tuple(dense_from_reference(b, dev) if hasattr(b, "fully")
+              else sparse_from_reference(b, dev) for b in blocks),
+        tuple(None if s is None else _t(np.asarray(s, np.float32), dev)
+              for s in sides)))
 
 
 def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,

@@ -1,31 +1,44 @@
-"""SMURFF core in PyTorch: the single-device Gaussian BMF sweep.
+"""SMURFF core in PyTorch: the single-device Gibbs sweep.
 
 Public API (the slice of ``repro.core`` ported so far):
 
     ModelBuilder, Session, TrainSession       -- compose and run a chain
     PredictSession, PosteriorCache, RecResult -- serve a saved store
-    NormalPrior                               -- prior
-    FixedGaussian, AdaptiveGaussian           -- noise models
-    SparseMatrix, from_coo, random_sparse     -- inputs
+    NormalPrior, FixedNormalPrior, MacauPrior,
+    SpikeAndSlabPrior                         -- priors
+    FixedGaussian, AdaptiveGaussian,
+    ProbitNoise                               -- noise models
+    SparseMatrix, from_coo, from_dense,
+    random_sparse, DenseBlock, dense_block    -- inputs
     ModelDef / MFData / MFState / gibbs_step  -- low-level engine
+    chain_keys / multi_chain_step             -- several chains
 """
-from .blocks import BlockDef, EntityDef, ModelDef
-from .gibbs import MFData, MFState, gibbs_step, init_state, run_sweeps
-from .noise import AdaptiveGaussian, FixedGaussian
+from .blocks import BlockDef, DenseBlock, EntityDef, ModelDef, dense_block
+from .gibbs import (MFData, MFState, chain_keys, gibbs_step,
+                    init_chain_states, init_state, multi_chain_step,
+                    run_sweeps, stack_states, unstack_state,
+                    with_side_grams)
+from .noise import AdaptiveGaussian, FixedGaussian, ProbitNoise
 from .predict import (PosteriorCache, PredictAccumulator, PredictSession,
                       RecResult, TestSet, make_test_set, predict_one, rmse)
-from .priors import NormalPrior
+from .priors import (FixedNormalPrior, MacauPrior, NormalPrior,
+                     SpikeAndSlabPrior)
 from .session import (BlockResult, ModelBuilder, Session, SessionResult,
                       SweepInfo, TrainSession)
-from .sparse import PaddedRows, SparseMatrix, from_coo, random_sparse
+from .sparse import (PaddedRows, SparseMatrix, from_coo, from_dense,
+                     random_sparse)
 
 __all__ = [
-    "BlockDef", "EntityDef", "ModelDef",
-    "MFData", "MFState", "gibbs_step", "init_state", "run_sweeps",
-    "AdaptiveGaussian", "FixedGaussian",
+    "BlockDef", "DenseBlock", "EntityDef", "ModelDef", "dense_block",
+    "MFData", "MFState", "chain_keys", "gibbs_step", "init_chain_states",
+    "init_state", "multi_chain_step", "run_sweeps", "stack_states",
+    "unstack_state", "with_side_grams",
+    "AdaptiveGaussian", "FixedGaussian", "ProbitNoise",
     "PosteriorCache", "PredictAccumulator", "PredictSession", "RecResult",
-    "TestSet", "make_test_set", "predict_one", "rmse", "NormalPrior",
+    "TestSet", "make_test_set", "predict_one", "rmse",
+    "FixedNormalPrior", "MacauPrior", "NormalPrior", "SpikeAndSlabPrior",
     "BlockResult", "ModelBuilder", "Session", "SessionResult",
     "SweepInfo", "TrainSession",
-    "PaddedRows", "SparseMatrix", "from_coo", "random_sparse",
+    "PaddedRows", "SparseMatrix", "from_coo", "from_dense",
+    "random_sparse",
 ]

@@ -1,10 +1,10 @@
-"""Multi-block matrix composition (paper Figure 2).
+"""Multi-block matrix composition (paper Figure 2, GFA).
 
-The counterpart of the ``EntityDef``/``BlockDef``/``ModelDef`` part of
-``repro/core/blocks.py``, for sparse blocks.  A model is a set of
+The counterpart of ``repro/core/blocks.py``.  A model is a set of
 *entities* (things with a latent factor matrix) and a set of *blocks*,
 each relating two entities through an observed matrix
-R_b ~ U_row U_col^T.  ``DenseBlock`` is still to be ported (ROADMAP A2).
+R_b ~ U_row U_col^T, held as a ``SparseMatrix`` (``core/sparse.py``) or
+a ``DenseBlock``.
 
 Where the reference's ``ModelDef`` carries ``use_pallas`` to choose
 between kernel and oracle, the port's carries ``device``: the tensors'
@@ -15,11 +15,74 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Tuple
 
+import numpy as np
+import torch
 
-from .._device import resolve_device
+from .._device import DeviceLike, resolve_device
 
-Prior = Any    # NormalPrior
-Noise = Any    # FixedGaussian | AdaptiveGaussian
+Prior = Any    # NormalPrior | MacauPrior | SpikeAndSlabPrior
+               # | FixedNormalPrior
+Noise = Any    # FixedGaussian | AdaptiveGaussian | ProbitNoise
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseBlock:
+    """A fully- or densely-observed matrix block.
+
+    ``fully`` marks every cell observed, which lets the factor update
+    share one (K, K) Gram across all rows.  Both orientations are held
+    (``X``/``mask`` for the row entity's half-sweep, ``XT``/``maskT``
+    for the column entity's), as in the reference.  A fully observed
+    block's masks are broadcast views of one 1.0 (``expand``): they read
+    as the reference's ones and take no memory.
+    """
+
+    X: torch.Tensor             # (n_rows, n_cols) f32
+    mask: torch.Tensor          # (n_rows, n_cols) f32; ones when fully
+    XT: torch.Tensor            # (n_cols, n_rows) f32 == X.T, contiguous
+    maskT: torch.Tensor         # (n_cols, n_rows) f32 == mask.T
+    fully: bool
+
+    def oriented(self, as_row: bool):
+        """(values, mask) with the updating entity along axis 0."""
+        if as_row:
+            return self.X, self.mask
+        return self.XT, self.maskT
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.X.shape)
+
+    @property
+    def nnz(self) -> torch.Tensor:
+        return self.mask.sum()
+
+    @property
+    def device(self) -> torch.device:
+        return self.X.device
+
+
+def dense_block(X, mask=None, device: DeviceLike = None) -> DenseBlock:
+    """A :class:`DenseBlock` on ``device`` from host arrays or tensors
+    (a tensor already on the device is not copied through the host).  A
+    mask that is all ones is treated exactly like ``mask=None``
+    (``fully=True``, the shared-Gram path), as the reference does."""
+    dev = resolve_device(device)
+
+    def put(a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=torch.float32).contiguous()
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a, np.float32))).to(dev)
+
+    Xt = put(X)
+    XTt = Xt.T.contiguous()
+    m = None if mask is None else put(mask)
+    if m is None or bool(torch.all(m == 1.0)):
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        return DenseBlock(Xt, one.expand(Xt.shape), XTt,
+                          one.expand(XTt.shape), fully=True)
+    return DenseBlock(Xt, m, XTt, m.T.contiguous(), fully=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +101,7 @@ class BlockDef:
     row_entity: int
     col_entity: int
     noise: Noise
-    sparse: bool          # SparseMatrix payload (the only kind ported)
+    sparse: bool          # SparseMatrix payload vs DenseBlock payload
 
     def other(self, e: int) -> int:
         return self.col_entity if self.row_entity == e else self.row_entity

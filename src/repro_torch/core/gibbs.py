@@ -1,23 +1,32 @@
 """The Gibbs sweep (paper Algorithm 1) in PyTorch.
 
-The counterpart of ``repro/core/gibbs.py`` for the main path: Normal
-(Normal-Wishart) priors on every entity and sparse blocks with Gaussian
-noise.  One ``gibbs_step`` performs, per entity in order:
+The counterpart of ``repro/core/gibbs.py``.  One ``gibbs_step``
+performs, per entity in order:
 
   1. resample the entity's prior hyper-parameters from its current
-     factor matrix,
+     factor matrix (Normal-Wishart; Macau adds its link matrix beta;
+     spike-and-slab its inclusion odds and slab precisions),
   2. resample the whole factor matrix from its conditional in one
-     batched pass: the fixed factor's rows gathered over the padded
-     rows, their masked Gram + rhs weighted by the noise's alpha and,
-     for the entity's last block, Lambda_p added
-     (``kernels/ops.gathered_gram_and_rhs``: one CUDA kernel a block on
-     the card, which gathers in its loads), batched Cholesky and
-     triangular solves, one counter-based N(0, 1) draw per row,
+     batched pass.  A sparse block gathers the fixed factor's rows over
+     its padded rows, and their masked Gram + rhs, weighted by the
+     noise's alpha and, for the entity's last block, with Lambda_p
+     added, come from ``kernels/ops.gathered_gram_and_rhs`` (one CUDA
+     kernel a block on the card, which gathers in its loads); probit
+     noise first draws its latents around the predictions at every
+     padded slot (``kernels/ops.gathered_sddmm``).  A fully observed
+     dense block adds one (K, K) Gram shared by all rows, a masked one
+     a per-row Gram.  Then batched Cholesky and triangular solves (one
+     Cholesky and matrix solves when every row shares its precision)
+     and one counter-based N(0, 1) draw per row.  Spike-and-slab
+     entities take the coordinate-wise update of
+     ``_sample_sns_factor`` instead,
 
 then resamples every block's noise state from the residuals at the
-observed entries (``kernels/ops.sddmm``) and reports train-RMSE
-metrics.  The keys are split in the reference's order, so the chain
-draws the same numbers as ``repro``'s.
+observed entries (``kernels/ops.gathered_sddmm`` for sparse blocks,
+``U @ V.T`` for dense ones) and reports train-RMSE metrics.  The keys
+are split in the reference's order, so the chain draws the same numbers
+as ``repro``'s.  ``multi_chain_step`` runs several chains, one after the
+other: chain c is the single-chain run keyed ``chain_keys(seed, C)[c]``.
 
 Unlike the reference's pure functions, the factor update works in place
 on the freshly allocated (N, K, K) Gram: at 131,072 rows and K = 128
@@ -27,14 +36,16 @@ each operation rounded apart, on the CPU and on the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import random
 from ..kernels import ops
-from .blocks import ModelDef
-from .priors import NormalPrior, chol_solve, cholesky, solve_lower
+from .blocks import DenseBlock, ModelDef
+from .noise import ProbitNoise
+from .priors import (FixedNormalPrior, MacauPrior, SpikeAndSlabPrior,
+                     chol_solve, cholesky, solve_lower)
 from .sparse import SparseMatrix
 
 
@@ -49,36 +60,37 @@ class MFState(NamedTuple):
 
 
 class MFData(NamedTuple):
-    """Observed data -- static across the chain."""
+    """Observed data -- static across the chain.
 
-    blocks: Tuple[SparseMatrix, ...]
+    ``side_grams`` holds side^T side of each entity's side information
+    (None where it has none), the (D, D) product Macau's hyper-sample
+    needs: the reference recomputes it in every sweep, the port once
+    with the data (``with_side_grams``, which ``ModelBuilder.build`` and
+    ``convert.data_from_reference`` call).  A sweep over data with side
+    information and no ``side_grams`` raises.
+    """
+
+    blocks: Tuple[Any, ...]                     # SparseMatrix | DenseBlock
     sides: Tuple[Optional[torch.Tensor], ...]   # per entity side info
+    side_grams: Optional[Tuple[Optional[torch.Tensor], ...]] = None
 
 
-def _check_slice(model: ModelDef, data: MFData) -> None:
-    for ent in model.entities:
-        if not isinstance(ent.prior, NormalPrior):
-            raise ValueError(
-                f"entity {ent.name!r} has prior {type(ent.prior).__name__}"
-                "; the port supports NormalPrior only so far (see "
-                "ROADMAP.md, queue A)")
-    for bi, blk in enumerate(model.blocks):
-        if not blk.sparse or not isinstance(data.blocks[bi], SparseMatrix):
-            raise ValueError(
-                f"block {bi} is dense; the port supports sparse blocks "
-                "only so far (see ROADMAP.md, queue A)")
-    if any(s is not None for s in data.sides):
-        raise ValueError("side information (Macau) is not ported yet; "
-                         "see ROADMAP.md, queue A")
+def with_side_grams(data: MFData) -> MFData:
+    """``data`` with side^T side computed once for every side matrix."""
+    return data._replace(side_grams=tuple(
+        None if s is None else s.T @ s for s in data.sides))
 
 
-def init_state(model: ModelDef, data: MFData, seed: int = 0) -> MFState:
+def init_state(model: ModelDef, data: MFData, seed: int = 0,
+               key: Optional[torch.Tensor] = None) -> MFState:
     """Fresh chain state from the static graph alone, on
     ``model.device``; ``data`` is accepted for signature symmetry and
-    never read."""
+    never read.  ``key`` overrides ``PRNGKey(seed)``: the multi-chain
+    layer passes ``chain_keys(seed, C)[c]``."""
     dev = model.device
-    keys = random.split(random.PRNGKey(seed, device=dev),
-                        len(model.entities) + 1)
+    if key is None:
+        key = random.PRNGKey(seed, device=dev)
+    keys = random.split(key.to(dev), len(model.entities) + 1)
     factors = []
     hypers = []
     for e, ent in enumerate(model.entities):
@@ -90,23 +102,142 @@ def init_state(model: ModelDef, data: MFData, seed: int = 0) -> MFState:
 
 
 # ---------------------------------------------------------------------------
+# several chains
+# ---------------------------------------------------------------------------
+
+def chain_keys(seed: int, chains: int, device="cpu") -> List[torch.Tensor]:
+    """Per-chain root keys: chain 0 is ``PRNGKey(seed)`` itself (not
+    folded), so chain 0 of any C-chain run is the single-chain run;
+    chain c > 0 folds c into it."""
+    base = random.PRNGKey(seed, device=device)
+    return [base if c == 0 else random.fold_in(base, c)
+            for c in range(chains)]
+
+
+def init_chain_states(model: ModelDef, data: MFData, seed: int,
+                      chains: int) -> List[MFState]:
+    """C independent fresh states, one per chain key."""
+    return [init_state(model, data, seed, key=k)
+            for k in chain_keys(seed, chains, model.device)]
+
+
+def _stack(xs):
+    x0 = xs[0]
+    if isinstance(x0, dict):
+        return {k: _stack([x[k] for x in xs]) for k in x0}
+    if isinstance(x0, tuple):
+        return tuple(_stack(list(t)) for t in zip(*xs))
+    return torch.stack(xs)
+
+
+def _take(x, c: int):
+    if isinstance(x, dict):
+        return {k: _take(v, c) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_take(v, c) for v in x)
+    return x[c].clone()
+
+
+def stack_states(states: List[MFState]) -> MFState:
+    """Stack per-chain states along a new leading chain axis; the sweep
+    counter is shared."""
+    steps = {s.step for s in states}
+    if len(steps) != 1:
+        raise ValueError(f"chains at different sweeps: {sorted(steps)}")
+    return MFState(torch.stack([s.key for s in states]),
+                   _stack([s.factors for s in states]),
+                   _stack([s.hypers for s in states]),
+                   _stack([s.noises for s in states]), states[0].step)
+
+
+def unstack_state(stacked: MFState, c: int) -> MFState:
+    """Chain ``c`` of a stacked state, in tensors of its own."""
+    return MFState(stacked.key[c].clone(), _take(stacked.factors, c),
+                   _take(stacked.hypers, c), _take(stacked.noises, c),
+                   stacked.step)
+
+
+def multi_chain_step(model: ModelDef, data: MFData, stacked: MFState
+                     ) -> Tuple[MFState, Dict[str, torch.Tensor]]:
+    """One Gibbs sweep of every chain of a stacked state, a loop over the
+    chains: each runs ``gibbs_step`` on its own tensors, so chain c is
+    bitwise the single-chain run (batching the chains into wider ops
+    would sum in another order).  Metrics come back stacked with a
+    leading (C,) axis."""
+    C = stacked.key.shape[0]
+    outs = [gibbs_step(model, data, unstack_state(stacked, c))
+            for c in range(C)]
+    metrics = {k: torch.stack([m[k] for _, m in outs]) for k in outs[0][1]}
+    return stack_states([s for s, _ in outs]), metrics
+
+
+# ---------------------------------------------------------------------------
 # per-block contributions to an entity's conditional
 # ---------------------------------------------------------------------------
 
+def _slot_rows(R: int, T: int, device) -> torch.Tensor:
+    """(R * T,) int32: the row of each slot of a (R, T) padded layout."""
+    return torch.arange(R, dtype=torch.int32,
+                        device=device).repeat_interleave(T)
+
+
 def _sparse_contrib(mat: SparseMatrix, as_row: bool, fixed: torch.Tensor,
-                    noise, nstate, key, acc=None, lam=None):
+                    noise, nstate, key, acc=None, lam=None, u_cur=None):
     """alpha-weighted (gram, rhs) of one sparse block for one entity,
     (R,K,K) and (R,K); added in place to ``acc`` = (gram, rhs) when
-    given, and ``lam`` added to the Gram when given."""
+    given, and ``lam`` added to the Gram when given.  Probit noise draws
+    its latents around the predictions of the current factor ``u_cur``
+    at every padded slot (padded slots gather row 0; ``augment`` zeroes
+    them)."""
     padded = mat.rows if as_row else mat.cols
-    vals, alpha = noise.augment(key, nstate, None, padded.val, padded.mask)
+    pred = None
+    if isinstance(noise, ProbitNoise):
+        R, T = padded.idx.shape
+        pred = ops.gathered_sddmm(
+            u_cur, fixed, _slot_rows(R, T, fixed.device),
+            padded.idx.reshape(-1)).reshape(R, T)
+    vals, alpha = noise.augment(key, nstate, pred, padded.val, padded.mask)
     return ops.gathered_gram_and_rhs(fixed, padded.idx, vals, padded.mask,
                                      alpha, acc=acc, lam=lam)
 
 
+def _dense_contrib(payload: DenseBlock, as_row: bool, fixed: torch.Tensor,
+                   u_cur: torch.Tensor, noise, nstate, key):
+    """Contributions of a dense block: (gram_shared | None,
+    gram_rows | None, rhs).  A fully observed block gives one (K, K)
+    Gram for every row, a masked one a (R, K, K) Gram per row."""
+    X, m = payload.oriented(as_row)             # (R, C)
+    pred = u_cur @ fixed.T if isinstance(noise, ProbitNoise) else None
+    vals, alpha = noise.augment(key, nstate, pred, X, m)
+    if payload.fully:
+        return alpha * (fixed.T @ fixed), None, alpha * (vals @ fixed)
+    gram_rows = alpha * torch.einsum("rc,ck,cl->rkl", m, fixed, fixed)
+    return None, gram_rows, alpha * ((vals * m) @ fixed)
+
+
+def _dense_chunk_contrib(vals: torch.Tensor, m: torch.Tensor, fully: bool,
+                         chunk: torch.Tensor, c0: int):
+    """The moments of ``_dense_contrib`` for the fixed factor's rows
+    ``[c0, c0 + Cc)`` (``chunk``): summed over any partition of the
+    columns they equal the whole block's up to f32 summation order.
+    ``vals``/``m`` are the full oriented (R, C) payload, already
+    augmented; alpha is applied by the caller after the sum."""
+    vs = vals[:, c0:c0 + chunk.shape[0]]
+    if fully:
+        return chunk.T @ chunk, None, vs @ chunk
+    ms = m[:, c0:c0 + chunk.shape[0]]
+    gram_rows = torch.einsum("rc,ck,cl->rkl", ms, chunk, chunk)
+    return None, gram_rows, (vs * ms) @ chunk
+
+
 # ---------------------------------------------------------------------------
-# factor conditionals
+# counter-based per-row draws
 # ---------------------------------------------------------------------------
+
+def _row_keys(key, n_rows: int, row_offset: int) -> torch.Tensor:
+    rows = row_offset + torch.arange(n_rows, device=key.device)
+    return random.fold_in(key, rows)
+
 
 def row_normals(key, n_rows: int, num_latent: int, row_offset=0):
     """(n_rows, K) standard normals drawn row-by-row, counter-based.
@@ -116,22 +247,165 @@ def row_normals(key, n_rows: int, num_latent: int, row_offset=0):
     batch shape, so a shard holding rows [off, off + n) draws exactly
     the numbers the single-device sweep draws for those rows.
     """
-    rows = row_offset + torch.arange(n_rows, device=key.device)
-    return random.normal(random.fold_in(key, rows), (num_latent,))
+    return random.normal(_row_keys(key, n_rows, row_offset), (num_latent,))
 
 
-def _sample_normal_factor(key, Lam, rhs, b_p):
+def row_uniforms(key, n_rows: int, width: int, row_offset=0, *,
+                 minval=0.0, maxval=1.0):
+    """(n_rows, width) uniforms drawn row-by-row, counter-based, with
+    :func:`row_normals`' contract; probit's latents consume them."""
+    return random.uniform(_row_keys(key, n_rows, row_offset), (width,),
+                          minval, maxval)
+
+
+def row_bernoulli(key, p: torch.Tensor, row_offset=0) -> torch.Tensor:
+    """Bernoulli(p) draws, counter-based row-by-row: ``p`` is (n_rows,)
+    or (n_rows, W), row i's draws the uniforms of
+    ``fold_in(key, row_offset + i)``; the spike-and-slab inclusion
+    indicators consume them."""
+    width = 1 if p.dim() == 1 else p.shape[1]
+    u = row_uniforms(key, p.shape[0], width, row_offset)
+    if p.dim() == 1:
+        u = u[:, 0]
+    return u < p
+
+
+# ---------------------------------------------------------------------------
+# factor conditionals
+# ---------------------------------------------------------------------------
+
+def _sample_normal_factor(key, rhs, b_p, *, Lam_rows=None, Lam_shared=None):
     """u_i ~ N(Lam_i^{-1} b_i, Lam_i^{-1}) batched over rows.
 
-    Lam (N,K,K) the precision (the blocks' Grams with Lambda_p added),
-    rhs (N,K), b_p (K,).
+    ``Lam_rows`` (N, K, K) is the per-row precision (the blocks' Grams
+    with Lambda_p added), or ``Lam_shared`` (K, K) the one precision of
+    every row: then one Cholesky and matrix solves.  rhs (N, K); b_p
+    (K,) or (N, K).
     """
-    b = rhs + b_p[None, :]
+    b = rhs + b_p if b_p.dim() == 2 else rhs + b_p[None, :]
     z = row_normals(key, b.shape[0], b.shape[1])
-    L = cholesky(Lam)                                        # (N,K,K)
+    if Lam_rows is None:
+        L = cholesky(Lam_shared)                             # (K, K)
+        mean = solve_lower(L, solve_lower(L, b.T), transpose=True).T
+        dz = solve_lower(L, z.T, transpose=True).T
+        return mean + dz
+    L = cholesky(Lam_rows)                                   # (N, K, K)
     mean = chol_solve(L, b)
     dz = solve_lower(L, z[..., None], transpose=True)[..., 0]
     return mean + dz
+
+
+def _sample_sns_factor(model: ModelDef, data: MFData, key, e: int,
+                       u: torch.Tensor, hyper, factors, noises,
+                       trace: Optional[list] = None) -> torch.Tensor:
+    """Coordinate-wise spike-and-slab update for entity ``e``.
+
+    For each latent component k in order (the conditionals are coupled
+    through the residual), vectorized over rows:
+
+        q_ik = tau_k + sum_b alpha_b sum_t m f_k^2
+        l_ik = sum_b alpha_b sum_t m (r - pred_{-k}) f_k
+        odds = rho/(1-rho) * sqrt(tau_k/q) * exp(l^2 / 2q)
+        s ~ Bern(odds/(1+odds));  u_ik = s * N(l/q, 1/q)
+
+    The inclusion draw folds k into ``k_incl`` and the slab draw into
+    ``k_slab`` (``split(key)``), as the reference's loop does.  A dense
+    block's running prediction (R, C) is updated in place.  ``trace``,
+    when a list, receives ``(k, p_incl, s)`` per component (the tests
+    read the inclusion odds there).
+    """
+    touching = model.blocks_touching(e)
+    views = []
+    for bi, as_row in touching:
+        blk = model.blocks[bi]
+        payload = data.blocks[bi]
+        fixed = factors[blk.other(e)]
+        alpha = noises[bi]["alpha"]
+        if blk.sparse:
+            padded = payload.rows if as_row else payload.cols
+            R, T = padded.idx.shape
+            vg = fixed.index_select(0, padded.idx.reshape(-1)).reshape(
+                R, T, -1)                                # (R, T, K)
+            pred = torch.einsum("rtk,rk->rt", vg, u)
+            views.append(["sp", vg, padded.val, padded.mask, pred, alpha])
+        else:
+            X, m = payload.oriented(as_row)
+            kind = "df" if payload.fully else "dn"
+            views.append([kind, fixed, X, m, u @ fixed.T, alpha])
+
+    rho, tau = hyper["rho"], hyper["tau"]
+    k_incl, k_slab = random.split(key)
+    u = u.clone()
+    n = u.shape[0]
+    for k in range(model.num_latent):
+        q = tau[k]
+        l = torch.zeros(n, dtype=torch.float32, device=u.device)
+        for view in views:
+            kind, Fv, val, m, pred, alpha = view
+            if kind == "sp":
+                fk = Fv[:, :, k]                         # (R, T)
+                pred = pred - u[:, k][:, None] * fk
+                view[4] = pred
+                q = q + alpha * torch.sum(fk * fk * m, dim=-1)
+                l = l + alpha * torch.sum((val - pred) * m * fk, dim=-1)
+                continue
+            fk = Fv[:, k]                                # (C,)
+            pred.addr_(u[:, k], fk, alpha=-1.0)
+            if kind == "df":
+                # fully observed: every row shares sum_c fk_c^2 and the
+                # mask multiply drops
+                q = q + alpha * torch.sum(fk * fk)
+                l = l + alpha * ((val - pred) @ fk)
+            else:
+                q = q + alpha * (m @ (fk * fk))
+                l = l + alpha * (((val - pred) * m) @ fk)
+
+        mu = l / q
+        log_odds = (torch.log(rho[k]) - torch.log1p(-rho[k])
+                    + 0.5 * (torch.log(tau[k]) - torch.log(q))
+                    + 0.5 * mu * l)
+        p_incl = torch.sigmoid(log_odds)
+        s = row_bernoulli(random.fold_in(k_incl, k), p_incl).to(
+            torch.float32)
+        eps = row_normals(random.fold_in(k_slab, k), n, 1)[:, 0]
+        u_k = s * (mu + eps / torch.sqrt(q))
+        u[:, k] = u_k
+        if trace is not None:
+            trace.append((k, p_incl, s))
+
+        # fold the new component back into the predictions
+        for view in views:
+            kind, Fv, _, _, pred, _ = view
+            if kind == "sp":
+                view[4] = pred + u_k[:, None] * Fv[:, :, k]
+            else:
+                pred.addr_(u_k, Fv[:, k])
+    return u
+
+
+# ---------------------------------------------------------------------------
+# the full sweep
+# ---------------------------------------------------------------------------
+
+def _side_gram(data: MFData, e: int) -> torch.Tensor:
+    if data.side_grams is None or data.side_grams[e] is None:
+        raise ValueError(
+            f"entity {e} has side information but MFData.side_grams has "
+            "no side^T side for it: build the data with "
+            "gibbs.with_side_grams (ModelBuilder and "
+            "convert.data_from_reference do)")
+    return data.side_grams[e]
+
+
+def _prior_terms(prior, hyper, n_rows: int, side, device):
+    """(Lambda_p, b_p) of an entity's prior."""
+    if isinstance(prior, FixedNormalPrior):
+        return (prior.precision_term(hyper, device),
+                prior.mean_term(hyper, n_rows, device))
+    if isinstance(prior, MacauPrior):
+        return (prior.precision_term(hyper),
+                prior.mean_term(hyper, n_rows, side=side))
+    return prior.precision_term(hyper), prior.mean_term(hyper, n_rows)
 
 
 def _entity_update(model: ModelDef, data: MFData, key, e: int,
@@ -139,33 +413,63 @@ def _entity_update(model: ModelDef, data: MFData, key, e: int,
     """Hyper-sample + factor-sample for one entity; returns updates."""
     ent = model.entities[e]
     prior = ent.prior
+    side = data.sides[e]
     k_hyp, k_fac, k_blk = random.split(key, 3)
     u = factors[e]
 
     # 1. hyper-parameters from the current factor (Algorithm 1 line 2/5)
-    hyper = prior.sample_hyper(k_hyp, u, hypers[e])
+    if isinstance(prior, MacauPrior):
+        hyper = prior.sample_hyper(k_hyp, u, hypers[e], side=side,
+                                   FtF=_side_gram(data, e))
+    else:
+        hyper = prior.sample_hyper(k_hyp, u, hypers[e])
 
     # 2. factor matrix from its conditional
-    Lam_p = prior.precision_term(hyper)
-    b_p = prior.mean_term(hyper, ent.n_rows)
+    if isinstance(prior, SpikeAndSlabPrior):
+        return _sample_sns_factor(model, data, k_fac, e, u, hyper, factors,
+                                  noises), hyper
 
-    # each block adds its alpha-weighted Gram and rhs to the entity's
-    # in place; the last adds Lambda_p too
-    acc = None
+    Lam_p, b_p = _prior_terms(prior, hyper, ent.n_rows, side, u.device)
+    touching = model.blocks_touching(e)
+    # with sparse blocks alone, each adds its alpha-weighted Gram and rhs
+    # to the entity's in place and the last adds Lambda_p too; a dense
+    # block's Gram joins in the reference's order after the loop
+    fold_lam = all(model.blocks[bi].sparse for bi, _ in touching)
+    gram_shared = gram_rows = rhs = None
     bkeys = random.split(k_blk, max(1, len(model.blocks)))
-    touching = list(model.blocks_touching(e))
     for n, (bi, as_row) in enumerate(touching):
         blk = model.blocks[bi]
-        acc = _sparse_contrib(data.blocks[bi], as_row, factors[blk.other(e)],
-                              blk.noise, noises[bi], bkeys[bi], acc=acc,
-                              lam=Lam_p if n == len(touching) - 1 else None)
-    if acc is None:
-        K = model.num_latent
-        acc = (torch.zeros((ent.n_rows, K, K), dtype=torch.float32,
-                           device=u.device).add_(Lam_p[None, :, :]),
-               torch.zeros((ent.n_rows, K), dtype=torch.float32,
-                           device=u.device))
-    u_new = _sample_normal_factor(k_fac, *acc, b_p)
+        fixed = factors[blk.other(e)]
+        if blk.sparse:
+            acc = None if gram_rows is None else (gram_rows, rhs)
+            lam = Lam_p if fold_lam and n == len(touching) - 1 else None
+            g, r = _sparse_contrib(data.blocks[bi], as_row, fixed,
+                                   blk.noise, noises[bi], bkeys[bi],
+                                   acc=acc, lam=lam, u_cur=u)
+            if acc is None and rhs is not None:
+                r = rhs.add_(r)
+            gram_rows, rhs = g, r
+            continue
+        gs, gr, r = _dense_contrib(data.blocks[bi], as_row, fixed, u,
+                                   blk.noise, noises[bi], bkeys[bi])
+        if gs is not None:
+            gram_shared = gs if gram_shared is None else gram_shared + gs
+        if gr is not None:
+            gram_rows = gr if gram_rows is None else gram_rows.add_(gr)
+        rhs = r if rhs is None else rhs.add_(r)
+
+    if rhs is None:
+        rhs = torch.zeros((ent.n_rows, model.num_latent),
+                          dtype=torch.float32, device=u.device)
+    if gram_rows is None:
+        # one precision shared by every row: one Cholesky
+        Lam = Lam_p if gram_shared is None else gram_shared + Lam_p
+        u_new = _sample_normal_factor(k_fac, rhs, b_p, Lam_shared=Lam)
+    else:
+        if not fold_lam:
+            gram_rows.add_(Lam_p if gram_shared is None
+                           else gram_shared + Lam_p)
+        u_new = _sample_normal_factor(k_fac, rhs, b_p, Lam_rows=gram_rows)
     return u_new, hyper
 
 
@@ -175,15 +479,15 @@ def _block_pred_observed(model: ModelDef, data: MFData, bi: int, factors):
     U = factors[blk.row_entity]
     V = factors[blk.col_entity]
     payload = data.blocks[bi]
-    pred = ops.sddmm(U.index_select(0, payload.coo_i),
-                     V.index_select(0, payload.coo_j))
-    return pred, payload.coo_v, payload.coo_mask
+    if blk.sparse:
+        pred = ops.gathered_sddmm(U, V, payload.coo_i, payload.coo_j)
+        return pred, payload.coo_v, payload.coo_mask
+    return U @ V.T, payload.X, payload.mask
 
 
 def gibbs_step(model: ModelDef, data: MFData, state: MFState
                ) -> Tuple[MFState, Dict[str, torch.Tensor]]:
     """One full Gibbs sweep over all entities + noise states."""
-    _check_slice(model, data)
     keys = random.split(state.key, len(model.entities) + 2)
     key, ekeys = keys[0], keys[1:]
     nkey = ekeys[-1]
@@ -206,6 +510,7 @@ def gibbs_step(model: ModelDef, data: MFData, state: MFState
         noises[bi] = blk.noise.sample_state(nkeys[bi], noises[bi], pred,
                                             vals, mask)
         se = torch.sum(((vals - pred) * mask) ** 2)
+        del pred
         # all-masked blocks have nnz == 0: report rmse 0, not 0/0
         metrics[f"rmse_train_{bi}"] = torch.sqrt(
             se / torch.clamp_min(torch.sum(mask), 1.0))

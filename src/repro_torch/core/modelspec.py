@@ -11,10 +11,8 @@ package loads in the other:
 * the port writes ``use_pallas`` and ``bf16_gather`` as ``false``; on
   read it ignores ``use_pallas`` (the tensors' device decides the path)
   and refuses ``bf16_gather`` (not ported yet);
-* priors and noises are tagged by class name.  A tag the reference
-  knows but the port does not yet (``MacauPrior``,
-  ``SpikeAndSlabPrior``, ``FixedNormalPrior``, ``ProbitNoise``) raises
-  a ValueError that points at ROADMAP A5.
+* priors and noises are tagged by class name, with every field of the
+  dataclass: the reference's four priors and three noises.
 """
 from __future__ import annotations
 
@@ -26,8 +24,9 @@ from typing import Any, Dict
 from .._device import DeviceLike
 from .blocks import BlockDef, EntityDef, ModelDef
 from .gibbs import MFState, init_state
-from .noise import AdaptiveGaussian, FixedGaussian
-from .priors import NormalPrior
+from .noise import AdaptiveGaussian, FixedGaussian, ProbitNoise
+from .priors import (FixedNormalPrior, MacauPrior, NormalPrior,
+                     SpikeAndSlabPrior)
 
 MODEL_SPEC_FILE = "model.json"
 SAMPLES_SUBDIR = "samples"
@@ -36,12 +35,11 @@ FORMAT = "repro-mf-model-v1"
 # save_dir/chain_<c>/{model.json, samples/}
 CHAIN_SUBDIR_PREFIX = "chain_"
 
-PRIOR_TYPES = {cls.__name__: cls for cls in (NormalPrior,)}
-NOISE_TYPES = {cls.__name__: cls for cls in (FixedGaussian,
-                                             AdaptiveGaussian)}
-# types of the reference that the port does not have yet
-_LATER_TYPES = ("FixedNormalPrior", "MacauPrior", "SpikeAndSlabPrior",
-                "ProbitNoise")
+PRIOR_TYPES = {cls.__name__: cls for cls in
+               (NormalPrior, FixedNormalPrior, MacauPrior,
+                SpikeAndSlabPrior)}
+NOISE_TYPES = {cls.__name__: cls for cls in
+               (FixedGaussian, AdaptiveGaussian, ProbitNoise)}
 
 
 def chain_subdir(c: int) -> str:
@@ -69,11 +67,6 @@ def _to_spec(obj: Any, registry: Dict[str, type], what: str) -> dict:
 def _from_spec(d: dict, registry: Dict[str, type], what: str):
     d = dict(d)
     name = d.pop("type", None)
-    if name in _LATER_TYPES:
-        raise ValueError(
-            f"the store's {what} {name!r} is not ported yet; the port "
-            f"reads {', '.join(sorted(registry))} (see ROADMAP.md, "
-            "queue A, item 5)")
     if name not in registry:
         raise ValueError(
             f"unknown {what} type {name!r} in model spec; valid "

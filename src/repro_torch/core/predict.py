@@ -19,9 +19,10 @@ posterior mean, with the posterior std beside each score, through
 ``kernels.ops.topk_score`` (the hand-written CUDA kernel on the card);
 ``launch.serve.RecommendServer`` batches requests onto them.
 
-Out-of-matrix prediction (``predict_new``, ``cold_rows``) needs the
-Macau prior, which is not ported yet (ROADMAP A5): every entity of a
-port's store has a ``NormalPrior``, and those calls raise the
+Out-of-matrix prediction (``predict_new``) and cold-start rows
+(``cold_rows``, ``recommend(features=)``) map unseen rows' side
+information into latent space through each retained sample of a Macau
+entity's link (``MacauPrior.predict_factor``); other priors raise the
 reference's ValueError.
 """
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops
+from .priors import MacauPrior
 
 
 class TestSet(NamedTuple):
@@ -60,6 +62,24 @@ def predict_one(U: torch.Tensor, V: torch.Tensor, test: TestSet
 
 def rmse(pred: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean((pred - truth) ** 2))
+
+
+def auc(pred, truth, threshold: float = 0.5) -> float:
+    """Rank-based AUC (Mann-Whitney), truth binarized at ``threshold``;
+    tied predictions take midranks.  On host numpy arrays."""
+    pred = np.asarray(pred)
+    pos = np.asarray(truth) > threshold
+    n_pos = int(pos.sum())
+    n_neg = pos.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    _, inv, counts = np.unique(pred, return_inverse=True,
+                               return_counts=True)
+    # group g spans ranks (end - count, end]; its midrank is their mean
+    end = np.cumsum(counts)
+    ranks = (end - (counts - 1) / 2.0)[inv]
+    s = ranks[pos].sum()
+    return float((s - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
 
 
 class PredictAccumulator:
@@ -91,6 +111,10 @@ class PredictAccumulator:
 
     def rmse(self) -> float:
         return float(rmse(self.mean, self.test.v))
+
+    def auc(self, threshold: float = 0.5) -> float:
+        return auc(self.mean.cpu().numpy(), self.test.v.cpu().numpy(),
+                   threshold)
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +440,16 @@ class PredictSession:
             for st in self.samples():
                 yield st.factors[entity]
 
+    def _hyper_factor_iter(self, entity: int, other: int):
+        """(hyper_s of ``entity``, factor_s of ``other``) per sample."""
+        cache = self.warm_cache()
+        if cache is not None:
+            for s in range(cache.n_samples):
+                yield cache.hyper_at(entity, s), cache.factors[other][s]
+        else:
+            for st in self.samples():
+                yield st.hypers[entity], st.factors[other]
+
     def _factor_pair_iter(self, ent_a: int, ent_b: int):
         cache = self.warm_cache()
         if cache is not None:
@@ -494,22 +528,70 @@ class PredictSession:
         out = (s / self.num_samples).cpu().numpy()
         return out.T if flipped else out
 
-    def _needs_macau(self, e: int, what: str) -> ValueError:
+    def _macau_entity(self, e: int, what: str, F_new) -> torch.Tensor:
+        """The Macau prior of entity ``e`` and ``F_new`` as an (M, D)
+        float32 tensor on the session's device; the reference's errors
+        for another prior or another feature count."""
         ent = self.model.entities[e]
-        return ValueError(
-            f"entity {ent.name!r} has {type(ent.prior).__name__}{what}")
+        if not isinstance(ent.prior, MacauPrior):
+            raise ValueError(
+                f"entity {ent.name!r} has {type(ent.prior).__name__}{what}")
+        F_new = np.atleast_2d(np.asarray(F_new, np.float32))
+        if F_new.shape[1] != ent.prior.num_features:
+            raise ValueError(
+                f"F_new has {F_new.shape[1]} features; entity "
+                f"{ent.name!r} was trained with "
+                f"{ent.prior.num_features}")
+        return torch.from_numpy(F_new).to(self.device)
 
     def predict_new(self, entity: Union[int, str], F_new,
                     block: Optional[Union[int, Tuple[str, str]]] = None
                     ) -> np.ndarray:
-        """Out-of-matrix prediction for unseen rows: needs the Macau
-        prior, which the port does not have yet (ROADMAP A5), so it
-        raises the reference's error for every entity."""
-        e = self.model.entity_index(entity)
-        raise self._needs_macau(
+        """Out-of-matrix prediction for unseen rows of ``entity``.
+
+        ``F_new`` (M, D) holds the new rows' side information; each
+        retained sample maps them into latent space through its own link
+        draw (``mu_s + beta_s^T f``) and contracts them against its own
+        factor of the other entity, and the products are averaged.
+        Returns (M, n_other) against ``block``'s other entity (``block``
+        may be omitted when only one block touches the entity).
+        """
+        model = self.model
+        e = model.entity_index(entity)
+        ent = model.entities[e]
+        F = self._macau_entity(
             e, "; out-of-matrix prediction needs the Macau "
             "side-information prior (its sampled beta link maps new "
-            "feature rows to latents) — add_entity(..., side_info=F)")
+            "feature rows to latents) — add_entity(..., side_info=F)",
+            F_new)
+        touching = model.blocks_touching(e)
+        names = model.entity_names
+        if block is None:
+            if len(touching) != 1:
+                opts = ", ".join(
+                    f"({names[model.blocks[bi].row_entity]}, "
+                    f"{names[model.blocks[bi].col_entity]})"
+                    for bi, _ in touching)
+                raise ValueError(
+                    f"entity {ent.name!r} touches {len(touching)} "
+                    f"blocks ({opts}); pass block= to pick one")
+            bi = touching[0][0]
+        else:
+            bi, _ = self._resolve_block(block)
+            if bi not in [b for b, _ in touching]:
+                opts = ", ".join(
+                    f"({names[model.blocks[b].row_entity]}, "
+                    f"{names[model.blocks[b].col_entity]})"
+                    for b, _ in touching)
+                raise ValueError(
+                    f"block {block!r} does not touch entity "
+                    f"{ent.name!r}; touching blocks: {opts}")
+        other = model.blocks[bi].other(e)
+        s = None
+        for hyper, v in self._hyper_factor_iter(e, other):
+            p = ent.prior.predict_factor(hyper, F) @ v.T
+            s = p if s is None else s + p
+        return (s / self.num_samples).cpu().numpy()
 
     # -- batched top-K recommendation (the serving path) -------------------
 
@@ -551,11 +633,22 @@ class PredictSession:
                   block: Union[int, Tuple[str, str]] = 0
                   ) -> torch.Tensor:
         """Sampled latent rows for unseen users through the Macau link:
-        not ported yet (ROADMAP A5); raises the reference's error."""
+        (M, S, K), one ``mu_s + beta_s^T f`` per retained sample (the
+        mapping of ``predict_new``, kept per sample so that top-K
+        scoring sees the posterior spread)."""
         ue, _ = self._block_entities(block)
-        raise self._needs_macau(
+        F = self._macau_entity(
             ue, "; cold-start recommendation needs the Macau "
-            "side-information prior — add_entity(..., side_info=F)")
+            "side-information prior — add_entity(..., side_info=F)", F_new)
+        prior = self.model.entities[ue].prior
+        cache = self.warm_cache()
+        if cache is not None:
+            rows = [prior.predict_factor(cache.hyper_at(ue, s), F)
+                    for s in range(cache.n_samples)]
+        else:
+            rows = [prior.predict_factor(st.hypers[ue], F)
+                    for st in self.samples()]
+        return torch.stack(rows).transpose(0, 1).contiguous()
 
     def _exclude_mask(self, exclude, B: int, n_items: int):
         """Per-query excluded item ids -> (B, n_items) f32 mask."""
@@ -642,9 +735,10 @@ class PredictSession:
                   = None, *, features=None, k: int = 10,
                   block: Union[int, Tuple[str, str]] = 0,
                   exclude=None) -> RecResult:
-        """Top-K recommendation for warm users (row ids seen in
-        training).  ``features`` (cold start) needs the Macau prior and
-        raises until it is ported.  ``exclude`` follows
+        """Top-K recommendation for warm and/or cold users: ``user`` row
+        id(s) seen in training, ``features`` (M, D) side information of
+        unseen users, mapped through the sampled Macau link (cold
+        start); warm queries come first.  ``exclude`` follows
         ``recommend_rows`` (for a single query, a flat id list is
         accepted)."""
         parts = []

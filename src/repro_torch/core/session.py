@@ -1,12 +1,13 @@
 """Session API: compose a model, run one Gibbs chain.
 
-The counterpart of ``repro/core/session.py`` for the slice the port
-covers: ``ModelBuilder``, ``Session``, ``SessionResult``/``BlockResult``
-and ``TrainSession``, for one chain with Normal priors, sparse blocks
-and Fixed/Adaptive Gaussian noise:
+The counterpart of ``repro/core/session.py``: ``ModelBuilder``,
+``Session``, ``SessionResult``/``BlockResult`` and ``TrainSession``, for
+one chain of any entity/block graph -- Normal, FixedNormal, Macau (side
+information) and spike-and-slab priors, sparse and dense blocks,
+Fixed/Adaptive Gaussian and probit noise:
 
     b = ModelBuilder(num_latent=128)            # device="cuda" implied
-    b.add_entity("compound", n_compounds)
+    b.add_entity("compound", n_compounds, side_info=ecfp)   # -> Macau
     b.add_entity("protein", n_proteins)
     b.add_block("compound", "protein", train, test=(i, j, v),
                 noise=AdaptiveGaussian())
@@ -17,10 +18,12 @@ to disk in the reference's store layout (``model.json`` plus
 ``samples/step_<sweep>/``), and the run's split-R-hat and bulk-ESS go
 to ``diagnostics.json``; ``PredictSession`` serves such a store.
 
-Every option outside the slice (side information, other priors, probit,
-dense data, ``chains > 1``, ``mesh``, ``resume``) raises a ValueError
-that names what the port supports; ROADMAP.md queues the rest.  Errors
-the two packages share carry the reference's messages.
+The options not ported yet (``chains > 1``, ``mesh``/``pipeline``,
+``resume``) raise a ValueError that names what the port supports;
+ROADMAP.md queues them.  Errors the two packages share carry the
+reference's messages.  Macau's side^T side is computed once, when the
+builder makes the data (``gibbs.with_side_grams``), where the reference
+recomputes it each sweep.
 
 Where the reference runs a discarded warm-up sweep to split jit
 compilation from sweep time, the port has nothing to compile but its
@@ -39,17 +42,17 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device, synchronize
-from .blocks import BlockDef, EntityDef, ModelDef
+from .blocks import BlockDef, DenseBlock, EntityDef, ModelDef, dense_block
 from .diagnostics import Diagnostics, compute_diagnostics, save_diagnostics
-from .gibbs import MFData, MFState, gibbs_step, init_state
-from .noise import AdaptiveGaussian, FixedGaussian
+from .gibbs import MFData, MFState, gibbs_step, init_state, with_side_grams
+from .noise import FixedGaussian, ProbitNoise
 from .predict import PredictAccumulator, TestSet, make_test_set
-from .priors import NormalPrior
+from .priors import (FixedNormalPrior, MacauPrior, NormalPrior,
+                     SpikeAndSlabPrior)
 from .sparse import SparseMatrix
 
-_SUPPORTED = ("the port supports one chain with Normal priors, sparse "
-              "blocks and FixedGaussian/AdaptiveGaussian noise; see "
-              "ROADMAP.md, queue A, for what is still to be ported")
+_SUPPORTED = ("the port runs one chain on one card; see ROADMAP.md, "
+              "queue A, for what is still to be ported")
 
 
 def _unsupported(what: str) -> ValueError:
@@ -105,18 +108,16 @@ class SweepInfo(NamedTuple):
     metrics: Dict[str, torch.Tensor]   # rmse_train_<b> / alpha_<b>
 
 
-_PRIORS = {"normal": NormalPrior}
-# priors the reference has and the port does not yet
-_LATER_PRIORS = ("fixednormal", "spikeandslab")
+_PRIORS = {"normal": NormalPrior, "spikeandslab": SpikeAndSlabPrior,
+           "fixednormal": FixedNormalPrior}
 
 
 def _prior_by_name(name: str, num_latent: int):
-    if name in _LATER_PRIORS:
-        raise _unsupported(f"prior {name!r}")
     if name not in _PRIORS:
         raise ValueError(
             f"unknown prior {name!r}; valid priors: "
-            f"{', '.join(sorted(_PRIORS))}")
+            f"{', '.join(sorted(_PRIORS))} (side information selects "
+            "the macau prior automatically)")
     return _PRIORS[name](num_latent)
 
 
@@ -127,20 +128,26 @@ def _prior_by_name(name: str, num_latent: int):
 class ModelBuilder:
     """Compose an entity/block graph, validated eagerly.
 
-    * ``add_entity(name, n, prior="normal")`` declares a latent-factor
-      entity;
-    * ``add_block(ent_a, ent_b, data, noise=..., test=...)`` relates two
-      entities through a ``SparseMatrix``; ``test=(i, j, v)`` attaches
-      test triplets evaluated by posterior-mean prediction.
+    * ``add_entity(name, n, prior="normal", side_info=None)`` declares
+      a latent-factor entity; ``prior`` is a registry name ("normal",
+      "spikeandslab", "fixednormal") or a prior instance, and
+      ``side_info`` (an (n, D) feature matrix) selects the Macau prior
+      with a sampled link matrix instead;
+    * ``add_block(ent_a, ent_b, data, noise=..., test=..., mask=None)``
+      relates two entities through a ``SparseMatrix``, a ``DenseBlock``
+      or a dense ndarray (optionally with ``mask=``); ``test=(i, j, v)``
+      attaches test triplets evaluated by posterior-mean prediction.
 
-    ``device`` (default: the card) is where the chain runs; the data
-    must already live there.
+    ``device`` (default: the card) is where the chain runs; sparse and
+    ``DenseBlock`` data must already live there, dense arrays and side
+    information (numpy arrays or tensors) are moved there.
     """
 
     def __init__(self, num_latent: int = 16, device: DeviceLike = None):
         self.num_latent = num_latent
         self.device = resolve_device(device)
-        self._entities: List[Tuple[str, int, Any]] = []
+        self._entities: List[Tuple[str, int, Any,
+                                   Optional[torch.Tensor]]] = []
         self._blocks: List[Tuple[str, str, Any, Any,
                                  Optional[TestSet]]] = []
 
@@ -151,8 +158,9 @@ class ModelBuilder:
 
     def add_entity(self, name: str, n: int,
                    prior: Union[str, Any] = "normal",
-                   side_info: Optional[np.ndarray] = None
-                   ) -> "ModelBuilder":
+                   side_info: Optional[np.ndarray] = None,
+                   beta_precision: float = 5.0,
+                   sample_beta_precision: bool = True) -> "ModelBuilder":
         if name in self._names():
             raise ValueError(
                 f"duplicate entity {name!r}; entities already added: "
@@ -160,22 +168,39 @@ class ModelBuilder:
         n = int(n)
         if n <= 0:
             raise ValueError(f"entity {name!r} needs n > 0, got {n}")
+        side = None
         if side_info is not None:
-            raise _unsupported("side_info (the Macau prior)")
-        if isinstance(prior, str):
+            if not isinstance(prior, str) or prior != "normal":
+                raise ValueError(
+                    f"entity {name!r}: pass either prior= or "
+                    "side_info=, not both — side information selects "
+                    "the macau prior automatically")
+            if isinstance(side_info, torch.Tensor):
+                side = side_info.to(device=self.device,
+                                    dtype=torch.float32).contiguous()
+            else:
+                side = torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(side_info, np.float32))).to(self.device)
+            if side.dim() != 2 or side.shape[0] != n:
+                raise ValueError(
+                    f"entity {name!r} side_info must be ({n}, D), got "
+                    f"{tuple(side.shape)}")
+            p = MacauPrior(self.num_latent, side.shape[1],
+                           beta_precision=beta_precision,
+                           sample_beta_precision=sample_beta_precision)
+        elif isinstance(prior, str):
             p = _prior_by_name(
                 prior.replace("-", "").replace("_", "").lower(),
                 self.num_latent)
         else:
             p = prior
-            if not isinstance(p, NormalPrior):
-                raise _unsupported(f"prior {type(p).__name__}")
-            if p.num_latent != self.num_latent:
+            pk = getattr(p, "num_latent", None)
+            if pk is not None and pk != self.num_latent:
                 raise ValueError(
                     f"entity {name!r} prior {type(p).__name__} has "
-                    f"num_latent={p.num_latent}, but the builder composes "
-                    f"a num_latent={self.num_latent} model")
-        self._entities.append((name, n, p))
+                    f"num_latent={pk}, but the builder composes a "
+                    f"num_latent={self.num_latent} model")
+        self._entities.append((name, n, p, side))
         return self
 
     # -- blocks ------------------------------------------------------------
@@ -190,7 +215,8 @@ class ModelBuilder:
         return names.index(name)
 
     def add_block(self, row_entity: str, col_entity: str, data,
-                  noise: Any = None, test=None) -> "ModelBuilder":
+                  noise: Any = None, test=None,
+                  mask: Optional[np.ndarray] = None) -> "ModelBuilder":
         ri = self._entity_index(row_entity)
         ci = self._entity_index(col_entity)
         if ri == ci:
@@ -204,17 +230,19 @@ class ModelBuilder:
                     f"duplicate block {row_entity!r} x {col_entity!r}: "
                     f"the pair already carries the {r2!r} x {c2!r} "
                     "block (one observed matrix per entity pair)")
-        if not isinstance(data, SparseMatrix):
-            raise _unsupported("dense block data")
-        if data.device != self.device:
-            raise ValueError(
-                f"block {row_entity!r} x {col_entity!r} data is on "
-                f"{data.device}, the builder runs on {self.device}")
-        if noise is not None and not isinstance(
-                noise, (FixedGaussian, AdaptiveGaussian)):
-            raise _unsupported(f"noise {type(noise).__name__}")
+        if isinstance(data, (SparseMatrix, DenseBlock)):
+            if mask is not None:
+                raise ValueError("mask= only applies to raw dense "
+                                 "ndarray data")
+            payload = data
+            if payload.device != self.device:
+                raise ValueError(
+                    f"block {row_entity!r} x {col_entity!r} data is on "
+                    f"{payload.device}, the builder runs on {self.device}")
+        else:
+            payload = dense_block(data, mask, device=self.device)
         want = (self._entities[ri][1], self._entities[ci][1])
-        got = tuple(data.shape)
+        got = tuple(payload.shape)
         if got != want:
             raise ValueError(
                 f"block {row_entity!r} x {col_entity!r} data has shape "
@@ -225,7 +253,7 @@ class ModelBuilder:
         if test is not None:
             ts = test if isinstance(test, TestSet) else make_test_set(
                 *test, device=self.device)
-        self._blocks.append((row_entity, col_entity, data,
+        self._blocks.append((row_entity, col_entity, payload,
                              noise if noise is not None
                              else FixedGaussian(5.0), ts))
         return self
@@ -242,14 +270,15 @@ class ModelBuilder:
                 "model has no blocks: add_block at least one observed "
                 f"matrix between entities {', '.join(self._names())}")
         ents = tuple(EntityDef(name, n, prior)
-                     for name, n, prior in self._entities)
+                     for name, n, prior, _ in self._entities)
         blocks = tuple(
             BlockDef(self._entity_index(r), self._entity_index(c),
-                     noise, True)
-            for r, c, _, noise, _ in self._blocks)
+                     noise, isinstance(payload, SparseMatrix))
+            for r, c, payload, noise, _ in self._blocks)
         model = ModelDef(ents, blocks, self.num_latent, self.device)
-        data = MFData(tuple(p for _, _, p, _, _ in self._blocks),
-                      tuple(None for _ in self._entities))
+        data = with_side_grams(MFData(
+            tuple(p for _, _, p, _, _ in self._blocks),
+            tuple(s for *_, s in self._entities)))
         tests = {bi: ts for bi, (*_, ts) in enumerate(self._blocks)
                  if ts is not None}
         return model, data, tests
@@ -411,13 +440,14 @@ class Session:
             acc = accs.get(bi)
             if acc is not None and acc.n == 0:
                 acc = None
+            is_probit = isinstance(blk.noise, ProbitNoise)
             br = BlockResult(
                 block=bi,
                 entities=(names[blk.row_entity], names[blk.col_entity]),
                 rmse_train_trace=train_traces[bi],
                 rmse_test_trace=test_traces.get(bi, []),
                 rmse_test=(acc.rmse() if acc else None),
-                auc_test=None,
+                auc_test=(acc.auc() if (acc and is_probit) else None),
                 predictions=(acc.mean.cpu().numpy() if acc else None),
                 pred_var=(acc.var.cpu().numpy() if acc else None))
             block_results.append(br)
@@ -448,9 +478,10 @@ class Session:
 # ---------------------------------------------------------------------------
 
 class TrainSession:
-    """Single-R-matrix session (BMF): two entities ("rows", "cols") and
-    one block, composed through :class:`ModelBuilder` exactly as the
-    reference's ``TrainSession`` composes it."""
+    """Single-R-matrix session (BMF / Macau / probit variants): two
+    entities ("rows", "cols") and one block, composed through
+    :class:`ModelBuilder` exactly as the reference's ``TrainSession``
+    composes it."""
 
     def __init__(self, num_latent: int = 16, burnin: int = 100,
                  nsamples: int = 100, seed: int = 0,
@@ -468,14 +499,19 @@ class TrainSession:
         self.save_freq = save_freq
         self.save_dir = save_dir
         self.callbacks = callbacks
-        self._train: Optional[SparseMatrix] = None
+        self._train: Optional[Any] = None
         self._test: Optional[TestSet] = None
         self._noise: Any = FixedGaussian(5.0)
+        self._sides: List[Optional[np.ndarray]] = [None, None]
+        # per axis: side information on both axes keeps each one's knobs
+        self._beta_precisions: List[float] = [5.0, 5.0]
+        self._sample_beta_precisions: List[bool] = [True, True]
 
     def add_train_and_test(self, train, test=None, noise=None):
-        """train: SparseMatrix; test: (i, j, v)."""
-        if not isinstance(train, SparseMatrix):
-            raise _unsupported("dense training data")
+        """train: SparseMatrix | DenseBlock | dense np.ndarray (fully
+        observed); test: (i, j, v)."""
+        if isinstance(train, np.ndarray):
+            train = dense_block(train, device=self.device)
         self._train = train
         if test is not None:
             self._test = make_test_set(*test, device=self.device)
@@ -483,8 +519,19 @@ class TrainSession:
             self._noise = noise
         return self
 
-    def add_side_info(self, axis: int, F: np.ndarray, **_):
-        raise _unsupported("side information (the Macau prior)")
+    def add_side_info(self, axis: int, F: np.ndarray,
+                      beta_precision: float = 5.0,
+                      sample_beta_precision: bool = True):
+        """Attach side information to rows (axis=0) or cols (axis=1):
+        that entity takes the Macau prior."""
+        if axis not in (0, 1):
+            raise ValueError(
+                f"unknown axis {axis!r}; valid axes: (0, 1) — 0 rows, "
+                "1 cols")
+        self._sides[axis] = np.asarray(F, np.float32)
+        self._beta_precisions[axis] = beta_precision
+        self._sample_beta_precisions[axis] = sample_beta_precision
+        return self
 
     def _builder(self) -> ModelBuilder:
         if self._train is None:
@@ -493,7 +540,15 @@ class TrainSession:
         b = ModelBuilder(self.num_latent, self.device)
         for axis, (name, n) in enumerate((("rows", n_rows),
                                           ("cols", n_cols))):
-            b.add_entity(name, n, prior=self.prior_names[axis])
+            side = self._sides[axis]
+            if side is not None:
+                b.add_entity(
+                    name, n, side_info=side,
+                    beta_precision=self._beta_precisions[axis],
+                    sample_beta_precision=self._sample_beta_precisions[
+                        axis])
+            else:
+                b.add_entity(name, n, prior=self.prior_names[axis])
         b.add_block("rows", "cols", self._train, noise=self._noise,
                     test=self._test)
         return b

@@ -165,6 +165,21 @@ def from_coo(i: np.ndarray, j: np.ndarray, v: np.ndarray,
     )
 
 
+def from_dense(R: np.ndarray, *, keep_zeros: bool = False,
+               round_to: int = 8, device: DeviceLike = None) -> SparseMatrix:
+    """A dense matrix as a :class:`SparseMatrix`: every cell observed
+    (``keep_zeros=True``, "sparse fully known") or its nonzeros."""
+    R = np.asarray(R, dtype=np.float32)
+    if keep_zeros:
+        i, j = np.meshgrid(np.arange(R.shape[0]), np.arange(R.shape[1]),
+                           indexing="ij")
+        i, j, v = i.ravel(), j.ravel(), R.ravel()
+    else:
+        i, j = np.nonzero(R)
+        v = R[i, j]
+    return from_coo(i, j, v, R.shape, round_to=round_to, device=device)
+
+
 def random_sparse(key, shape: Tuple[int, int], density: float,
                   rank: int = 4, noise: float = 0.1,
                   binary: bool = False, round_to: int = 8,

@@ -38,7 +38,9 @@ _SIGNATURES = {
              "gram_gathered_f32": [ctypes.c_void_p] * 10
              + [ctypes.c_int64] * 4 + [ctypes.c_void_p]},
     "sddmm": {"sddmm_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
-              + [ctypes.c_int, ctypes.c_void_p]},
+              + [ctypes.c_int, ctypes.c_void_p],
+              "sddmm_gathered_f32": [ctypes.c_void_p] * 5
+              + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p]},
     "topk_score": {"topk_score_f32": [ctypes.c_void_p] * 7
                    + [ctypes.c_int64] * 9
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},

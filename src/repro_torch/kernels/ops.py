@@ -11,8 +11,10 @@ kernels mask ragged edges themselves, so no padding happens here.
 ``KERNELS`` lists each kernel with its probe shapes: the ``ops.KERNELS``
 envelope of the reference (gram's probes with their dtypes; fp32 probes
 of sddmm and topk_score, whose bf16 branches are a later slice; flash's
-probes with their dtypes).  ``gathered_gram_and_rhs`` is the port's own
-entry: the sweep's gather, Gram, alpha and Lambda_p in one launch.
+probes with their dtypes).  ``gathered_gram_and_rhs`` and
+``gathered_sddmm`` are the port's own entries: the sweep's gather, Gram,
+alpha and Lambda_p in one launch, and the predictions at gathered rows
+without the (E, K) copies; their probes are the port's own.
 """
 from __future__ import annotations
 
@@ -62,6 +64,18 @@ def sddmm(ug: torch.Tensor, vg: torch.Tensor) -> torch.Tensor:
     if ug.is_cuda:
         return _sddmm.sddmm_cuda(ug.contiguous(), vg.contiguous())
     return ref.sddmm_ref(ug, vg)
+
+
+def gathered_sddmm(U: torch.Tensor, V: torch.Tensor, i: torch.Tensor,
+                   j: torch.Tensor) -> torch.Tensor:
+    """pred (E,) with pred[e] = U[i[e]] . V[j[e]]; see kernels/sddmm.py.
+    U (n_u, K), V (n_v, K) fp32, i and j (E,) int32.  On the card one
+    launch reads the rows in its loads; on the CPU the plain version
+    gathers them."""
+    if U.is_cuda:
+        return _sddmm.sddmm_gathered_cuda(U.contiguous(), V.contiguous(),
+                                          i.contiguous(), j.contiguous())
+    return ref.gathered_sddmm_ref(U, V, i, j)
 
 
 def topk_score(us: torch.Tensor, v: torch.Tensor, k: int, *,
@@ -133,27 +147,34 @@ def finalize_topk(ids, mean, ex2, excl):
 def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
     return {"gram": _gram.launches, "sddmm": _sddmm.launches,
+            "sddmm_gathered": _sddmm.gathered_launches,
             "topk_score": _topk.launches, "flash": _flash.launches}
 
 
 def reset_launch_counts() -> None:
     _gram.launches = 0
     _sddmm.launches = 0
+    _sddmm.gathered_launches = 0
     _topk.launches = 0
     _flash.launches = 0
     _flash.design_launches.update(dict.fromkeys(_flash.design_launches, 0))
 
 
-# probe shapes of the reference's ops.KERNELS envelope: the operands'
-# shapes; for gram the (R, T, K) shape and the dtype of all three
-# operands; for topk_score k; for flash the q and k/v shapes, the dtype
-# and the masking arguments
+# probe shapes of the reference's ops.KERNELS envelope (and of the
+# port's sddmm_gathered entry): the operands' shapes; for gram the
+# (R, T, K) shape and the dtype of all three operands; for topk_score k;
+# for flash the q and k/v shapes, the dtype and the masking arguments
 KERNELS = {
     "gram": {"production r64 t256 K128": ((64, 256, 128), torch.float32),
              "uneven tail r13 t257 K33": ((13, 257, 33), torch.float32),
              "bf16 gathered operands": ((16, 130, 32), torch.bfloat16)},
     "sddmm": {"production e4096 K128": (4096, 128),
               "uneven tail e1025 K200": (1025, 200)},
+    # the port's fused-gather entry: (E, K, rows of U, rows of V); the
+    # tail gathers 1,025 entries from 97 and 61 rows, so rows repeat
+    "sddmm_gathered": {
+        "production e4096 K128": (4096, 128, 4096, 4096),
+        "uneven tail e1025 K200, repeated indices": (1025, 200, 97, 61)},
     "topk_score": {
         "serving b8 s32 n4096 K32 k100": ((8, 32, 32), (32, 4096, 32), 100),
         "catalogue b4 s64 n2048 K64 k100": ((4, 64, 64), (64, 2048, 64),

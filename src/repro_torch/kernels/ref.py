@@ -4,9 +4,10 @@ The counterpart of ``gram_ref``, ``sddmm_ref``, ``topk_score_ref`` and
 ``attention_ref`` in ``repro/kernels/ref.py``.  ``kernels/ops.py`` runs these on CPU
 tensors, the CPU tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
-``gathered_gram_ref`` is the plain version of the port's own fused
-entry.  Of the reference's bf16 branches only ``gram_ref``'s is ported;
-the others belong to the ``bf16_gather`` slice (ROADMAP).
+``gathered_gram_ref`` and ``gathered_sddmm_ref`` are the plain versions
+of the port's own fused entries.  Of the reference's bf16 branches only
+``gram_ref``'s is ported; the others belong to the ``bf16_gather`` slice
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -70,6 +71,14 @@ def sddmm_ref(ug: torch.Tensor, vg: torch.Tensor) -> torch.Tensor:
     """Gathered-operand SDDMM: pred[e] = ug[e] . vg[e] -> (E,) fp32."""
     return torch.einsum("ek,ek->e", ug.to(torch.float32),
                         vg.to(torch.float32))
+
+
+def gathered_sddmm_ref(U: torch.Tensor, V: torch.Tensor, i: torch.Tensor,
+                       j: torch.Tensor) -> torch.Tensor:
+    """SDDMM over gathered rows: pred[e] = U[i[e]] . V[j[e]], in the float
+    program of the pipeline the fused entry replaces (``index_select`` of
+    both operands, then ``sddmm_ref``)."""
+    return sddmm_ref(U.index_select(0, i), V.index_select(0, j))
 
 
 def topk_score_ref(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor,

@@ -234,8 +234,9 @@ class RecommendServer(SlotServer):
     ``PredictSession.recommend`` calls.  A store above the session's
     ``cache_bytes`` budget is refused here: streaming it per request is
     what the resident cache exists to avoid.  Cold-start requests
-    (``features=``) need the Macau prior (ROADMAP A5) and raise when
-    they are served.
+    (``features=``) map the features through each retained sample of
+    the Macau link (``PredictSession.cold_rows``) and are scored in the
+    same batch.
     """
 
     def __init__(self, session, slots: int = 8, k: int = 10,

@@ -166,16 +166,6 @@ def test_golden_gaussian_chain_replays_fixture_and_live_jax():
                                    err_msg=f"live {key}")
 
 
-def test_unsupported_model_raises():
-    _, tm = _models(4, 3, 2, None, tc.FixedGaussian())
-    bad = tc.ModelDef(tm.entities, tm.blocks, 2, device="cpu")
-    mat = tc.from_coo([0, 1], [0, 2], [1.0, 2.0], (4, 3), device="cpu")
-    state = tc.init_state(bad, None, seed=0)
-    with pytest.raises(ValueError, match="side information"):
-        tc.gibbs_step(bad, tc.MFData((mat,), (np.zeros((4, 2)), None)),
-                      state)
-
-
 def test_two_blocks_sharing_an_entity_match_reference():
     """Three entities and two sparse blocks that share the row entity:
     its update runs the gathered Gram twice, the second with the first

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,6 +53,8 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         lambda: tc.TrainSession(num_latent=4),
         lambda: tc.from_coo([0], [0], [1.0], (1, 1)),
         lambda: tc.random_sparse(0, (4, 3), 0.5),
+        lambda: tc.dense_block(np.zeros((2, 3), np.float32)),
+        lambda: tc.from_dense(np.ones((2, 3), np.float32)),
         lambda: tc.ModelDef((), (), 4),
         lambda: tc.make_test_set([0], [0], [0.0]),
         lambda: tc.PredictSession("no-store-needed"),

@@ -79,7 +79,11 @@ def test_cpu_dispatch_launches_no_kernel():
     tops.reset_launch_counts()
     tops.gram_and_rhs(*_t(*_gram_inputs(2, 3, 4)))
     tops.sddmm(*_t(*_sddmm_inputs(5, 4)))
-    assert tops.launch_counts() == {"gram": 0, "sddmm": 0, "topk_score": 0,
+    tops.gathered_sddmm(*_t(*_sddmm_inputs(5, 4)),
+                        *_t(np.array([0, 4, 2], np.int32),
+                            np.array([1, 1, 3], np.int32)))
+    assert tops.launch_counts() == {"gram": 0, "sddmm": 0,
+                                    "sddmm_gathered": 0, "topk_score": 0,
                                     "flash": 0}
 
 
@@ -97,8 +101,13 @@ def test_probe_envelope_mirrors_reference():
     are all three of the reference's (the bf16 one included), with
     their shapes and dtypes; flash's all three of the reference's, with
     their dtypes (``test_torch_flash.py`` holds their masking
-    arguments)."""
+    arguments).  ``sddmm_gathered`` is the port's own entry: its
+    production probe is sddmm's production shape."""
     for name, probes in tops.KERNELS.items():
+        if name == "sddmm_gathered":
+            E, K, _, _ = probes["production e4096 K128"]
+            assert (E, K) == tops.KERNELS["sddmm"]["production e4096 K128"]
+            continue
         if name == "gram":
             ref_all = {p.label: p for p in jops.KERNELS[name].probes}
             assert set(probes) == set(ref_all)

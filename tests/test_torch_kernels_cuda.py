@@ -258,6 +258,70 @@ def test_gram_kernels_answer_rows_of_no_steps(cuda, entry, K):
     torch.testing.assert_close(r, rw, **GRAM_TOL)
 
 
+def _gathered_sddmm_inputs(E, K, n_u, n_v, device, seed=0):
+    rng = np.random.default_rng(seed)
+    U = rng.normal(size=(n_u, K)).astype(np.float32)
+    V = rng.normal(size=(n_v, K)).astype(np.float32)
+    i = rng.integers(0, n_u, E).astype(np.int32)
+    j = rng.integers(0, n_v, E).astype(np.int32)
+    return _t(U, V, i, j, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,K,n_u,n_v", [
+    *tops.KERNELS["sddmm_gathered"].values(),
+    (0, 128, 5, 5), (1, 1, 1, 1), (3000, 33, 7, 3000), (777, 4, 2, 3),
+    (2049, 130, 50, 40), (64 * 129, 128, 129, 8192),
+    (8_388_608 + 8_195, 20, 8192, 131072)])
+def test_gathered_sddmm_matches_plain_and_the_pipeline_bitwise(
+        cuda, E, K, n_u, n_v):
+    """The fused-gather entry against its plain version (SDDMM_TOL) and
+    bitwise against ``index_select`` x 2 + ``sddmm_f32``, the pipeline
+    it replaces: the same per-entry program over the same rows.  Uneven
+    K, repeated indices (n_u, n_v below E) and E = 0 included; E above
+    the grid's 1,048,576 blocks x 8 warps makes warps take a second
+    entry of the grid-stride loop, as probit's columns side does."""
+    U, V, i, j = _gathered_sddmm_inputs(E, K, n_u, n_v, cuda)
+    before = tsddmm.gathered_launches
+    p = tops.gathered_sddmm(U, V, i, j)
+    torch.cuda.synchronize()
+    assert tsddmm.gathered_launches == before + 1
+    assert p.shape == (E,)
+    torch.testing.assert_close(p, tref.gathered_sddmm_ref(U, V, i, j),
+                               **SDDMM_TOL)
+    two_step = tsddmm.sddmm_cuda(U.index_select(0, i), V.index_select(0, j))
+    assert torch.equal(p.view(torch.int32), two_step.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_gathered_sddmm_refuses_what_it_does_not_take(cuda):
+    """No quiet fallback: wrong device, dtype, index type, shapes or
+    rows off a 16-byte boundary raise; an index out of range reads a
+    zero row."""
+    U, V, i, j = _gathered_sddmm_inputs(10, 8, 4, 5, cuda)
+    off = torch.empty(4 * 8 + 1, device=cuda)[1:].view(4, 8)
+    off.copy_(U)
+    with pytest.raises(ValueError, match="16-byte"):
+        tsddmm.sddmm_gathered_cuda(off, V, i, j)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        tsddmm.sddmm_gathered_cuda(U.cpu(), V, i, j)
+    with pytest.raises(TypeError, match="float32"):
+        tsddmm.sddmm_gathered_cuda(U.bfloat16(), V, i, j)
+    with pytest.raises(TypeError, match="int32"):
+        tsddmm.sddmm_gathered_cuda(U, V, i.long(), j)
+    with pytest.raises(ValueError, match="differ in K"):
+        tsddmm.sddmm_gathered_cuda(U, V[:, :4].contiguous(), i, j)
+    with pytest.raises(ValueError, match="differ"):
+        tsddmm.sddmm_gathered_cuda(U, V, i, j[:5])
+    bad = i.clone()
+    bad[::2] = 4
+    p = tsddmm.sddmm_gathered_cuda(U, V, bad, j)
+    torch.cuda.synchronize()
+    want = tref.sddmm_ref(U.index_select(0, i), V.index_select(0, j))
+    assert torch.equal(p[::2], torch.zeros_like(p[::2]))
+    torch.testing.assert_close(p[1::2], want[1::2], **SDDMM_TOL)
+
+
 def _topk_inputs(B, S, N, K, seed=0, excl_frac=0.0):
     rng = np.random.default_rng(seed)
     us = rng.normal(size=(B, S, K)).astype(np.float32)

@@ -182,14 +182,6 @@ def _builder():
 
 
 @pytest.mark.parametrize("what,call", [
-    ("side_info", lambda b, m: b.add_entity(
-        "x", 3, side_info=np.zeros((3, 2), np.float32))),
-    ("prior 'spikeandslab'", lambda b, m: b.add_entity(
-        "x", 3, prior="spikeandslab")),
-    ("dense block data", lambda b, m: b.add_block(
-        "r", "c", np.zeros((40, 30), np.float32))),
-    ("noise ProbitNoise", lambda b, m: b.add_block(
-        "r", "c", m, noise=jc.ProbitNoise())),
     ("chains=4", lambda b, m: b.add_block("r", "c", m).session(chains=4)),
     ("save_freq", lambda b, m: b.add_block("r", "c", m).session(
         save_freq=2, save_dir="unused").run(resume=True)),
@@ -207,6 +199,13 @@ def test_options_outside_the_slice_raise(what, call):
 
 
 def test_unknown_prior_lists_the_ports_priors():
+    """The port has the reference's three named priors, and its
+    message."""
     b, _ = _builder()
-    with pytest.raises(ValueError, match="valid priors: normal"):
+    with pytest.raises(ValueError) as te:
         b.add_entity("x", 3, prior="bogus")
+    with pytest.raises(ValueError) as je:
+        jc.ModelBuilder(4).add_entity("x", 3, prior="bogus")
+    assert str(te.value) == str(je.value)
+    assert "valid priors: fixednormal, normal, spikeandslab" in str(
+        te.value)

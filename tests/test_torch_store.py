@@ -142,16 +142,30 @@ def test_diagnostics_match_the_reference(stores):
     assert tres.diagnostics.rhat.keys() == jres.diagnostics.rhat.keys()
 
 
-def test_unported_types_in_a_store_point_at_the_roadmap():
-    spec = tspec.model_to_spec(tc.ModelDef(
-        (tc.EntityDef("a", 3, tc.NormalPrior(2)),
-         tc.EntityDef("b", 2, tc.NormalPrior(2))),
-        (tc.BlockDef(0, 1, tc.FixedGaussian(), True),), 2, device="cpu"))
-    spec["entities"][0]["prior"] = {"type": "MacauPrior"}
-    with pytest.raises(ValueError, match="MacauPrior.*ROADMAP"):
-        tspec.spec_to_model(spec, device="cpu")
+def test_unported_types_in_a_store_point_at_the_roadmap(tmp_path):
+    """Every prior and noise type of the reference loads now: a Macau
+    probit store written by ``repro`` rebuilds the same model in the
+    port; an unknown type still names the valid ones."""
+    rng = np.random.default_rng(0)
+    side = (rng.random((N_ROWS, 5)) > 0.5).astype(np.float32)
+    mat, _, _ = jc.sparse.random_sparse(3, (N_ROWS, N_COLS), 0.3, rank=3,
+                                        binary=True)
+    b = jc.ModelBuilder(num_latent=2)
+    b.add_entity("a", N_ROWS, side_info=side).add_entity("b", N_COLS)
+    b.add_block("a", "b", mat, noise=jc.ProbitNoise())
+    with jax.threefry_partitionable(False):
+        b.session(burnin=1, nsamples=2, seed=0, save_freq=1,
+                  save_dir=str(tmp_path)).run()
+    p = tc.PredictSession(str(tmp_path), device="cpu")
+    assert p.model.entities[0].prior == tc.MacauPrior(2, 5)
+    assert p.model.blocks[0].noise == tc.ProbitNoise()
+    st = p.load_sample(p.steps[-1])
+    assert st.hypers[0]["beta"].shape == (5, 2)
+    spec = tspec.model_to_spec(p.model)
+    assert tspec.spec_to_model(spec, device="cpu") == p.model
     spec["entities"][0]["prior"] = {"type": "Bogus"}
-    with pytest.raises(ValueError, match="valid priors: NormalPrior"):
+    with pytest.raises(ValueError, match="valid priors: FixedNormalPrior, "
+                       "MacauPrior, NormalPrior, SpikeAndSlabPrior"):
         tspec.spec_to_model(spec, device="cpu")
 
 
