@@ -14,10 +14,13 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    Gram, alpha and Lambda_p in one launch) is also held bitwise against
    the pipeline it replaced (``index_select``, the first design
    ``scripts_dev/gram_v1.cu``, ``mul_``, ``add_``) at both half-sweep
-   shapes and timed beside it, part by part; sddmm's fused-gather entry
-   (the sweeps' predictions at gathered rows) likewise, bitwise against
-   ``index_select`` x 2 + ``sddmm_f32``, at the observed entries and at
-   the rows side of probit's padded prediction;
+   shapes and timed beside it, part by part; sddmm's fused-gather
+   entries (the sweeps' predictions at gathered rows, and at every slot
+   of probit's padded rows and columns) likewise, bitwise against
+   ``index_select`` x 2 + ``sddmm_f32`` and against the entry's first
+   design ``scripts_dev/sddmm_v1.cu``, timed beside both (the observed
+   entries also in random order), with the bytes the design's model
+   says it reads an entry over the measured time;
 3. golden chains: replays the ``gaussian``, ``probit`` and ``gfa``
    chains of ``results/golden_chains.json`` on the card;
 4. slice: runs ``ModelBuilder(num_latent=128)`` -> ``session(...).run()``
@@ -113,6 +116,7 @@ STORE512 = (2048, 8192, 512)
 STORE512_K = 2048
 PREVIOUS_TOPK = "scripts_dev/topk_score_v1.cu"
 PREVIOUS_GRAM = "scripts_dev/gram_v1.cu"
+PREVIOUS_SDDMM = "scripts_dev/sddmm_v1.cu"
 # the store's reload runs the in-session accumulator's float program
 # over exact copies of the samples: the same bits are expected, and
 # 1e-6 relative (the reference's reload tolerance) is what is held
@@ -230,21 +234,23 @@ def phase_card():
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     from repro_torch.kernels import _build
     import gram_v1
+    import sddmm_v1
     import topk_score_v1
     gram_v1.register()         # the previous designs, timed beside
+    sddmm_v1.register()
     topk_score_v1.register()
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
           + ", ".join(f"{k} {v:.2f} s"
                       for k, v in sorted(_build.build_seconds.items())))
-    for name in ("gram", "sddmm", "topk_score", "flash", "flash_sm90"):
+    for name in ("gram", "topk_score", "flash", "flash_sm90"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     # the main path launches gram_rows_kernel<float>: its ptxas lines,
     # named, and no spill
-    spills = gram_ptxas(_build.build_log("gram"))
+    spills = ptxas_by_kernel(_build.build_log("gram"))
     for kernel, lines in spills.items():
         print(f"  ptxas gram {kernel}: " + "; ".join(lines))
     main = [k for k in spills if k == "gram_rows_kernel<float>"]
@@ -252,12 +258,25 @@ def phase_card():
                        for line in spills[main[0]] if "spill" in line):
         raise AssertionError(f"gram's main-path kernel spills or is "
                              f"missing: {spills}")
+    # sddmm's kernels; the gathered entries' tiled kernel has one
+    # instance a step width: none spills, and the main path's (float4)
+    # is there
+    sddmm = ptxas_by_kernel(_build.build_log("sddmm"))
+    for kernel, lines in sddmm.items():
+        print(f"  ptxas sddmm {kernel}: " + "; ".join(lines))
+    tiles = {k: v for k, v in sddmm.items()
+             if k.startswith("sddmm_tiles_kernel")}
+    if "sddmm_tiles_kernel<float4>" not in tiles or any(
+            " 0 bytes spill stores" not in line
+            for lines in tiles.values() for line in lines if "spill" in line):
+        raise AssertionError(f"sddmm's tiled kernel spills or is missing: "
+                             f"{tiles}")
     return smi
 
 
-def gram_ptxas(log: str):
-    """{kernel: its ptxas lines} of gram.cu's build log, kernels named
-    from their mangled entry names."""
+def ptxas_by_kernel(log: str):
+    """{kernel: its ptxas lines} of gram.cu's or sddmm.cu's build log,
+    kernels named from their mangled entry names."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -266,9 +285,13 @@ def gram_ptxas(log: str):
             mangled = m.group(1)
             k = re.search(r"(gram_rows_kernel|gram_tiled_kernel)I"
                           r"(13__nv_bfloat16|f)(Lb[01])?", mangled)
+            t = re.search(r"sddmm_tiles_kernelILb([01])E", mangled)
             name = mangled if k is None else (
                 f"{k.group(1)}<{'bf16' if 'bfloat' in k.group(2) else 'float'}"
                 + (f", {k.group(3)[-1] == '1'}" if k.group(3) else "") + ">")
+            if t:
+                name = (f"sddmm_tiles_kernel<"
+                        f"{'float4' if t.group(1) == '1' else 'float'}>")
             out[name] = []
         elif name and ("spill" in line or "registers" in line):
             out[name].append(line.strip())
@@ -363,7 +386,7 @@ def phase_kernels(train, gen):
           f"{sb_by}, {s_bytes / s_ms / 1e6:.0f} GB/s")
     del ug, vg
     torch.cuda.empty_cache()
-    gathered = gathered_sddmm_main_path(train, U, V, gen)
+    gathered = gathered_sddmm_main_path(train, U, V, gen.initial_seed())
     del U, V
     torch.cuda.empty_cache()
     gram["max_abs_err"] = errs["gram"]
@@ -379,78 +402,119 @@ def phase_kernels(train, gen):
     }
 
 
-def gathered_sddmm_main_path(train, U, V, gen):
-    """sddmm's fused-gather entry at its probes and at the three shapes
-    the sweeps give it: the observed entries (``_block_pred_observed``)
-    and both sides of probit's padded prediction (every slot of the
-    131,072 x 64 padded rows, and of the 8,192 padded columns, whose
-    entries outnumber the grid's warps).  Held against its plain version at
-    SDDMM_TOL and bitwise against ``index_select`` x 2 + ``sddmm_f32``
-    (the pipeline it replaces); timed beside that pipeline, the plain
-    version and one library expression (``index_select`` x 2 +
-    ``torch.linalg.vecdot``).  Returns the kernels-line entry (without
-    launches); ``ms`` and the other times are the observed entries'."""
+def gathered_sddmm_main_path(train, U, V, seed: int):
+    """sddmm's fused-gather entries at their probes and at the three
+    shapes the sweeps give them: the observed entries
+    (``gathered_sddmm``, ``_block_pred_observed``) and both sides of
+    probit's padded prediction (``gathered_sddmm_padded``: every slot of
+    the 131,072 x 64 padded rows, and of the 8,192 padded columns, whose
+    compound rows do not fit L2); and at the observed entries in random
+    order (``from_coo`` keeps its caller's order and the slice's COO is
+    row-major; in random order the kernel has no runs of i to reuse).
+    Held against the plain version at SDDMM_TOL and bitwise against
+    ``index_select`` x 2 + ``sddmm_f32``
+    (the pipeline before the fused entry) and against the first design
+    of the fused entry (``scripts_dev/sddmm_v1.cu``); timed beside both,
+    the plain version and one library expression (``index_select`` x 2
+    + ``torch.linalg.vecdot``).  Returns the kernels-line entry (without
+    launches); ``ms`` and the other unprefixed times are the observed
+    entries'."""
     import torch
-    from repro_torch.core.gibbs import _slot_rows
+    import sddmm_v1 as previous
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import sddmm as ksddmm
     dev = U.device
     err = 0.0
 
-    def check(U_, V_, i, j, label):
-        got = ksddmm.sddmm_gathered_cuda(U_, V_, i, j)
+    def check(got, U_, V_, i, j, label):
+        """got: the new kernel's output at pred[e] = U_[i[e]] . V_[j[e]]."""
         torch.cuda.synchronize()
+        got = got.reshape(-1)
         ug, vg = U_.index_select(0, i), V_.index_select(0, j)
         e = max_err(got, ref.sddmm_ref(ug, vg),
                     ref.sddmm_ref(ug.abs(), vg.abs()), SDDMM_TOL,
                     f"gathered sddmm {label}")
-        if not same_bits(got.cpu().numpy(),
-                         ksddmm.sddmm_cuda(ug, vg).cpu().numpy()):
-            raise AssertionError(f"gathered sddmm {label}: not the bits of "
-                                 "index_select x 2 + sddmm_f32")
+        for what, want in (
+                ("index_select x 2 + sddmm_f32", lambda: ksddmm.sddmm_cuda(
+                    ug, vg)),
+                (PREVIOUS_SDDMM, lambda: previous.gathered(U_, V_, i, j))):
+            if not torch.equal(got.view(torch.int32),
+                               want().view(torch.int32)):
+                raise AssertionError(f"gathered sddmm {label}: not the bits "
+                                     f"of {what}")
         print(f"  gathered sddmm {label}: max abs err {e:.3e}; bitwise "
-              "equal to index_select x 2 + sddmm_f32")
+              f"equal to index_select x 2 + sddmm_f32 and to "
+              f"{PREVIOUS_SDDMM}")
         return e
 
-    for label, (E, K, n_u, n_v) in ops.KERNELS["sddmm_gathered"].items():
-        U_ = torch.randn(n_u, K, device=dev, generator=gen)
-        V_ = torch.randn(n_v, K, device=dev, generator=gen)
-        i = torch.randint(0, n_u, (E,), device=dev, generator=gen,
-                          dtype=torch.int32)
-        j = torch.randint(0, n_v, (E,), device=dev, generator=gen,
-                          dtype=torch.int32)
-        err = max(err, check(U_, V_, i, j, label))
+    for label, probe in ops.KERNELS["sddmm_gathered"].items():
+        U_, V_, i, j = ops.gathered_sddmm_probe(*probe, dev)
+        err = max(err, check(ksddmm.sddmm_gathered_cuda(U_, V_, i, j), U_,
+                             V_, i, j, label))
 
     R, T = train.rows.idx.shape
     C, Tc = train.cols.idx.shape
-    shapes = (("observed entries", U, V, train.coo_i, train.coo_j),
-              (f"probit rows side {R} x {T} slots", U, V,
-               _slot_rows(R, T, dev), train.rows.idx.reshape(-1)),
-              (f"probit cols side {C} x {Tc} slots", V, U,
-               _slot_rows(C, Tc, dev), train.cols.idx.reshape(-1)))
+    rows, cols = train.rows.idx, train.cols.idx
+    perm = torch.randperm(train.coo_i.shape[0], device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed))
+    si, sj = train.coo_i[perm].contiguous(), train.coo_j[perm].contiguous()
+    del perm
+    shapes = (
+        ("observed entries", U, V, train.coo_i, train.coo_j,
+         lambda: ksddmm.sddmm_gathered_cuda(U, V, train.coo_i, train.coo_j)),
+        ("observed entries in random order", U, V, si, sj,
+         lambda: ksddmm.sddmm_gathered_cuda(U, V, si, sj)),
+        (f"probit rows side {R} x {T} slots", U, V,
+         ref.slot_rows(R, T, dev), rows.reshape(-1),
+         lambda: ksddmm.sddmm_padded_cuda(U, V, rows)),
+        (f"probit cols side {C} x {Tc} slots", V, U,
+         ref.slot_rows(C, Tc, dev), cols.reshape(-1),
+         lambda: ksddmm.sddmm_padded_cuda(V, U, cols)))
     out = {}
-    for label, U_, V_, i, j in shapes:
+    for label, U_, V_, i, j, new in shapes:
         E, K = i.shape[0], U_.shape[1]
         label = f"{label} E={E} K={K}"
-        err = max(err, check(U_, V_, i, j, label))
-        ms = time_ms(lambda: ksddmm.sddmm_gathered_cuda(U_, V_, i, j))
-        prev = time_ms(lambda: ksddmm.sddmm_cuda(U_.index_select(0, i),
+        padded = "slots" in label
+        got = new()
+        err = max(err, check(got, U_, V_, i, j, label))
+        if padded and not torch.equal(
+                got.reshape(-1).view(torch.int32),
+                ksddmm.sddmm_gathered_cuda(U_, V_, i, j).view(torch.int32)):
+            raise AssertionError(f"gathered sddmm {label}: the padded entry "
+                                 "is not the bits of the gathered entry")
+        del got
+        ms = time_ms(new)
+        v1 = time_ms(lambda: previous.gathered(U_, V_, i, j))
+        pipe = time_ms(lambda: ksddmm.sddmm_cuda(U_.index_select(0, i),
                                                  V_.index_select(0, j)))
         plain = time_ms(lambda: ref.gathered_sddmm_ref(U_, V_, i, j))
         lib = time_ms(lambda: torch.linalg.vecdot(U_.index_select(0, i),
                                                   V_.index_select(0, j)))
-        n_bytes = 4 * (U_.numel() + V_.numel() + 3 * E)
+        # the function's bytes: each row of both factors, the indices (i
+        # and j; a padded layout's idx alone) and the output once
+        n_idx = 1 if padded else 2
+        n_bytes = 4 * (U_.numel() + V_.numel() + (n_idx + 1) * E)
         b_ms, b_by = bound(n_bytes, 2 * E * K)
-        rate = 2 * E * K * 4 / ms / 1e6
-        print(f"  gathered sddmm {label}: {ms:.3f} ms, bound {b_ms:.3f} ms "
-              f"by {b_by} (U, V, i, j, out once: {n_bytes / 1e6:.1f} MB; "
-              f"{b_ms / ms:.3f} of it; rows read {rate:.0f} GB/s through "
-              f"the caches), previous pipeline (index_select x 2 + "
-              f"sddmm_f32) {prev:.3f} ms, plain {plain:.3f} ms, library "
-              f"(index_select x 2 + torch.linalg.vecdot) {lib:.3f} ms")
-        out[label] = dict(ms=ms, previous_ms=prev, plain_ms=plain,
-                          library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-    main, rows, cols = out.values()
+        # the design's model of what it reads (no counter measures it):
+        # V's row an entry, U's row a run of i (and at most once more a
+        # warp, where a run crosses into the next warp's range), the
+        # indices and the output
+        runs = int(torch.unique_consecutive(i).numel())
+        per_entry = 4 * K + 4 * K * runs / E + 4 * (n_idx + 1)
+        print(f"  gathered sddmm {label}: {ms:.3f} ms; {PREVIOUS_SDDMM} "
+              f"{v1:.3f} ms; pipeline (index_select x 2 + sddmm_f32) "
+              f"{pipe:.3f} ms; plain {plain:.3f} ms; library (index_select "
+              f"x 2 + torch.linalg.vecdot) {lib:.3f} ms; bound {b_ms:.3f} ms "
+              f"by {b_by} (U, V, indices, out once: {n_bytes / 1e6:.1f} MB; "
+              f"{b_ms / ms:.3f} of it); modelled reads {per_entry:.1f} B an "
+              f"entry ({runs} runs of i), {per_entry * E / 1e9:.3f} GB; "
+              f"modelled bytes / measured ms {per_entry * E / ms / 1e6:.0f} "
+              f"GB/s through the caches")
+        out[label] = dict(ms=ms, previous_ms=v1, pipeline_ms=pipe,
+                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                          bound_by=b_by)
+    del shapes, si, sj
+    main, shuffled, prow, pcol = out.values()
     # the observed entries are distinct cells: one library call computes
     # the same function, cuSPARSE's SDDMM over their CSR pattern (the
     # probit slots repeat a cell at their padding, which CSR does not
@@ -482,9 +546,12 @@ def gathered_sddmm_main_path(train, U, V, gen):
             "replaces": "src/repro/kernels/sddmm.py:53",
             "max_abs_err": err, **main, "library_ms": sampled,
             "library_expression_ms": main["library_ms"],
-            **{f"probit_{side}_{key}": d[key]
-               for side, d in (("rows", rows), ("cols", cols))
-               for key in ("ms", "previous_ms", "bound_ms", "library_ms")}}
+            "previous_source": PREVIOUS_SDDMM,
+            **{f"{side}_{key}": d[key]
+               for side, d in (("random_order", shuffled),
+                               ("probit_rows", prow), ("probit_cols", pcol))
+               for key in ("ms", "previous_ms", "pipeline_ms", "bound_ms",
+                           "library_ms")}}
 
 
 def gram_library(fixed, idx, val, mask, alpha, lam):
@@ -2085,7 +2152,8 @@ def main(argv=None) -> int:
         return 2
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_file() \
             or not (ROOT / PREVIOUS_TOPK).is_file() \
-            or not (ROOT / PREVIOUS_GRAM).is_file():
+            or not (ROOT / PREVIOUS_GRAM).is_file() \
+            or not (ROOT / PREVIOUS_SDDMM).is_file():
         print("chip_smoke: run it from the root of a checkout of the repo",
               file=sys.stderr)
         return 2

@@ -6,8 +6,7 @@ Run from the repository root on a machine with one H100, e.g.
 
     python scripts_dev/flash_variants.py cur= other=-DSOME_MACRO
 
-Each NAME is built with nvcc (the flags of ``kernels/_build.py`` plus
-the given ones; ``@path`` builds another source) into ``build/dev/``,
+Each NAME is built as ``scripts_dev/variants.py`` says into ``build/dev/``,
 its SASS written to ``chiprun_out/sass_NAME.txt``, checked against
 ``ref.attention_ref`` at ragged, offset, windowed, GQA and non-causal
 cases, then timed with ``chip_smoke.time_ms`` in three rounds (the
@@ -18,15 +17,11 @@ S = 16,384.  A variant whose check fails is still timed when its name
 starts with ``diag`` (a variant that leaves out part of the work on
 purpose).  Prints the card's nvidia-smi name and power limit last.
 """
-import ctypes
 import os
 import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
+import variants as vs  # first: puts the repo's sources on sys.path
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -34,6 +29,8 @@ import torch.nn.functional as F  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash as kflash  # noqa: E402
+
+ROOT = vs.ROOT
 
 CASES = [((2, 100, 6, 64), (2, 100, 2, 64), dict(causal=True)),
          ((2, 130, 8, 128), (2, 500, 2, 128),
@@ -48,37 +45,17 @@ CASES = [((2, 100, 6, 64), (2, 100, 2, 64), dict(causal=True)),
 
 
 def build(variants):
-    nvcc = _build.nvcc_path()
-    out_dir = ROOT / "build" / "dev"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    """{name: flash_sm90_fwd} of each variant that builds, its SASS
+    written as the docstring above says."""
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    procs = {}
-    for name, flags in variants.items():
-        flags = flags.split()
-        src = str(_build.CSRC / "flash_sm90.cu")
-        if flags and flags[0].startswith("@"):
-            src = flags.pop(0)[1:]
-        so = out_dir / f"{name}.so"
-        procs[name] = (subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, *flags, "-o", str(so), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
     fns = {}
-    for name, (proc, so) in procs.items():
-        log = proc.communicate()[0]
-        for line in log.splitlines():
-            if any(w in line for w in ("C75", "registers", "spill", "error")):
-                print(name, line.strip()[:200])
-        if proc.returncode:
-            print(name, "build failed")
-            continue
-        sass = subprocess.run(
-            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
-             str(so)], capture_output=True, text=True).stdout
+    for name, lib in vs.build("flash_sm90", variants).items():
+        sass = subprocess.run([cuobjdump, "-sass", lib._name],
+                              capture_output=True, text=True).stdout
         (ROOT / "chiprun_out" / f"sass_{name}.txt").write_text(sass)
-        fn = getattr(ctypes.CDLL(str(so)), "flash_sm90_fwd")
-        fn.argtypes = _build._SIGNATURES["flash_sm90"]["flash_sm90_fwd"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[name] = lib.flash_sm90_fwd
     return fns
 
 
@@ -92,8 +69,7 @@ def run(fn, q, k, v, causal, window=0, q_offset=0):
 
 
 def main(argv):
-    variants = dict(a.split("=", 1) for a in argv)
-    fns = build(variants)
+    fns = build(vs.parse(argv))
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(*shape):
@@ -123,10 +99,7 @@ def main(argv):
     fn_of["flash (PR 14)"] = lambda: kflash.launch("flash", q, k, v,
                                                    causal=True)
     fn_of["SDPA"] = lambda: cs.sdpa(q, k, v)
-    times = {n: [] for n in fn_of}
-    for rnd in range(3):
-        for n in (list(fn_of) if rnd % 2 == 0 else list(fn_of)[::-1]):
-            times[n].append(cs.time_ms(fn_of[n]))
+    times = vs.rounds(fn_of, 3)
     print(f"b{B} s{S} h32/8 hd128 causal, bound {b_ms:.3f} ms by {b_by}:")
     for n, t in times.items():
         med = sorted(t)[1]
@@ -150,9 +123,7 @@ def main(argv):
             t = cs.time_ms(f)
             print(f"  {label} {n}: {t:.4f} ms ({ops / t / 1e9:.1f} TFLOP/s)")
         del q, k, v
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    print(vs.card())
 
 
 if __name__ == "__main__":

@@ -6,11 +6,10 @@ Run from the repository root on a machine with one H100, e.g.
 
     python scripts_dev/gram_variants.py cur= new=-DMACRO
 
-Each NAME is built with nvcc (the flags of ``kernels/_build.py`` plus
-the given ones; ``@path`` builds another source) into ``build/dev/``,
-beside the first design (``scripts_dev/gram_v1.cu``), and its ptxas
-lines are printed.  Each variant's gathered entry is held against
-``ref.gathered_gram_ref`` at ``chip_smoke.GRAM_TOL`` on small shapes
+Variants are built as ``scripts_dev/variants.py`` says, beside the
+first design (``scripts_dev/gram_v1.cu``).  Each variant's gathered
+entry is held against ``ref.gathered_gram_ref`` at
+``chip_smoke.GRAM_TOL`` on small shapes
 (K = 1, 7, 33, 128 and 256, ragged T, empty rows, acc, a lam that is
 not symmetric) and on 4,096 rows of each of the slice's two half-sweep
 shapes (``chip_smoke.slice_data``); at the two whole shapes it must
@@ -20,15 +19,10 @@ shapes (``chip_smoke.time_ms``) in two rounds, the order reversed in
 the second, beside the pipeline.  Prints the card's nvidia-smi name and
 power limit last.
 """
-import ctypes
-import subprocess
+import functools
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "scripts_dev"))
+import variants as vs  # first: puts the repo's sources on sys.path
 
 import torch  # noqa: E402
 
@@ -37,37 +31,6 @@ import gram_v1  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 
 K = 128
-
-
-def build(variants):
-    nvcc = _build.nvcc_path()
-    out_dir = ROOT / "build" / "dev"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, flags in variants.items():
-        flags = flags.split()
-        src = str(_build.CSRC / "gram.cu")
-        if flags and flags[0].startswith("@"):
-            src = flags.pop(0)[1:]
-        so = out_dir / f"gram_{name}.so"
-        procs[name] = (subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, *flags, "-o", str(so), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    gram_v1.register()
-    _build.build_all([gram_v1.NAME])
-    fns = {}
-    for name, (proc, so) in procs.items():
-        log = proc.communicate()[0]
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  ptxas {name}: {line.strip()}")
-        if proc.returncode:
-            raise SystemExit(f"{name}: build failed:\n{log[-3000:]}")
-        fn = getattr(ctypes.CDLL(str(so)), "gram_gathered_f32")
-        fn.argtypes = _build._SIGNATURES["gram"]["gram_gathered_f32"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
 
 
 def run(fn, fixed, idx, val, mask, alpha, acc=None, lam=None):
@@ -122,7 +85,10 @@ def check(name, fn, fixed, idx, val, mask, alpha, lam, acc_too, label):
 
 
 def main(argv):
-    fns = build(dict(a.split("=", 1) for a in argv))
+    fns = {name: lib.gram_gathered_f32
+           for name, lib in vs.build("gram", vs.parse(argv)).items()}
+    gram_v1.register()
+    _build.build_all([gram_v1.NAME])
     gen = torch.Generator(device="cuda").manual_seed(0)
     alpha = torch.tensor(1.7, device="cuda")
     for (R, T, Kf, nf, empty) in ((3, 5, 1, 4, 1), (5, 37, 7, 20, 1),
@@ -163,23 +129,12 @@ def main(argv):
         b_ms, b_by = cs.bound(4 * (fixed.numel() + 3 * R * T + R * K * K
                                    + R * K),
                               nnz * K * (K + 1) + 2 * nnz * K)
-        times = {}
-        out = (torch.empty((R, K, K), device="cuda"),
-               torch.empty((R, K), device="cuda"))
-        pipe = "pipeline (gather, gram_v1, mul_, add_)"
-        fns_t = dict(fns)
-        fns_t[pipe] = None
-        for rnd in range(2):
-            for name in (list(fns_t) if rnd == 0 else list(fns_t)[::-1]):
-                if fns_t[name] is None:
-                    f = (lambda: gram_v1.pipeline(fixed, idx, val, mask,
-                                                  alpha, lam))
-                else:
-                    fn = fns_t[name]
-                    f = (lambda: run(fn, fixed, idx, val, mask, alpha,
-                                     lam=lam))
-                times.setdefault(name, []).append(cs.time_ms(f, n=10))
-        del out
+        timed = {name: functools.partial(run, fn, fixed, idx, val, mask,
+                                         alpha, lam=lam)
+                 for name, fn in fns.items()}
+        timed["pipeline (gather, gram_v1, mul_, add_)"] = (
+            lambda: gram_v1.pipeline(fixed, idx, val, mask, alpha, lam))
+        times = vs.rounds(timed, timer=lambda f: cs.time_ms(f, n=10))
         torch.cuda.empty_cache()
         print(f"{side} R={R} T={T} K={K} nnz={nnz:.0f}: bound {b_ms:.3f} ms "
               f"by {b_by}; ms a call, two rounds:")
@@ -187,9 +142,7 @@ def main(argv):
             m = sum(t) / len(t)
             print(f"  {name}: " + ", ".join(f"{x:.3f}" for x in t)
                   + f"; mean {m:.3f}, {b_ms / m:.3f} of the bound")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    print(vs.card())
 
 
 if __name__ == "__main__":

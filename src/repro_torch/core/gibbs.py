@@ -13,7 +13,7 @@ performs, per entity in order:
      added, come from ``kernels/ops.gathered_gram_and_rhs`` (one CUDA
      kernel a block on the card, which gathers in its loads); probit
      noise first draws its latents around the predictions at every
-     padded slot (``kernels/ops.gathered_sddmm``).  A fully observed
+     padded slot (``kernels/ops.gathered_sddmm_padded``).  A fully observed
      dense block adds one (K, K) Gram shared by all rows, a masked one
      a per-row Gram.  Then batched Cholesky and triangular solves (one
      Cholesky and matrix solves when every row shares its precision)
@@ -175,12 +175,6 @@ def multi_chain_step(model: ModelDef, data: MFData, stacked: MFState
 # per-block contributions to an entity's conditional
 # ---------------------------------------------------------------------------
 
-def _slot_rows(R: int, T: int, device) -> torch.Tensor:
-    """(R * T,) int32: the row of each slot of a (R, T) padded layout."""
-    return torch.arange(R, dtype=torch.int32,
-                        device=device).repeat_interleave(T)
-
-
 def _sparse_contrib(mat: SparseMatrix, as_row: bool, fixed: torch.Tensor,
                     noise, nstate, key, acc=None, lam=None, u_cur=None):
     """alpha-weighted (gram, rhs) of one sparse block for one entity,
@@ -192,10 +186,7 @@ def _sparse_contrib(mat: SparseMatrix, as_row: bool, fixed: torch.Tensor,
     padded = mat.rows if as_row else mat.cols
     pred = None
     if isinstance(noise, ProbitNoise):
-        R, T = padded.idx.shape
-        pred = ops.gathered_sddmm(
-            u_cur, fixed, _slot_rows(R, T, fixed.device),
-            padded.idx.reshape(-1)).reshape(R, T)
+        pred = ops.gathered_sddmm_padded(u_cur, fixed, padded.idx)
     vals, alpha = noise.augment(key, nstate, pred, padded.val, padded.mask)
     return ops.gathered_gram_and_rhs(fixed, padded.idx, vals, padded.mask,
                                      alpha, acc=acc, lam=lam)

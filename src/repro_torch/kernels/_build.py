@@ -40,6 +40,8 @@ _SIGNATURES = {
     "sddmm": {"sddmm_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
               + [ctypes.c_int, ctypes.c_void_p],
               "sddmm_gathered_f32": [ctypes.c_void_p] * 5
+              + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p],
+              "sddmm_padded_f32": [ctypes.c_void_p] * 4
               + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p]},
     "topk_score": {"topk_score_f32": [ctypes.c_void_p] * 7
                    + [ctypes.c_int64] * 9

@@ -11,10 +11,11 @@ kernels mask ragged edges themselves, so no padding happens here.
 ``KERNELS`` lists each kernel with its probe shapes: the ``ops.KERNELS``
 envelope of the reference (gram's probes with their dtypes; fp32 probes
 of sddmm and topk_score, whose bf16 branches are a later slice; flash's
-probes with their dtypes).  ``gathered_gram_and_rhs`` and
-``gathered_sddmm`` are the port's own entries: the sweep's gather, Gram,
-alpha and Lambda_p in one launch, and the predictions at gathered rows
-without the (E, K) copies; their probes are the port's own.
+probes with their dtypes).  ``gathered_gram_and_rhs``,
+``gathered_sddmm`` and ``gathered_sddmm_padded`` are the port's own
+entries: the sweep's gather, Gram, alpha and Lambda_p in one launch,
+and the predictions at gathered rows (or at every slot of a padded
+layout) without the (E, K) copies; their probes are the port's own.
 """
 from __future__ import annotations
 
@@ -76,6 +77,18 @@ def gathered_sddmm(U: torch.Tensor, V: torch.Tensor, i: torch.Tensor,
         return _sddmm.sddmm_gathered_cuda(U.contiguous(), V.contiguous(),
                                           i.contiguous(), j.contiguous())
     return ref.gathered_sddmm_ref(U, V, i, j)
+
+
+def gathered_sddmm_padded(u: torch.Tensor, fixed: torch.Tensor,
+                          idx: torch.Tensor) -> torch.Tensor:
+    """pred (R, T) with pred[r, t] = u[r] . fixed[idx[r, t]], row r of u
+    serving the T slots of idx[r]: ``gathered_sddmm`` at every slot of a
+    padded layout, counted under ``sddmm_gathered``; see
+    kernels/sddmm.py."""
+    if u.is_cuda:
+        return _sddmm.sddmm_padded_cuda(u.contiguous(), fixed.contiguous(),
+                                        idx.contiguous())
+    return ref.gathered_sddmm_padded_ref(u, fixed, idx)
 
 
 def topk_score(us: torch.Tensor, v: torch.Tensor, k: int, *,
@@ -170,11 +183,19 @@ KERNELS = {
              "bf16 gathered operands": ((16, 130, 32), torch.bfloat16)},
     "sddmm": {"production e4096 K128": (4096, 128),
               "uneven tail e1025 K200": (1025, 200)},
-    # the port's fused-gather entry: (E, K, rows of U, rows of V); the
-    # tail gathers 1,025 entries from 97 and 61 rows, so rows repeat
+    # the port's fused-gather entry: (E, K, rows of U, rows of V, run
+    # lengths of i); runs None: i drawn at random (the tail gathers
+    # 1,025 entries from 97 and 61 rows, so rows repeat); 64: i sorted
+    # in runs of 64, as a row-major COO with 64 entries a row; a tuple:
+    # run lengths drawn from that range, so that runs end inside the
+    # kernel's 32-entry tiles and cross from one warp's tiles to the
+    # next's
     "sddmm_gathered": {
-        "production e4096 K128": (4096, 128, 4096, 4096),
-        "uneven tail e1025 K200, repeated indices": (1025, 200, 97, 61)},
+        "production e4096 K128": (4096, 128, 4096, 4096, None),
+        "uneven tail e1025 K200, repeated indices": (1025, 200, 97, 61,
+                                                     None),
+        "sorted runs of 64 e4096 K128": (4096, 128, 64, 4096, 64),
+        "uneven runs 1-70 e4096 K33": (4096, 33, 4096, 300, (1, 70))},
     "topk_score": {
         "serving b8 s32 n4096 K32 k100": ((8, 32, 32), (32, 4096, 32), 100),
         "catalogue b4 s64 n2048 K64 k100": ((4, 64, 64), (64, 2048, 64),
@@ -192,3 +213,30 @@ KERNELS = {
             (1, 130, 2, 8), (1, 130, 1, 8), torch.bfloat16,
             dict(causal=False))},
 }
+
+
+def gathered_sddmm_probe(E: int, K: int, n_u: int, n_v: int, runs, device,
+                         seed: int = 0):
+    """The operands (U, V, i, j) of a ``KERNELS["sddmm_gathered"]``
+    probe: N(0, 1) factors, j uniform over V's rows, i uniform over U's
+    rows (``runs`` None) or sorted in runs of distinct rows whose
+    lengths are ``runs`` (an int) or drawn from the range ``runs`` (a
+    (lo, hi) pair, both included).  Drawn by torch's CPU generator from
+    ``seed``, then moved to ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    U = torch.randn(n_u, K, generator=g)
+    V = torch.randn(n_v, K, generator=g)
+    j = torch.randint(0, n_v, (E,), generator=g, dtype=torch.int32)
+    if runs is None:
+        i = torch.randint(0, n_u, (E,), generator=g, dtype=torch.int32)
+    else:
+        lo, hi = (runs, runs) if isinstance(runs, int) else runs
+        lengths = torch.randint(lo, hi + 1, (E // max(lo, 1) + 1,),
+                                generator=g)
+        n_runs = int((lengths.cumsum(0) < E).sum()) + 1
+        if n_runs > n_u:
+            raise ValueError(f"{n_runs} runs need distinct rows of U, "
+                             f"which has {n_u}")
+        rows = torch.randperm(n_u, generator=g)[:n_runs].sort().values
+        i = rows.repeat_interleave(lengths[:n_runs])[:E].to(torch.int32)
+    return tuple(x.to(device) for x in (U, V, i, j))

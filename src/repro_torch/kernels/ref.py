@@ -4,8 +4,9 @@ The counterpart of ``gram_ref``, ``sddmm_ref``, ``topk_score_ref`` and
 ``attention_ref`` in ``repro/kernels/ref.py``.  ``kernels/ops.py`` runs these on CPU
 tensors, the CPU tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
-``gathered_gram_ref`` and ``gathered_sddmm_ref`` are the plain versions
-of the port's own fused entries.  Of the reference's bf16 branches only
+``gathered_gram_ref``, ``gathered_sddmm_ref`` and
+``gathered_sddmm_padded_ref`` are the plain versions of the port's own
+fused entries.  Of the reference's bf16 branches only
 ``gram_ref``'s is ported; the others belong to the ``bf16_gather`` slice
 (ROADMAP).
 """
@@ -79,6 +80,22 @@ def gathered_sddmm_ref(U: torch.Tensor, V: torch.Tensor, i: torch.Tensor,
     program of the pipeline the fused entry replaces (``index_select`` of
     both operands, then ``sddmm_ref``)."""
     return sddmm_ref(U.index_select(0, i), V.index_select(0, j))
+
+
+def slot_rows(R: int, T: int, device) -> torch.Tensor:
+    """(R * T,) int32: the row of each slot of a (R, T) padded layout."""
+    return torch.arange(R, dtype=torch.int32,
+                        device=device).repeat_interleave(T)
+
+
+def gathered_sddmm_padded_ref(u: torch.Tensor, fixed: torch.Tensor,
+                              idx: torch.Tensor) -> torch.Tensor:
+    """pred (R, T) with pred[r, t] = u[r] . fixed[idx[r, t]]: the
+    gathered SDDMM at every slot of a padded layout, over the vector of
+    slot rows."""
+    R, T = idx.shape
+    return gathered_sddmm_ref(u, fixed, slot_rows(R, T, idx.device),
+                              idx.reshape(-1)).reshape(R, T)
 
 
 def topk_score_ref(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor,

@@ -82,6 +82,9 @@ def test_cpu_dispatch_launches_no_kernel():
     tops.gathered_sddmm(*_t(*_sddmm_inputs(5, 4)),
                         *_t(np.array([0, 4, 2], np.int32),
                             np.array([1, 1, 3], np.int32)))
+    tops.gathered_sddmm_padded(*_t(*_sddmm_inputs(5, 4)),
+                               *_t(np.array([[0, 4], [2, 2], [1, 3],
+                                             [0, 0], [4, 1]], np.int32)))
     assert tops.launch_counts() == {"gram": 0, "sddmm": 0,
                                     "sddmm_gathered": 0, "topk_score": 0,
                                     "flash": 0}
@@ -93,6 +96,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tgram.gram_cuda(*_t(*_gram_inputs(2, 3, 4)))
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         tsddmm.sddmm_cuda(*_t(*_sddmm_inputs(5, 4)))
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        tsddmm.sddmm_padded_cuda(*_t(*_sddmm_inputs(5, 4)),
+                                 *_t(np.zeros((5, 2), np.int32)))
 
 
 def test_probe_envelope_mirrors_reference():
@@ -105,7 +111,7 @@ def test_probe_envelope_mirrors_reference():
     production probe is sddmm's production shape."""
     for name, probes in tops.KERNELS.items():
         if name == "sddmm_gathered":
-            E, K, _, _ = probes["production e4096 K128"]
+            E, K = probes["production e4096 K128"][:2]
             assert (E, K) == tops.KERNELS["sddmm"]["production e4096 K128"]
             continue
         if name == "gram":

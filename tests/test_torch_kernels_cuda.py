@@ -124,15 +124,16 @@ def _gathered_inputs(R, T, K, n_fixed, empty, device, seed=0):
     return _t(fixed, idx, val, mask, device=device)
 
 
-def _first_design():
-    """scripts_dev/gram_v1.py, the kernel's first design, registered."""
+def _first_design(name="gram_v1"):
+    """scripts_dev/<name>.py, a kernel's first design, registered."""
+    import importlib
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]
                            / "scripts_dev"))
-    import gram_v1
-    gram_v1.register()
-    return gram_v1
+    module = importlib.import_module(name)
+    module.register()
+    return module
 
 
 # K = 1, 7, 33, 128 and 256 (the tiled path); T not a multiple of the
@@ -267,21 +268,36 @@ def _gathered_sddmm_inputs(E, K, n_u, n_v, device, seed=0):
     return _t(U, V, i, j, device=device)
 
 
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+# (E, K, rows of U, rows of V, run lengths of i; see ops.KERNELS): the
+# probes; E = 0; K = 1, 4, 20, 33, 128, 130 and 520 (one and several
+# blocks of columns a lane); random i; sorted runs of 64 and 1,144;
+# single-entry runs; uneven runs that end inside the 32-entry tiles
+# and cross the warps' ranges; E above the entries one wave of warps
+# takes in one tile each
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,K,n_u,n_v", [
+@pytest.mark.parametrize("E,K,n_u,n_v,runs", [
     *tops.KERNELS["sddmm_gathered"].values(),
-    (0, 128, 5, 5), (1, 1, 1, 1), (3000, 33, 7, 3000), (777, 4, 2, 3),
-    (2049, 130, 50, 40), (64 * 129, 128, 129, 8192),
-    (8_388_608 + 8_195, 20, 8192, 131072)])
+    (0, 128, 5, 5, None), (1, 1, 1, 1, None), (3000, 33, 7, 3000, None),
+    (777, 4, 2, 3, None), (2049, 130, 50, 40, None),
+    (64 * 129, 128, 129, 8192, 64), (1144 * 20, 128, 20, 4096, 1144),
+    (5000, 128, 5000, 300, 1), (3000, 4, 200, 50, (1, 70)),
+    (3000, 130, 200, 50, (1, 70)), (3000, 520, 200, 50, (1, 70)),
+    (200_000, 128, 20_000, 8192, (20, 45)),
+    (8_388_608 + 8_195, 20, 8192, 131072, None)])
 def test_gathered_sddmm_matches_plain_and_the_pipeline_bitwise(
-        cuda, E, K, n_u, n_v):
+        cuda, E, K, n_u, n_v, runs):
     """The fused-gather entry against its plain version (SDDMM_TOL) and
     bitwise against ``index_select`` x 2 + ``sddmm_f32``, the pipeline
-    it replaces: the same per-entry program over the same rows.  Uneven
-    K, repeated indices (n_u, n_v below E) and E = 0 included; E above
-    the grid's 1,048,576 blocks x 8 warps makes warps take a second
-    entry of the grid-stride loop, as probit's columns side does."""
-    U, V, i, j = _gathered_sddmm_inputs(E, K, n_u, n_v, cuda)
+    before it, and against its first design (``scripts_dev/sddmm_v1``):
+    the same per-entry program over the same rows, whatever the order
+    and the runs of i."""
+    prev = _first_design("sddmm_v1")
+    U, V, i, j = tops.gathered_sddmm_probe(E, K, n_u, n_v, runs, cuda)
     before = tsddmm.gathered_launches
     p = tops.gathered_sddmm(U, V, i, j)
     torch.cuda.synchronize()
@@ -290,7 +306,124 @@ def test_gathered_sddmm_matches_plain_and_the_pipeline_bitwise(
     torch.testing.assert_close(p, tref.gathered_sddmm_ref(U, V, i, j),
                                **SDDMM_TOL)
     two_step = tsddmm.sddmm_cuda(U.index_select(0, i), V.index_select(0, j))
-    assert torch.equal(p.view(torch.int32), two_step.view(torch.int32))
+    assert _same_bits(p, two_step)
+    assert _same_bits(p, prev.gathered(U, V, i, j))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,n_u,n_v,runs", [
+    (8_388_608 + 8_195, 131_328, 8192, 64), (8192 * 1144, 8192, 131072, 1144)])
+def test_gathered_sddmm_sweep_sized_runs_are_the_pipelines_bits(
+        cuda, E, n_u, n_v, runs):
+    """The sweeps' sizes at K = 128: runs of 64 over more entries than
+    one wave of warps takes in one tile each (the observed entries), and
+    runs of 1,144 over the 131,072-row factor (probit's columns side):
+    bitwise ``index_select`` x 2 + ``sddmm_f32`` and the first design;
+    against the plain version within SDDMM_TOL of the sum of the terms'
+    magnitudes (fp32 sums in another order; at K = 128 some entries
+    cancel to near 0, so the tolerance scales with the terms, as
+    ``chip_smoke.max_err`` does)."""
+    prev = _first_design("sddmm_v1")
+    U, V, i, j = tops.gathered_sddmm_probe(E, 128, n_u, n_v, runs, cuda)
+    p = tops.gathered_sddmm(U, V, i, j)
+    torch.cuda.synchronize()
+    ug, vg = U.index_select(0, i), V.index_select(0, j)
+    assert _same_bits(p, tsddmm.sddmm_cuda(ug, vg))
+    assert _same_bits(p, prev.gathered(U, V, i, j))
+    scale = tref.sddmm_ref(ug.abs(), vg.abs())
+    assert bool(((p - tref.sddmm_ref(ug, vg)).abs()
+                 <= SDDMM_TOL["atol"] + SDDMM_TOL["rtol"] * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,runs", [(128, 64), (33, (1, 70)), (130, 5),
+                                    (4, None)])
+def test_gathered_sddmm_reads_zero_rows_out_of_range(cuda, K, runs):
+    """Indices below 0 or past a factor's rows, alone and in whole runs
+    (on either side), give the entry 0.0f, as the first design did;
+    the other entries keep their bits."""
+    prev = _first_design("sddmm_v1")
+    E, n_u, n_v = 4000, 1000, 300
+    U, V, i, j = tops.gathered_sddmm_probe(E, K, n_u, n_v, runs, cuda)
+    g = torch.Generator().manual_seed(1)
+    bad_i = torch.rand(E, generator=g) < 0.1
+    bad_j = torch.rand(E, generator=g) < 0.1
+    i = torch.where(bad_i.to(cuda), torch.where(i % 2 == 0, -1 - i, n_u + i),
+                    i).int()
+    i[1000:1200] = n_u      # a whole run out of range
+    i[2000:2100] = -7
+    j = torch.where(bad_j.to(cuda), n_v + j, j).int()
+    p = tops.gathered_sddmm(U, V, i, j)
+    torch.cuda.synchronize()
+    out = (i < 0) | (i >= n_u) | (j < 0) | (j >= n_v)
+    assert bool(out[1000:1200].all()) and bool(out[2000:2100].all())
+    assert torch.equal(p[out], torch.zeros_like(p[out]))
+    assert not bool(torch.signbit(p[out]).any())
+    keep = ~out
+    two_step = tsddmm.sddmm_cuda(U.index_select(0, i[keep]),
+                                 V.index_select(0, j[keep]))
+    assert _same_bits(p[keep], two_step)
+    assert _same_bits(p, prev.gathered(U, V, i, j))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T,K,n", [
+    (3000, 1, 128, 500), (2048, 64, 128, 8192), (300, 1144, 128, 20_000),
+    (131, 70, 33, 100), (8192, 0, 128, 5)])
+def test_gathered_sddmm_padded_is_the_gathered_entry_bitwise(cuda, R, T, K,
+                                                             n):
+    """``ops.gathered_sddmm_padded(u, fixed, idx)``: row r of u against
+    the T slots of idx[r], counted under ``sddmm_gathered``; bitwise the
+    gathered entry, the pipeline and the first design over the vector
+    of slot rows, and its plain version at SDDMM_TOL; an idx out of
+    range reads a zero row."""
+    prev = _first_design("sddmm_v1")
+    g = torch.Generator().manual_seed(R + T)
+    u = torch.randn(R, K, generator=g).to(cuda)
+    fixed = torch.randn(n, K, generator=g).to(cuda)
+    idx = torch.randint(0, n, (R, T), generator=g, dtype=torch.int32)
+    idx[::7, ::3] = n + 5
+    idx = idx.to(cuda)
+    before = tsddmm.gathered_launches
+    p = tops.gathered_sddmm_padded(u, fixed, idx)
+    torch.cuda.synchronize()
+    assert tsddmm.gathered_launches == before + 1
+    assert p.shape == (R, T)
+    rows, flat = tref.slot_rows(R, T, cuda), idx.reshape(-1)
+    assert _same_bits(p.reshape(-1), tops.gathered_sddmm(u, fixed, rows,
+                                                         flat))
+    assert _same_bits(p.reshape(-1), prev.gathered(u, fixed, rows, flat))
+    bad = flat >= n
+    assert torch.equal(p.reshape(-1)[bad], torch.zeros_like(flat[bad],
+                                                            dtype=p.dtype))
+    ok = ~bad
+    assert _same_bits(p.reshape(-1)[ok], tsddmm.sddmm_cuda(
+        u.index_select(0, rows[ok]), fixed.index_select(0, flat[ok])))
+    safe = torch.where(idx >= n, 0, idx).int()
+    want = tref.gathered_sddmm_padded_ref(u, fixed, safe)
+    torch.testing.assert_close(p[idx < n], want[idx < n], **SDDMM_TOL)
+
+
+@pytest.mark.cuda
+def test_gathered_sddmm_padded_refuses_what_it_does_not_take(cuda):
+    u, fixed, _, _ = _gathered_sddmm_inputs(10, 8, 4, 5, cuda)
+    idx = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
+    off = torch.empty(4 * 8 + 1, device=cuda)[1:].view(4, 8)
+    off.copy_(u)
+    with pytest.raises(ValueError, match="16-byte"):
+        tsddmm.sddmm_padded_cuda(off, fixed, idx)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        tsddmm.sddmm_padded_cuda(u, fixed, idx.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        tsddmm.sddmm_padded_cuda(u, fixed.double(), idx)
+    with pytest.raises(TypeError, match="int32"):
+        tsddmm.sddmm_padded_cuda(u, fixed, idx.long())
+    with pytest.raises(ValueError, match="differ in K"):
+        tsddmm.sddmm_padded_cuda(u, fixed[:, :4].contiguous(), idx)
+    with pytest.raises(ValueError, match="a row for each"):
+        tsddmm.sddmm_padded_cuda(u, fixed, idx[:3])
+    with pytest.raises(ValueError, match="2-d"):
+        tsddmm.sddmm_padded_cuda(u, fixed, idx.reshape(-1))
 
 
 @pytest.mark.cuda

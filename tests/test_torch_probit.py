@@ -17,7 +17,14 @@
   golden ``probit`` chain and a probit session at the golden-chain
   tolerance rtol 1e-3 / atol 1e-5;
 * ``ops.gathered_sddmm`` on the CPU: bitwise ``index_select`` +
-  ``sddmm_ref``, the pipeline it replaces.
+  ``sddmm_ref``, the pipeline it replaces; ``ops.gathered_sddmm_padded``
+  (probit's padded predictions) bitwise that pipeline over the slot
+  rows, and against the reference's padded prediction (``einsum`` over
+  the gathered slab) and its ``ops.sddmm`` (jnp oracle and Pallas in
+  interpret mode) at rtol 1e-5 of the sum of the terms' magnitudes plus
+  atol 1e-5: fp32 sums in another order;
+* the probe operands of ``ops.KERNELS["sddmm_gathered"]``: sorted runs
+  of the asked lengths over distinct rows.
 
 Every JAX call runs inside ``jax.threefry_partitionable(False)``.
 """
@@ -33,6 +40,7 @@ import torch
 import repro.core as jc
 from repro.core import gibbs as jgibbs
 from repro.core import noise as jnoise
+from repro.kernels import ops as jops
 from repro_torch import random as trandom
 from repro_torch import core as tc
 from repro_torch.core import gibbs as tgibbs
@@ -184,6 +192,59 @@ def test_gathered_sddmm_cpu_is_the_pipeline_bitwise(E, K, n_u, n_v):
     want = tref.sddmm_ref(U.index_select(0, i), V.index_select(0, j))
     assert got.shape == (E,)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R,T,K,n", [(5, 1, 33, 9), (7, 64, 128, 300),
+                                     (3, 1144, 16, 100), (4, 0, 8, 3)])
+def test_gathered_sddmm_padded_cpu_matches_jax_and_the_pipeline(R, T, K, n):
+    rng = np.random.default_rng(R * T + K)
+    u = rng.normal(size=(R, K)).astype(np.float32)
+    fixed = rng.normal(size=(n, K)).astype(np.float32)
+    idx = rng.integers(0, n, (R, T)).astype(np.int32)
+    tu, tf, ti = (torch.from_numpy(a) for a in (u, fixed, idx))
+    got = tops.gathered_sddmm_padded(tu, tf, ti)
+    assert got.shape == (R, T)
+    rows = tref.slot_rows(R, T, "cpu")
+    assert torch.equal(rows, torch.from_numpy(
+        np.repeat(np.arange(R, dtype=np.int32), T)))
+    want = tref.sddmm_ref(tu.index_select(0, rows),
+                          tf.index_select(0, ti.reshape(-1))).reshape(R, T)
+    assert torch.equal(got, want)
+    scale = np.einsum("rtk,rk->rt", np.abs(fixed)[idx], np.abs(u))
+    i, j = rows.numpy(), idx.reshape(-1)
+    with jax.threefry_partitionable(False):
+        refs = [jnp.einsum("rtk,rk->rt", jnp.asarray(fixed)[idx],
+                           jnp.asarray(u))]
+        if R * T:
+            refs += [jnp.reshape(jops.sddmm(
+                jnp.asarray(u)[i], jnp.asarray(fixed)[j],
+                use_pallas=pallas, interpret=True), (R, T))
+                for pallas in (False, True)]
+    for w in refs:
+        assert np.all(np.abs(got.numpy() - np.asarray(w))
+                      <= 1e-5 + 1e-5 * scale)
+
+
+@pytest.mark.parametrize("label", list(tops.KERNELS["sddmm_gathered"]))
+def test_gathered_sddmm_probe_operands(label):
+    E, K, n_u, n_v, runs = tops.KERNELS["sddmm_gathered"][label]
+    U, V, i, j = tops.gathered_sddmm_probe(E, K, n_u, n_v, runs, "cpu")
+    assert U.shape == (n_u, K) and V.shape == (n_v, K)
+    assert i.shape == j.shape == (E,)
+    assert i.dtype == j.dtype == torch.int32
+    assert 0 <= int(i.min()) and int(i.max()) < n_u
+    assert 0 <= int(j.min()) and int(j.max()) < n_v
+    rows, lengths = torch.unique_consecutive(i, return_counts=True)
+    if runs is not None:
+        lo, hi = (runs, runs) if isinstance(runs, int) else runs
+        assert bool((rows[1:] > rows[:-1]).all())
+        assert lo <= int(lengths[:-1].min()) and int(lengths.max()) <= hi
+        if lo != hi:    # runs that end inside the kernel's 32-entry tiles
+            ends = lengths.cumsum(0)[:-1] % 32
+            assert bool((ends != 0).any())
+    got = tops.gathered_sddmm(U, V, i, j)
+    assert torch.equal(got, tref.sddmm_ref(U.index_select(0, i),
+                                           V.index_select(0, j)))
 
 
 def _probit_models(n, m, K):
