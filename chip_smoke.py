@@ -22,7 +22,9 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    entries also in random order), with the bytes the design's model
    says it reads an entry over the measured time;
 3. golden chains: replays the ``gaussian``, ``probit`` and ``gfa``
-   chains of ``results/golden_chains.json`` on the card;
+   chains of ``results/golden_chains.json`` on the card, through the
+   engine and through the session wrappers (``TrainSession``,
+   ``GFASession(zero_init_loadings=False)``), bitwise each other;
 4. slice: runs ``ModelBuilder(num_latent=128)`` -> ``session(...).run()``
    on a ChEMBL-shaped matrix (131,072 compounds x 8,192 proteins, 64
    proteins per compound, a planted rank-16 signal plus 0.3 noise, and
@@ -63,7 +65,14 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     spike-and-slab loadings, K = 32;
 12. chains: two chains of the probit model at 16,384 compounds, each
     bitwise the single-chain run with its key;
-13. lm: holds the ``flash`` kernels against their plain version at the
+13. sessions: the slice's data through ``TrainSession(num_latent=128,
+    chains=2)`` into a two-chain store with a ``Recorder`` (each chain
+    bitwise its single-chain run), the same run cut after one sample
+    and resumed (bitwise), the store reloaded by ``PredictSession``, 16
+    requests through ``RecommendServer`` from the pooled store, the
+    trace's sweep spans and a recorder-off run (bitwise), and
+    ``GFASession`` on ``gfa_views``' data for 1 + 1 sweeps;
+14. lm: holds the ``flash`` kernels against their plain version at the
    reference's probes, ragged cases, GQA groups of 3 and 1 at hd 64
    and the prefill shape, each through the design ``flash.design``
    routes it to (``flash_sm90`` for bf16 at hd 64 and 128), and times
@@ -685,24 +694,33 @@ def gram_main_path(train, U, V, gen, errs):
             "previous_source": PREVIOUS_GRAM}
 
 
+def golden_views(seed: int):
+    """The golden ``gfa`` chain's two dense views (48 x 16 and 48 x 12),
+    a planted K = 4 product plus 0.1 noise, from numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    Z = rng.normal(size=(48, 4)).astype(np.float32)
+    views = []
+    for D in (16, 12):
+        W = rng.normal(size=(D, 4)).astype(np.float32)
+        views.append((Z @ W.T + 0.1 * rng.normal(size=(48, D)))
+                     .astype(np.float32))
+    return views
+
+
 def golden_model(name: str, seed: int, device):
     """(model, data) of ``results/golden_chains.json``'s chain ``name``,
     built as ``tests/test_golden_chain.py`` builds it: K = 4; 48 x 32
     sparse with adaptive (``gaussian``) or probit (``probit``) noise, or
     FixedNormal samples against two fully observed dense views with
     spike-and-slab loadings (``gfa``)."""
-    import numpy as np
     from repro_torch import core as tc
     K = 4
     if name == "gfa":
-        rng = np.random.default_rng(seed)
-        N, dims = 48, (16, 12)
-        Z = rng.normal(size=(N, K)).astype(np.float32)
-        ents = [tc.EntityDef("samples", N, tc.FixedNormalPrior(K))]
+        ents = [tc.EntityDef("samples", 48, tc.FixedNormalPrior(K))]
         blocks, payloads = [], []
-        for m, D in enumerate(dims):
-            W = rng.normal(size=(D, K)).astype(np.float32)
-            X = (Z @ W.T + 0.1 * rng.normal(size=(N, D))).astype(np.float32)
+        for m, X in enumerate(golden_views(seed)):
+            D = X.shape[1]
             ents.append(tc.EntityDef(f"view{m}", D, tc.SpikeAndSlabPrior(K)))
             blocks.append(tc.BlockDef(0, m + 1, tc.AdaptiveGaussian(),
                                       sparse=False))
@@ -720,9 +738,38 @@ def golden_model(name: str, seed: int, device):
     return model, tc.MFData((mat,), (None, None))
 
 
+def golden_wrapper_chain(name: str, seed: int, sweeps: int):
+    """The golden chain ``name`` through the session wrappers, as the
+    reference's ``test_wrappers_replay_golden_chain`` runs it:
+    ``TrainSession`` for ``gaussian``/``probit``,
+    ``GFASession(zero_init_loadings=False)`` for ``gfa``."""
+    from repro_torch import core as tc
+    got = {"rmse_train": [], "alpha": []}
+
+    def trace(info):
+        got["rmse_train"].append(float(info.metrics["rmse_train_0"]))
+        got["alpha"].append(float(info.metrics["alpha_0"]))
+
+    if name == "gfa":
+        tc.GFASession(golden_views(seed), num_latent=4, burnin=sweeps,
+                      nsamples=0, seed=seed, zero_init_loadings=False,
+                      callbacks=[trace]).run()
+        return got
+    binary = name == "probit"
+    mat, _, _ = tc.random_sparse(seed, (48, 32), 0.3, rank=3, binary=binary,
+                                 device="cuda")
+    s = tc.TrainSession(num_latent=4, burnin=sweeps, nsamples=0, seed=seed,
+                        callbacks=[trace])
+    s.add_train_and_test(mat, noise=tc.ProbitNoise() if binary
+                         else tc.AdaptiveGaussian())
+    s.run()
+    return got
+
+
 def phase_golden():
     """The golden ``gaussian``, ``probit`` and ``gfa`` chains (seed 11,
-    3 sweeps) on the card, at the fixture tolerance."""
+    3 sweeps) on the card, at the fixture tolerance; then each through
+    its session wrapper, bitwise the engine's chain."""
     import numpy as np
     from repro_torch.core import gibbs_step, init_state
     golden = json.loads(GOLDEN.read_text())
@@ -735,6 +782,10 @@ def phase_golden():
             state, m = gibbs_step(model, data, state)
             got["rmse_train"].append(float(m["rmse_train_0"]))
             got["alpha"].append(float(m["alpha_0"]))
+        wrapped = golden_wrapper_chain(name, seed, sweeps)
+        if wrapped != got:
+            raise AssertionError(f"golden {name}: the wrapper's chain "
+                                 f"{wrapped} is not the engine's {got}")
         want = golden["chains"][name]
         for key in ("rmse_train", "alpha"):
             np.testing.assert_allclose(got[key], want[key], rtol=1e-3,
@@ -745,7 +796,8 @@ def phase_golden():
         print(f"golden {name} chain on cuda: rmse_train "
               f"{got['rmse_train']}, alpha {got['alpha']} (fixture {want});"
               f" largest relative difference {rel:.2e}; rtol 1e-3 atol "
-              "1e-5")
+              f"1e-5; the {'GFASession' if name == 'gfa' else 'TrainSession'}"
+              " replay bitwise the same")
 
 
 def run_timed(sess):
@@ -1028,7 +1080,7 @@ def write_store(directory, n_users: int, n_items: int, nsamples: int,
     sess = b.session(burnin=0, nsamples=nsamples, seed=seed, save_freq=1,
                      save_dir=directory)
     state = init_state(sess.model, sess.data, seed)
-    saver = sess._make_saver()
+    saver, = sess._make_savers()
     gen = torch.Generator(device=device).manual_seed(seed)
     for s in range(nsamples):
         factors = tuple(torch.randn(n, 128, device=device, generator=gen)
@@ -1615,6 +1667,26 @@ def phase_dense(seed: int):
     return med
 
 
+def gfa_views(seed: int):
+    """``gfa_views``' three dense views on the card and the number of
+    components each view's planted loadings use: a K = 32 product of
+    N(0, 1) samples and loadings that use 2 of every 3 components, plus
+    0.1 noise."""
+    import torch
+    N, dims, K = GFA
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    Z = torch.randn(N, K, device="cuda", generator=g)
+    views, planted = [], []
+    for m, D in enumerate(dims):
+        W = torch.randn(D, K, device="cuda", generator=g)
+        W[:, torch.arange(K, device="cuda") % 3 == m] = 0.0
+        planted.append(int((W != 0).any(0).sum()))
+        X = Z @ W.T
+        X += 0.1 * torch.randn(X.shape, device="cuda", generator=g)
+        views.append(X)
+    return views, planted
+
+
 def phase_gfa(seed: int):
     """``gfa_views``: FixedNormal samples against three fully observed
     views with spike-and-slab loadings, K = 32; each view's planted
@@ -1623,21 +1695,13 @@ def phase_gfa(seed: int):
     from repro_torch.core import AdaptiveGaussian, ModelBuilder
     from repro_torch.kernels import ops
     N, dims, K = GFA
-    g = torch.Generator(device="cuda").manual_seed(seed + 13)
-    Z = torch.randn(N, K, device="cuda", generator=g)
+    views, planted = gfa_views(seed)
     b = ModelBuilder(num_latent=K)
     b.add_entity("samples", N, prior="fixednormal")
-    planted = []
-    for m, D in enumerate(dims):
-        W = torch.randn(D, K, device="cuda", generator=g)
-        W[:, torch.arange(K, device="cuda") % 3 == m] = 0.0
-        planted.append(int((W != 0).any(0).sum()))
-        X = Z @ W.T
-        X += 0.1 * torch.randn(X.shape, device="cuda", generator=g)
+    for m, (D, X) in enumerate(zip(dims, views)):
         b.add_entity(f"view{m}", D, prior="spikeandslab")
         b.add_block("samples", f"view{m}", X, noise=AdaptiveGaussian())
-        del X
-    del Z
+    del views
     ops.reset_launch_counts()
     sess = b.session(burnin=GFA_SWEEPS, nsamples=0, seed=seed)
     res, ms, peak = run_timed(sess)
@@ -1654,6 +1718,17 @@ def phase_gfa(seed: int):
     del res, b, sess
     torch.cuda.empty_cache()
     return med
+
+
+def same_state(a, b) -> bool:
+    """Every tensor of two ``MFState``s bitwise equal."""
+    import torch
+    return (torch.equal(a.key, b.key) and a.step == b.step
+            and all(torch.equal(x, y) for x, y in zip(a.factors, b.factors))
+            and all(torch.equal(ha[k], hb[k])
+                    for ha, hb in zip(a.hypers, b.hypers) for k in ha)
+            and all(torch.equal(na[k], nb[k])
+                    for na, nb in zip(a.noises, b.noises) for k in na))
 
 
 def phase_chains(seed: int):
@@ -1690,20 +1765,221 @@ def phase_chains(seed: int):
                 if not torch.equal(traces[s_][name][c], v):
                     raise AssertionError(f"chains: chain {c} sweep {s_} "
                                          f"{name} differs")
-        mine = unstack_state(stacked, c)
-        same = torch.equal(mine.key, st.key) and all(
-            torch.equal(a, b_) for a, b_ in zip(mine.factors, st.factors))
-        same = same and all(torch.equal(ha[k], hb[k])
-                            for ha, hb in zip(mine.hypers, st.hypers)
-                            for k in ha)
-        if not same:
+        if not same_state(unstack_state(stacked, c), st):
             raise AssertionError(f"chains: chain {c} is not the single-"
                                  "chain run with its key")
     print(f"chains: {C} chains of the probit model at {n} compounds x "
           f"{train.n_cols} proteins, K=128, {sweeps} sweeps through "
           f"multi_chain_step in {multi_s:.2f} s; each chain bitwise the "
-          "single-chain run keyed chain_keys(seed, 2)[c] (factors, hypers,"
-          " metrics)")
+          "single-chain run keyed chain_keys(seed, 2)[c] (every state "
+          "tensor, metrics)")
+
+
+SESSIONS = (2, 2, 2)          # chains, burn-in, posterior samples
+SESSIONS_REQUESTS = 16
+GFA_SESSION_SWEEPS = (1, 1)
+
+
+def phase_sessions(seed: int):
+    """The session layer at the slice's widths (131,072 compounds x 8,192
+    proteins, 64 a compound, K = 128) through ``TrainSession``: (a) two
+    chains into a two-chain store with a recorder, each chain bitwise the
+    single-chain run with its key; (b) the same run cut after one sample
+    and resumed, bitwise (a); (c) the store reloaded by
+    ``PredictSession``; (d) 16 requests through ``RecommendServer``, each
+    bitwise a sequential ``recommend``; (e) one ``sweep`` span a sweep,
+    and the chains bitwise a recorder-off run's; (f) ``GFASession`` on
+    ``gfa_views``' data."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import (AdaptiveGaussian, GFASession,
+                                  PredictSession, TrainSession, chain_keys,
+                                  gibbs_step, init_state, unstack_state)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RecommendServer
+    from repro_torch.obs import Recorder, percentile_summary
+
+    C, burnin, nsamples = SESSIONS
+    sweeps = burnin + nsamples
+    train, test = slice_data(COMPOUNDS, seed, "cuda")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sessions_"))
+
+    def session(nsamples, save_dir=None, recorder=None):
+        s = TrainSession(num_latent=128, burnin=burnin, nsamples=nsamples,
+                         seed=seed, chains=C, save_freq=1 if save_dir else 0,
+                         save_dir=None if save_dir is None else str(save_dir),
+                         recorder=recorder)
+        s.add_train_and_test(train, test, noise=AdaptiveGaussian())
+        return s
+
+    try:
+        def timed(sess):
+            """(result, seconds, ms of each sweep; the first holds
+            init_chain_states)."""
+            stamps = []
+
+            def stamp(info):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            sess.callbacks = tuple(sess.callbacks) + (stamp,)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sess.run()
+            edges = [t0] + stamps
+            return (out, time.perf_counter() - t0,
+                    [(b - a) * 1e3 for a, b in zip(edges, edges[1:])])
+
+        # (a) two chains into a store, traced
+        rec = Recorder()
+        ops.reset_launch_counts()
+        res, store_s, sweep_ms = timed(session(nsamples, root / "a", rec))
+        counts = ops.launch_counts()
+        check_launches("sessions (a)", counts,
+                       {"gram": 2 * C * sweeps, "sddmm": C * nsamples,
+                        "sddmm_gathered": C * sweeps})
+        check_finite("sessions (a)", res)
+        if res.n_chains != C or len(res.chain_blocks) != C or                 res.predictions is None or                 not np.isfinite(res.predictions).all():
+            raise AssertionError("sessions (a): not a pooled two-chain "
+                                 "result")
+        host_med = statistics.median(sweep_ms[1:])
+        model, data = session(nsamples)._build()
+        keys = chain_keys(seed, C, "cuda")
+        for c in range(C):
+            st = init_state(model, data, key=keys[c])
+            for _ in range(sweeps):
+                st, _ = gibbs_step(model, data, st)
+            if not same_state(unstack_state(res.state, c), st):
+                raise AssertionError(f"sessions (a): chain {c} is not the "
+                                     "single-chain run keyed "
+                                     f"chain_keys(seed, {C})[{c}]")
+        del model, data, st
+        on_disk = sum(f.stat().st_size for f in (root / "a").rglob("*")
+                      if f.is_file())
+        print(f"sessions (a): TrainSession(num_latent=128, chains={C}, "
+              f"burnin={burnin}, nsamples={nsamples}, save_freq=1) in "
+              f"{store_s:.2f} s, {on_disk / 1e9:.3f} GB on disk; sweeps "
+              + ", ".join(f"{m:.1f}" for m in sweep_ms)
+              + f" ms for {C} chains (the first with init_chain_states); "
+              f"rmse_test {res.rmse_test:.6f} pooled over {C} x {nsamples}"
+              f" draws; launches {counts}; each chain bitwise the "
+              "single-chain run with its key")
+
+        # (b) cut after one sample, resumed to two
+        session(1, root / "b").run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = session(nsamples, root / "b").run(resume=True)
+        resume_s = time.perf_counter() - t0
+        if resumed.resumed_from != sweeps - 1:
+            raise AssertionError(f"sessions (b): resumed_from "
+                                 f"{resumed.resumed_from}, want {sweeps - 1}")
+        for c in range(C):
+            if not same_state(unstack_state(resumed.state, c),
+                              unstack_state(res.state, c)):
+                raise AssertionError(f"sessions (b): resumed chain {c} is "
+                                     "not the uninterrupted chain")
+        print(f"sessions (b): run(resume=True) from sweep "
+              f"{resumed.resumed_from} in {resume_s:.2f} s (the restore "
+              f"of {C} chains and {sweeps - resumed.resumed_from} sweep); "
+              "both chains bitwise (a)'s")
+        del resumed
+
+        # (c) reload the two-chain store
+        if not (root / "a" / "diagnostics.json").is_file():
+            raise AssertionError("sessions (c): no diagnostics.json")
+        sess = PredictSession(str(root / "a"), cache_bytes=SERVE_CACHE_BYTES)
+        t0 = time.perf_counter()
+        pred = sess.predict(test[0], test[1])
+        reload_s = time.perf_counter() - t0
+        np.testing.assert_allclose(pred, res.predictions, **RELOAD_TOL,
+                                   err_msg="sessions (c): reload vs session")
+        if sess.n_chains != C or sess.num_samples != C * nsamples:
+            raise AssertionError(f"sessions (c): {sess.n_chains} chains, "
+                                 f"{sess.num_samples} samples on disk")
+        print(f"sessions (c): PredictSession over the {C}-chain store, "
+              f"{sess.num_samples} pooled samples, predict at {pred.size} "
+              f"entries in {reload_s:.2f} s; max |diff| vs the pooled "
+              f"in-session mean {np.abs(pred - res.predictions).max():.3e}"
+              f" ({RELOAD_TOL}); diagnostics.json written")
+
+        # (d) serve from the pooled store
+        rng = np.random.default_rng(seed + 2)
+        users = rng.choice(train.n_rows, SESSIONS_REQUESTS, replace=False)
+        excl = observed_items(train.rows, users)
+        srv = RecommendServer(sess, slots=SERVE_SLOTS, k=SERVE_K,
+                              block=("rows", "cols"))
+        ops.reset_launch_counts()
+        reqs = {srv.submit(user=int(u), exclude=e): (int(u), e)
+                for u, e in zip(users, excl)}
+        done = {r["id"]: r for r in srv.run()}
+        served = ops.launch_counts()["topk_score"]
+        if not served:
+            raise AssertionError("sessions (d): no topk_score launch")
+        for rid, (u, e) in reqs.items():
+            seq = sess.recommend(user=u, k=SERVE_K,
+                                 block=("rows", "cols"), exclude=[e])
+            r = done[rid]
+            for key in ("ids", "mean", "std"):
+                if not same_bits(r[key], getattr(seq, key)[0]):
+                    raise AssertionError(f"sessions (d): request {rid} "
+                                         f"{key} differs from recommend")
+            if (r["ids"] < 0).any() or np.isin(r["ids"], e).any():
+                raise AssertionError(f"sessions (d): bad answer {rid}")
+        print(f"sessions (d): {SESSIONS_REQUESTS} requests through "
+              f"RecommendServer ({SERVE_SLOTS} slots, k={SERVE_K}) from the "
+              f"pooled store in {served} topk_score launches, each bitwise "
+              "a sequential recommend")
+        del sess, srv
+
+        # (e) the trace, and the chains without a recorder
+        spans = [e for e in rec.trace()["traceEvents"]
+                 if e["name"] == "sweep"]
+        if [e["args"]["sweep"] for e in spans] != list(range(sweeps)):
+            raise AssertionError(f"sessions (e): sweep spans {spans}")
+        p50 = percentile_summary(rec.histogram("session.sweep_s"))["p50"]
+        off, _, off_ms = timed(session(nsamples,
+                                       recorder=Recorder(enabled=False)))
+        for c in range(C):
+            if not same_state(unstack_state(off.state, c),
+                              unstack_state(res.state, c)):
+                raise AssertionError(f"sessions (e): chain {c} differs "
+                                     "with the recorder off")
+        rhat = spans[-1]["args"].get("rhat_rmse_train_0")
+        print(f"sessions (e): {len(spans)} sweep spans, one a sweep; "
+              f"session.sweep_s p50 {p50 * 1e3:.1f} ms (histogram bucket "
+              f"interpolation) beside the host median {host_med:.1f} ms "
+              f"after the first sweep; last span's rhat_rmse_train_0 "
+              f"{rhat}; with the recorder off both chains are bitwise the "
+              "same (that run, without a store: sweeps "
+              + ", ".join(f"{m:.1f}" for m in off_ms) + " ms, median after "
+              f"the first {statistics.median(off_ms[1:]):.1f} ms)")
+        del res, off, train, test
+        torch.cuda.empty_cache()
+
+        # (f) GFASession at gfa_views' widths
+        N, dims, K = GFA
+        views, _ = gfa_views(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = GFASession(views, num_latent=K, burnin=GFA_SESSION_SWEEPS[0],
+                       nsamples=GFA_SESSION_SWEEPS[1], seed=seed).run()
+        gfa_s = time.perf_counter() - t0
+        if g["Z"].shape != (N, K) or not np.isfinite(g["Z"]).all():
+            raise AssertionError(f"sessions (f): Z {g['Z'].shape}")
+        for W, D in zip(g["W"], dims):
+            if W.shape != (D, K) or not np.isfinite(W).all():
+                raise AssertionError(f"sessions (f): W {W.shape}")
+        print(f"sessions (f): GFASession {N} samples x views {dims}, K={K},"
+              f" {sum(GFA_SESSION_SWEEPS)} sweeps in {gfa_s:.2f} s; Z "
+              f"{g['Z'].shape} and W {[w.shape for w in g['W']]} finite; "
+              f"rmse_train (view 0) {[round(v, 6) for v in g['rmse_train'][0]]}")
+        del g, views
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # the LM slice: Qwen3-4B at full width and depth, random weights
@@ -2201,6 +2477,9 @@ def main(argv=None) -> int:
     print("== chains: two chains, each bitwise its single-chain run")
     phase_chains(args.seed)
     torch.cuda.empty_cache()
+    print("== sessions: two chains, store, resume, reload, serve, trace, "
+          "GFASession")
+    phase_sessions(args.seed)
     print("== lm: flash, Qwen3-4B forward, generate, BatchedServer")
     flash = phase_lm(args.seed, phase_flash(gen))
 

@@ -96,9 +96,9 @@ def _leaf_like(t: Any, arr: np.ndarray, device) -> Any:
         raise ValueError(f"shape mismatch {tuple(t.shape)} vs {arr.shape}")
     if isinstance(t, torch.Tensor):
         want = torch.empty((), dtype=t.dtype).numpy().dtype
-        return torch.from_numpy(np.ascontiguousarray(
-            arr.astype(want, copy=False))).to(
-                t.device if device is None else device)
+        # np.ascontiguousarray would give a 0-d leaf a (1,) shape
+        return torch.from_numpy(np.array(arr, dtype=want, order="C")).to(
+            t.device if device is None else device)
     if isinstance(t, np.ndarray):
         return arr.astype(t.dtype, copy=False)
     if isinstance(t, bool):

@@ -1,8 +1,9 @@
-"""SMURFF core in PyTorch: the single-device Gibbs sweep.
+"""SMURFF core in PyTorch: the single-device Gibbs sweep and sessions.
 
 Public API (the slice of ``repro.core`` ported so far):
 
-    ModelBuilder, Session, TrainSession       -- compose and run a chain
+    ModelBuilder, Session, TrainSession,
+    GFASession, smurff, resolve_chains        -- compose and run chains
     PredictSession, PosteriorCache, RecResult -- serve a saved store
     NormalPrior, FixedNormalPrior, MacauPrior,
     SpikeAndSlabPrior                         -- priors
@@ -23,8 +24,9 @@ from .predict import (PosteriorCache, PredictAccumulator, PredictSession,
                       RecResult, TestSet, make_test_set, predict_one, rmse)
 from .priors import (FixedNormalPrior, MacauPrior, NormalPrior,
                      SpikeAndSlabPrior)
-from .session import (BlockResult, ModelBuilder, Session, SessionResult,
-                      SweepInfo, TrainSession)
+from .session import (BlockResult, GFASession, ModelBuilder, Session,
+                      SessionResult, SweepInfo, TrainSession, resolve_chains,
+                      smurff)
 from .sparse import (PaddedRows, SparseMatrix, from_coo, from_dense,
                      random_sparse)
 
@@ -37,8 +39,9 @@ __all__ = [
     "PosteriorCache", "PredictAccumulator", "PredictSession", "RecResult",
     "TestSet", "make_test_set", "predict_one", "rmse",
     "FixedNormalPrior", "MacauPrior", "NormalPrior", "SpikeAndSlabPrior",
-    "BlockResult", "ModelBuilder", "Session", "SessionResult",
-    "SweepInfo", "TrainSession",
+    "BlockResult", "GFASession", "ModelBuilder", "Session",
+    "SessionResult", "SweepInfo", "TrainSession", "resolve_chains",
+    "smurff",
     "PaddedRows", "SparseMatrix", "from_coo", "from_dense",
     "random_sparse",
 ]

@@ -109,6 +109,12 @@ class PredictAccumulator:
         m = self.mean
         return torch.clamp_min(self._sum2 / max(self.n, 1) - m * m, 0.0)
 
+    @property
+    def std(self) -> torch.Tensor:
+        """Posterior standard deviation of each prediction, sqrt(var):
+        the uncertainty the serving layer reports beside every score."""
+        return torch.sqrt(self.var)
+
     def rmse(self) -> float:
         return float(rmse(self.mean, self.test.v))
 

@@ -1,9 +1,10 @@
-"""Session API: compose a model, run one Gibbs chain.
+"""Session API: compose a model, run one Gibbs chain or several.
 
 The counterpart of ``repro/core/session.py``: ``ModelBuilder``,
-``Session``, ``SessionResult``/``BlockResult`` and ``TrainSession``, for
-one chain of any entity/block graph -- Normal, FixedNormal, Macau (side
-information) and spike-and-slab priors, sparse and dense blocks,
+``Session``, ``SessionResult``/``BlockResult``, ``SweepInfo``,
+``resolve_chains`` and the wrappers ``TrainSession``, ``GFASession`` and
+``smurff()``, for any entity/block graph -- Normal, FixedNormal, Macau
+(side information) and spike-and-slab priors, sparse and dense blocks,
 Fixed/Adaptive Gaussian and probit noise:
 
     b = ModelBuilder(num_latent=128)            # device="cuda" implied
@@ -11,19 +12,34 @@ Fixed/Adaptive Gaussian and probit noise:
     b.add_entity("protein", n_proteins)
     b.add_block("compound", "protein", train, test=(i, j, v),
                 noise=AdaptiveGaussian())
-    result = b.session(burnin=4, nsamples=2, seed=0).run()
+    result = b.session(burnin=4, nsamples=2, seed=0, chains=2).run()
 
-``save_freq=k`` with ``save_dir`` streams every k-th post-burnin sample
-to disk in the reference's store layout (``model.json`` plus
-``samples/step_<sweep>/``), and the run's split-R-hat and bulk-ESS go
-to ``diagnostics.json``; ``PredictSession`` serves such a store.
+    smurff(train, test=(i, j, v), num_latent=16)          # one call
+    GFASession([X1, X2], num_latent=8).run()["W"]         # dense views
 
-The options not ported yet (``chains > 1``, ``mesh``/``pipeline``,
-``resume``) raise a ValueError that names what the port supports;
-ROADMAP.md queues them.  Errors the two packages share carry the
-reference's messages.  Macau's side^T side is computed once, when the
-builder makes the data (``gibbs.with_side_grams``), where the reference
-recomputes it each sweep.
+``chains=C`` runs C chains, one after the other
+(``gibbs.multi_chain_step``): chain c is bitwise the single-chain run
+keyed ``gibbs.chain_keys(seed, C)[c]``, so chain 0 is the ``chains=1``
+run.  ``None`` defers to ``REPRO_CHAINS``.  ``save_freq=k`` with
+``save_dir`` streams every k-th post-burnin sample to disk in the
+reference's store layout (``model.json`` plus ``samples/step_<sweep>/``,
+and for C > 1 one such store a chain under ``chain_<c>/``), and the
+run's split-R-hat and bulk-ESS go to ``diagnostics.json``;
+``PredictSession`` serves such a store and ``run(resume=True)``
+continues it from its last complete sample.
+
+``recorder=`` (or ``REPRO_OBS=1``) records a ``session/compile`` span
+around the kernels' build and one ``sweep`` span a sweep, fenced with
+``synchronize`` only while the recorder is enabled, and exports them to
+``REPRO_OBS_DIR`` or ``save_dir/obs``.  The chain is the same bits with
+the recorder on or off.
+
+The distributed sweep (``mesh=``, ``pipeline=``, ``chain_axis=``) is
+not ported yet and raises a ValueError naming ROADMAP.md item A8.
+Errors the two packages share carry the reference's messages.  Macau's
+side^T side is computed once, when the builder makes the data
+(``gibbs.with_side_grams``), where the reference recomputes it each
+sweep.
 
 Where the reference runs a discarded warm-up sweep to split jit
 compilation from sweep time, the port has nothing to compile but its
@@ -34,7 +50,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple, Union)
 
@@ -42,21 +57,36 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device, synchronize
+from ..obs import clock, resolve_recorder
 from .blocks import BlockDef, DenseBlock, EntityDef, ModelDef, dense_block
-from .diagnostics import Diagnostics, compute_diagnostics, save_diagnostics
-from .gibbs import MFData, MFState, gibbs_step, init_state, with_side_grams
-from .noise import FixedGaussian, ProbitNoise
+from .diagnostics import (Diagnostics, compute_diagnostics,
+                          save_diagnostics, split_rhat)
+from .gibbs import (MFData, MFState, gibbs_step, init_chain_states,
+                    init_state, multi_chain_step, stack_states,
+                    unstack_state, with_side_grams)
+from .noise import AdaptiveGaussian, FixedGaussian, ProbitNoise
 from .predict import PredictAccumulator, TestSet, make_test_set
 from .priors import (FixedNormalPrior, MacauPrior, NormalPrior,
                      SpikeAndSlabPrior)
 from .sparse import SparseMatrix
 
-_SUPPORTED = ("the port runs one chain on one card; see ROADMAP.md, "
-              "queue A, for what is still to be ported")
+_SUPPORTED = ("the port runs on one card; the distributed sweep is "
+              "ROADMAP.md queue A, item 8 (A8)")
 
 
 def _unsupported(what: str) -> ValueError:
     return ValueError(f"{what} is not ported yet: {_SUPPORTED}")
+
+
+def _refuse_distributed(mesh: Any, pipeline: Optional[str],
+                        chain_axis: Optional[str]) -> None:
+    """Raise for the distributed sweep's knobs, which every entry point
+    takes as the reference's do."""
+    given = [name for name, v in (("mesh=", mesh), ("pipeline=", pipeline),
+                                  ("chain_axis=", chain_axis))
+             if v is not None]
+    if given:
+        raise _unsupported(f"the distributed sweep ({', '.join(given)})")
 
 
 # ---------------------------------------------------------------------------
@@ -79,8 +109,26 @@ class BlockResult:
 
 @dataclasses.dataclass
 class SessionResult:
-    """Result of one run.  The scalar fields mirror the first block
-    carrying a test set; ``blocks`` holds every block's traces."""
+    """Result of one run (one chain, or ``chains=C`` stacked chains).
+
+    The test fields mirror the first block carrying a test set and
+    ``rmse_train_trace`` is block 0's; ``blocks`` holds every block's
+    traces and metrics.  With ``chains=C > 1``:
+
+    * test metrics and ``predictions`` pool the posterior draws of all
+      chains, step-major and chain-minor (the order ``PredictSession``
+      replays from a multi-chain store);
+    * ``blocks``' train traces follow chain 0; ``chain_blocks[c]``
+      carries every chain's per-block traces;
+    * ``state`` and ``factor_means`` entries gain a leading ``(C,)``
+      chain axis;
+    * ``diagnostics`` holds split-R-hat / bulk-ESS per monitored
+      quantity over the (C, draws) traces.
+
+    ``resumed_from`` is the completed-sweep count a ``run(resume=True)``
+    continued from (None for a fresh run); traces and accumulators then
+    cover only the sweeps after it.
+    """
 
     rmse_test: Optional[float]
     auc_test: Optional[float]
@@ -93,23 +141,82 @@ class SessionResult:
     state: MFState
     samples: Optional[List[Tuple[np.ndarray, ...]]] = None
     blocks: List[BlockResult] = dataclasses.field(default_factory=list)
+    factor_means: Optional[List[np.ndarray]] = None
     save_dir: Optional[str] = None
     n_chains: int = 1
+    chain_blocks: Optional[List[List[BlockResult]]] = None
     diagnostics: Optional[Diagnostics] = None
+    resumed_from: Optional[int] = None
     compile_s: float = 0.0
+
+    def to_dict(self) -> Dict[str, Any]:
+        """JSON-able scalar summary of the run, with the reference's
+        keys; ``total_s`` is ``compile_s + runtime_s``."""
+        return {
+            "rmse_test": self.rmse_test,
+            "auc_test": self.auc_test,
+            "nsamples": self.nsamples,
+            "n_chains": self.n_chains,
+            "runtime_s": self.runtime_s,
+            "compile_s": self.compile_s,
+            "total_s": self.compile_s + self.runtime_s,
+            "rmse_train_trace": [float(v) for v in
+                                 self.rmse_train_trace],
+            "rmse_test_trace": [float(v) for v in self.rmse_test_trace],
+            "save_dir": self.save_dir,
+            "resumed_from": self.resumed_from,
+            "diagnostics": (self.diagnostics.to_dict()
+                            if self.diagnostics is not None else None),
+        }
+
+    def mean_from_samples(self, test: TestSet, row_entity: int = 0,
+                          col_entity: int = 1) -> np.ndarray:
+        """Posterior-mean predictions recomputed from the kept samples
+        (``run(keep_samples=True)``): the in-session accumulator over
+        the samples in the run's order, on the device of the run's
+        state, so for the run's test set it is bitwise ``predictions``.
+        """
+        if self.samples is None:
+            raise ValueError("no samples kept; run(keep_samples=True)")
+        dev = self.state.factors[row_entity].device
+        if not isinstance(test, TestSet):
+            test = make_test_set(*test, device=dev)
+        acc = PredictAccumulator(test)
+        for fs in self.samples:
+            acc.update(torch.from_numpy(fs[row_entity]).to(dev),
+                       torch.from_numpy(fs[col_entity]).to(dev))
+        return acc.mean.cpu().numpy()
 
 
 class SweepInfo(NamedTuple):
-    """What a per-sweep callback sees (after the sweep completed)."""
+    """What a per-sweep callback sees (after the sweep completed).
+
+    ``metrics`` are always chain 0's scalars; a multi-chain run also
+    passes the stacked ``(C,)`` metrics as ``chain_metrics`` (None when
+    ``chains == 1``).  ``state`` is the full post-sweep state, stacked
+    over chains for a multi-chain run.
+    """
 
     sweep: int          # 0-based global sweep index
     phase: str          # "burnin" | "sample"
     state: MFState      # post-sweep sampler state
     metrics: Dict[str, torch.Tensor]   # rmse_train_<b> / alpha_<b>
+    chain_metrics: Optional[Dict[str, torch.Tensor]] = None
 
 
 _PRIORS = {"normal": NormalPrior, "spikeandslab": SpikeAndSlabPrior,
            "fixednormal": FixedNormalPrior}
+
+
+def resolve_chains(chains: Optional[int] = None) -> int:
+    """Validate the chain count, defaulting from the ``REPRO_CHAINS``
+    environment variable, else 1."""
+    if chains is None:
+        chains = int(os.environ.get("REPRO_CHAINS", "1"))
+    chains = int(chains)
+    if chains < 1:
+        raise ValueError(f"chains must be >= 1, got {chains}")
+    return chains
 
 
 def _prior_by_name(name: str, num_latent: int):
@@ -293,15 +400,30 @@ class ModelBuilder:
 # ---------------------------------------------------------------------------
 
 class Session:
-    """Run one Gibbs chain over a built model graph.
+    """Run Gibbs chains over a built model graph.
 
-    ``callbacks`` are called after every sweep with a :class:`SweepInfo`.
-    ``save_freq=k`` streams every k-th post-burnin state to ``save_dir``
-    (``model.json`` + ``samples/step_<sweep+1>/``, the layout
-    ``PredictSession`` reloads) and writes ``diagnostics.json`` at the
-    end.  ``mesh``, ``pipeline``, ``chains > 1`` and ``chain_axis``
-    exist in the reference and raise here until their slices are
-    ported.
+    * ``chains=C`` runs C chains through ``gibbs.multi_chain_step`` (a
+      loop: chain c is bitwise the single-chain run keyed
+      ``chain_keys(seed, C)[c]``); ``None`` defers to ``REPRO_CHAINS``.
+      Test metrics pool the chains' draws, and split-R-hat / bulk-ESS
+      over the per-chain traces land in ``SessionResult.diagnostics``.
+    * ``save_freq=k`` streams every k-th post-burnin state to
+      ``save_dir`` (``model.json`` + ``samples/step_<sweep+1>/``; for
+      C > 1 one such store a chain under ``chain_<c>/`` below a
+      top-level ``model.json`` whose ``run.chains`` is C) and writes
+      ``diagnostics.json`` at the end; ``run(resume=True)`` continues
+      from the newest step every chain has on disk.
+    * ``init_transform`` maps each chain's fresh state before the first
+      sweep; ``accumulate_factor_means`` averages every entity's factor
+      over the posterior draws (``SessionResult.factor_means``).
+    * ``callbacks`` are called after every sweep with a
+      :class:`SweepInfo`; ``verbose`` prints chain 0's train RMSE about
+      twenty times a run.
+    * ``recorder`` (None: a fresh one, enabled by ``REPRO_OBS=1``) is
+      shared with the checkpoint savers and records the sweep spans.
+
+    ``mesh``, ``pipeline`` and ``chain_axis`` exist in the reference and
+    raise here until the distributed sweep is ported (A8).
     """
 
     def __init__(self, model: ModelDef, data: MFData, *,
@@ -311,17 +433,13 @@ class Session:
                  chains: Optional[int] = None,
                  chain_axis: Optional[str] = None,
                  save_freq: int = 0, save_dir: Optional[str] = None,
-                 callbacks: Sequence[Callable[[SweepInfo], None]] = ()):
-        if mesh is not None or pipeline is not None \
-                or chain_axis is not None:
-            raise _unsupported("the distributed sweep (mesh=, pipeline=, "
-                               "chain_axis=)")
-        if chains not in (None, 1):
-            raise _unsupported(f"chains={chains}")
-        if save_freq and not save_dir:
-            raise ValueError(
-                "save_freq > 0 streams posterior samples to disk; "
-                "pass save_dir= too")
+                 verbose: int = 0,
+                 callbacks: Sequence[Callable[[SweepInfo], None]] = (),
+                 init_transform: Optional[Callable[[MFState],
+                                                   MFState]] = None,
+                 accumulate_factor_means: bool = False,
+                 recorder: Any = None):
+        _refuse_distributed(mesh, pipeline, chain_axis)
         self.model = model
         self.data = data
         self.tests = dict(tests or {})
@@ -333,105 +451,267 @@ class Session:
         self.burnin = burnin
         self.nsamples = nsamples
         self.seed = seed
+        self.chains = resolve_chains(chains)
         self.save_freq = save_freq
         self.save_dir = save_dir
+        self.verbose = verbose
         self.callbacks = tuple(callbacks)
+        self.init_transform = init_transform
+        self.accumulate_factor_means = accumulate_factor_means
+        # None -> a fresh Recorder at run() time, enabled iff
+        # REPRO_OBS=1; an explicit one is shared with the savers
+        self.recorder = recorder
+        if save_freq and not save_dir:
+            raise ValueError(
+                "save_freq > 0 streams posterior samples to disk; "
+                "pass save_dir= too")
 
     # -- persistence -------------------------------------------------------
 
-    def _spec_at(self, directory: str) -> None:
-        """``model.json`` of the run, as the reference's ``_spec_at``
-        writes it for one chain."""
+    def _run_spec(self, chain: Optional[int] = None) -> dict:
+        run = {"burnin": self.burnin, "nsamples": self.nsamples,
+               "save_freq": self.save_freq, "seed": self.seed,
+               "chains": self.chains}
+        if chain is not None:
+            run["chain"] = chain
+        return run
+
+    def _spec_at(self, directory: str, chain: Optional[int] = None):
         from .modelspec import (MODEL_SPEC_FILE, model_to_spec,
                                 save_model_spec)
         os.makedirs(directory, exist_ok=True)
         spec = model_to_spec(self.model)
-        spec["run"] = {"burnin": self.burnin, "nsamples": self.nsamples,
-                       "save_freq": self.save_freq, "seed": self.seed,
-                       "chains": 1}
+        spec["run"] = self._run_spec(chain)
         save_model_spec(os.path.join(directory, MODEL_SPEC_FILE), spec)
 
-    def _make_saver(self):
-        """The store's ``CheckpointManager``; ``keep=None``, since a
-        posterior-sample store retains every step."""
+    def _make_savers(self, recorder=None):
+        """One ``CheckpointManager`` a chain, ``keep=None`` (a
+        posterior-sample store retains every step).  One chain keeps
+        the single-chain layout (``save_dir/model.json`` +
+        ``save_dir/samples/``); C > 1 nests a single-chain store a chain
+        under ``save_dir/chain_<c>/``."""
         from ..checkpoint import CheckpointManager
-        from .modelspec import SAMPLES_SUBDIR
+        from .modelspec import SAMPLES_SUBDIR, chain_subdir
         self._spec_at(self.save_dir)
-        return CheckpointManager(
-            os.path.join(self.save_dir, SAMPLES_SUBDIR), keep=None)
+        if self.chains == 1:
+            return [CheckpointManager(
+                os.path.join(self.save_dir, SAMPLES_SUBDIR), keep=None,
+                recorder=recorder)]
+        savers = []
+        for c in range(self.chains):
+            cdir = os.path.join(self.save_dir, chain_subdir(c))
+            self._spec_at(cdir, chain=c)
+            savers.append(CheckpointManager(
+                os.path.join(cdir, SAMPLES_SUBDIR), keep=None,
+                recorder=recorder))
+        return savers
+
+    def _restore(self, savers, state: MFState):
+        """(start, state) from the newest step every chain has on disk,
+        or None when a chain's store is empty.  One chain: its latest
+        complete step; several: the highest step common to all (an
+        interrupted run can leave chains one save apart, and every
+        earlier step is kept)."""
+        if self.chains == 1:
+            return savers[0].restore_latest(state)
+        common = None
+        for sv in savers:
+            steps = set(sv.all_steps())
+            common = steps if common is None else (common & steps)
+        if not common:
+            return None
+        step = max(common)
+        chains = [sv.restore_step(unstack_state(state, c), step)
+                  for c, sv in enumerate(savers)]
+        return step, stack_states(chains)
 
     # -- run ---------------------------------------------------------------
 
+    def _export_obs(self, rec) -> None:
+        """Write the run's trace and metrics snapshots when the recorder
+        is enabled: to ``REPRO_OBS_DIR`` if set, else ``save_dir/obs``
+        when the session streams samples, else nowhere (the caller owns
+        the export)."""
+        if not rec.enabled:
+            return
+        dest = os.environ.get("REPRO_OBS_DIR")
+        if dest is None and self.save_dir:
+            dest = os.path.join(self.save_dir, "obs")
+        if dest is None:
+            return
+        rec.write_trace(os.path.join(dest, "train_trace.json"))
+        rec.write_metrics(os.path.join(dest, "train_metrics.json"))
+
+    def _init(self) -> MFState:
+        model, data, C = self.model, self.data, self.chains
+        if C == 1:
+            state = init_state(model, data, self.seed)
+            if self.init_transform is not None:
+                state = self.init_transform(state)
+            return state
+        chain_states = init_chain_states(model, data, self.seed, C)
+        if self.init_transform is not None:
+            chain_states = [self.init_transform(s) for s in chain_states]
+        return stack_states(chain_states)
+
     def run(self, keep_samples: bool = False,
             resume: bool = False) -> SessionResult:
-        if resume:
-            raise _unsupported("resume=True (continuing a save_freq "
-                               "store)")
         model, data = self.model, self.data
         dev = model.device
-        compile_s = 0.0
-        if dev.type == "cuda":
-            from ..kernels import _build
-            t_c = time.perf_counter()
-            _build.build_all()
-            compile_s = time.perf_counter() - t_c
+        rec = resolve_recorder(self.recorder)
+        rec.set_kind("session")
+        C = self.chains
+        state = self._init()
 
-        state = init_state(model, data, self.seed)
-        saver = self._make_saver() if self.save_freq else None
+        savers = []
+        start = 0
+        resumed_from: Optional[int] = None
+        if self.save_freq:
+            savers = self._make_savers(recorder=rec)
+            if resume:
+                restored = self._restore(savers, state)
+                if restored is not None:
+                    start, state = restored
+                    resumed_from = start
+        elif resume:
+            raise ValueError(
+                "resume=True needs save_freq > 0 and a save_dir "
+                "holding the interrupted chain's samples")
+
+        def step(d, s):
+            return gibbs_step(model, d, s) if C == 1 else \
+                multi_chain_step(model, d, s)
+
         accs = {bi: PredictAccumulator(ts) for bi, ts in self.tests.items()}
         total = self.burnin + self.nsamples
+        compile_s = 0.0
+        if start < total and dev.type == "cuda":
+            from ..kernels import _build
+            t_c = clock.perf_counter()
+            _build.build_all()
+            compile_s = clock.perf_counter() - t_c
+            rec.complete("session/compile", t_c, cat="session",
+                         phase="compile")
+        obs_on = rec.enabled
         n_blocks = len(model.blocks)
         train_traces: List[List[float]] = [[] for _ in range(n_blocks)]
+        chain_train_traces: List[List[List[float]]] = [
+            [[] for _ in range(n_blocks)] for _ in range(C)]
         test_traces: Dict[int, List[float]] = {bi: [] for bi in self.tests}
         samples: List[Tuple[np.ndarray, ...]] = []
-        # post-burnin traces of the monitored scalars, for split-R-hat
-        # and bulk-ESS at the end of the run
-        diag_traces: Dict[str, List[float]] = {}
+        sums = None
+        if self.accumulate_factor_means:
+            lead = () if C == 1 else (C,)
+            sums = [torch.zeros(lead + (e.n_rows, model.num_latent),
+                                device=dev) for e in model.entities]
+        n_acc = 0
+        # post-burnin traces of the monitored scalars, (C,) a sweep, for
+        # split-R-hat and bulk-ESS at the end of the run
+        diag_traces: Dict[str, List[np.ndarray]] = {}
 
         synchronize(dev)
-        t0 = time.perf_counter()
-        for sweep in range(total):
-            state, metrics = gibbs_step(model, data, state)
+        t0 = clock.perf_counter()
+        for sweep in range(start, total):
+            if obs_on:
+                t_sweep = rec.now()
+            state, metrics = step(data, state)
+            if obs_on:
+                # fence: the sweep's device time, not its dispatch time
+                synchronize(dev)
+                t_done = rec.now()
             for bi in range(n_blocks):
-                train_traces[bi].append(float(metrics[f"rmse_train_{bi}"]))
+                arr = np.atleast_1d(
+                    metrics[f"rmse_train_{bi}"].cpu().numpy())
+                train_traces[bi].append(float(arr[0]))
+                for c in range(C):
+                    chain_train_traces[c][bi].append(float(arr[c]))
             in_sampling = sweep >= self.burnin
             if in_sampling:
+                # pool the chains' draws step-major, chain-minor: the
+                # order PredictSession replays from a multi-chain store
                 for bi, acc in accs.items():
                     blk = model.blocks[bi]
-                    acc.update(state.factors[blk.row_entity],
-                               state.factors[blk.col_entity])
+                    if C == 1:
+                        acc.update(state.factors[blk.row_entity],
+                                   state.factors[blk.col_entity])
+                    else:
+                        for c in range(C):
+                            acc.update(state.factors[blk.row_entity][c],
+                                       state.factors[blk.col_entity][c])
                     test_traces[bi].append(float(torch.sqrt(torch.mean(
                         (acc.mean - acc.test.v) ** 2))))
                 if keep_samples:
-                    samples.append(tuple(f.cpu().numpy()
-                                         for f in state.factors))
+                    if C == 1:
+                        samples.append(tuple(f.cpu().numpy()
+                                             for f in state.factors))
+                    else:
+                        for c in range(C):
+                            samples.append(tuple(f[c].cpu().numpy()
+                                                 for f in state.factors))
+                if sums is not None:
+                    sums = [s + f for s, f in zip(sums, state.factors)]
+                    n_acc += 1
                 for nm, v in metrics.items():
-                    diag_traces.setdefault(nm, []).append(float(v))
+                    diag_traces.setdefault(nm, []).append(np.atleast_1d(
+                        v.cpu().numpy().astype(np.float64)))
                 for e, ent in enumerate(model.entities):
                     f = state.factors[e]
+                    rms = torch.sqrt(torch.mean(f * f)) if C == 1 else \
+                        torch.sqrt(torch.mean(f * f, dim=(1, 2)))
                     diag_traces.setdefault(
-                        f"factor_rms_{ent.name}", []).append(
-                        float(torch.sqrt(torch.mean(f * f))))
-                if saver is not None and \
+                        f"factor_rms_{ent.name}", []).append(np.atleast_1d(
+                            rms.cpu().numpy().astype(np.float64)))
+                if savers and \
                         (sweep - self.burnin + 1) % self.save_freq == 0:
-                    saver.save(sweep + 1, state)
+                    if C == 1:
+                        savers[0].save(sweep + 1, state)
+                    else:
+                        for c, sv in enumerate(savers):
+                            sv.save(sweep + 1, unstack_state(state, c))
+            if obs_on:
+                span_args = {
+                    "sweep": sweep,
+                    "phase": "sample" if in_sampling else "burnin",
+                    "stage": "first" if sweep == start else "steady",
+                    # bytes a device sends a sweep: none on one card (the
+                    # reference's contract gives 0 for a single shard)
+                    "bytes_on_wire": 0,
+                }
+                tr = diag_traces.get("rmse_train_0")
+                if tr:
+                    # streaming convergence: split-R-hat over the
+                    # post-burnin draws so far (nan below its minimum)
+                    rhat = split_rhat(np.stack(tr, axis=1))
+                    if np.isfinite(rhat):
+                        span_args["rhat_rmse_train_0"] = rhat
+                rec.complete("sweep", t_sweep, end=t_done,
+                             cat="session", **span_args)
+                rec.observe("session.sweep_s", t_done - t_sweep)
+                rec.add("session.sweeps")
+            if self.verbose and (sweep % max(1, total // 20) == 0):
+                ph = "burnin" if sweep < self.burnin else "sample"
+                print(f"[{ph} {sweep:4d}] rmse_train="
+                      f"{train_traces[0][-1]:.4f}")
             if self.callbacks:
                 phase = "sample" if in_sampling else "burnin"
-                info = SweepInfo(sweep, phase, state, metrics)
+                if C == 1:
+                    info = SweepInfo(sweep, phase, state, metrics)
+                else:
+                    m0 = {k: v[0] for k, v in metrics.items()}
+                    info = SweepInfo(sweep, phase, state, m0, metrics)
                 for cb in self.callbacks:
                     cb(info)
-        if saver is not None:
-            saver.wait()
+        for sv in savers:
+            sv.wait()
 
         diag = None
         if diag_traces:
             diag = compute_diagnostics(
-                {k: np.asarray(v, np.float64)[None, :]
-                 for k, v in diag_traces.items()})
-            if saver is not None:
+                {k: np.stack(v, axis=1) for k, v in diag_traces.items()})
+            if savers:
                 save_diagnostics(self.save_dir, diag)
         synchronize(dev)
-        runtime = time.perf_counter() - t0
+        runtime = clock.perf_counter() - t0
 
         names = model.entity_names
         block_results: List[BlockResult] = []
@@ -439,7 +719,7 @@ class Session:
         for bi, blk in enumerate(model.blocks):
             acc = accs.get(bi)
             if acc is not None and acc.n == 0:
-                acc = None
+                acc = None   # resumed past the end: nothing accumulated
             is_probit = isinstance(blk.noise, ProbitNoise)
             br = BlockResult(
                 block=bi,
@@ -455,6 +735,33 @@ class Session:
                 head = br
         if head is None:
             head = block_results[0]
+        chain_blocks = None
+        if C > 1:
+            chain_blocks = [
+                [BlockResult(
+                    block=bi,
+                    entities=(names[blk.row_entity],
+                              names[blk.col_entity]),
+                    rmse_train_trace=chain_train_traces[c][bi],
+                    rmse_test_trace=[], rmse_test=None, auc_test=None,
+                    predictions=None, pred_var=None)
+                 for bi, blk in enumerate(model.blocks)]
+                for c in range(C)]
+        means = None
+        if sums is not None:
+            if n_acc == 0 and self.nsamples > 0:
+                raise ValueError(
+                    f"run(resume=True) restored the chain at {start} "
+                    "completed sweeps — at or past the end of the "
+                    f"burnin={self.burnin} + nsamples={self.nsamples} "
+                    f"= {total} schedule — so ZERO posterior draws "
+                    "were accumulated and factor_means would be "
+                    "silently all-zero. The schedule counts TOTAL "
+                    "sweeps, not additional ones: raise nsamples to "
+                    "extend the chain, or rerun without resume=True.")
+            means = [(s / max(n_acc, 1)).cpu().numpy() for s in sums]
+        rec.gauge("session.chains", C)
+        self._export_obs(rec)
         return SessionResult(
             rmse_test=head.rmse_test,
             auc_test=head.auc_test,
@@ -468,36 +775,50 @@ class Session:
             state=state,
             samples=samples if keep_samples else None,
             blocks=block_results,
+            factor_means=means,
             save_dir=self.save_dir,
+            n_chains=C,
+            chain_blocks=chain_blocks,
             diagnostics=diag,
+            resumed_from=resumed_from,
         )
 
 
 # ---------------------------------------------------------------------------
-# the classic shape, as a thin wrapper over the builder
+# the classic shapes, as thin wrappers over the builder
 # ---------------------------------------------------------------------------
 
 class TrainSession:
     """Single-R-matrix session (BMF / Macau / probit variants): two
     entities ("rows", "cols") and one block, composed through
     :class:`ModelBuilder` exactly as the reference's ``TrainSession``
-    composes it."""
+    composes it, so its chain is the builder's.  ``device`` takes the
+    place of the reference's ``use_pallas``; the other arguments are
+    :class:`Session`'s."""
 
     def __init__(self, num_latent: int = 16, burnin: int = 100,
                  nsamples: int = 100, seed: int = 0,
                  priors: Sequence[str] = ("normal", "normal"),
-                 device: DeviceLike = None,
+                 device: DeviceLike = None, verbose: int = 0,
                  save_freq: int = 0, save_dir: Optional[str] = None,
-                 callbacks: Sequence[Callable[[SweepInfo], None]] = ()):
+                 mesh: Any = None, pipeline: Optional[str] = None,
+                 chains: Optional[int] = None,
+                 chain_axis: Optional[str] = None,
+                 callbacks: Sequence[Callable[[SweepInfo], None]] = (),
+                 recorder: Any = None):
+        _refuse_distributed(mesh, pipeline, chain_axis)
         self.num_latent = num_latent
         self.burnin = burnin
         self.nsamples = nsamples
         self.seed = seed
+        self.recorder = recorder
         self.prior_names = tuple(p.replace("-", "").replace("_", "")
                                  for p in priors)
         self.device = resolve_device(device)
+        self.verbose = verbose
         self.save_freq = save_freq
         self.save_dir = save_dir
+        self.chains = chains
         self.callbacks = callbacks
         self._train: Optional[Any] = None
         self._test: Optional[TestSet] = None
@@ -553,9 +874,136 @@ class TrainSession:
                     test=self._test)
         return b
 
-    def run(self, keep_samples: bool = False) -> SessionResult:
+    def _build(self) -> Tuple[ModelDef, MFData]:
+        """(ModelDef, MFData) of the session's graph."""
+        model, data, _ = self._builder().build()
+        return model, data
+
+    def run(self, keep_samples: bool = False,
+            resume: bool = False) -> SessionResult:
         sess = self._builder().session(
             burnin=self.burnin, nsamples=self.nsamples, seed=self.seed,
-            save_freq=self.save_freq, save_dir=self.save_dir,
-            callbacks=self.callbacks)
-        return sess.run(keep_samples=keep_samples)
+            chains=self.chains, save_freq=self.save_freq,
+            save_dir=self.save_dir, verbose=self.verbose,
+            callbacks=self.callbacks, recorder=self.recorder)
+        return sess.run(keep_samples=keep_samples, resume=resume)
+
+
+class GFASession:
+    """Group Factor Analysis: M dense views sharing a sample entity.
+
+    ``views`` are (N, D_m) arrays (numpy, or tensors, which stay on the
+    card).  The shared entity takes a FixedNormal prior and each view's
+    loadings the spike-and-slab prior (paper Table 1, GFA row), composed
+    through :class:`ModelBuilder` as the reference composes them, so the
+    chain is the reference's.  The run accumulates factor means;
+    ``zero_init_loadings`` (default) starts every loading at zero, so
+    the components switch on one by one.  For C > 1, ``Z``/``W``
+    follow chain 0 (the chains' modes differ by a rotation, so their
+    loadings do not pool) and ``Z_chains``/``W_chains`` hold every
+    chain's means.
+    """
+
+    def __init__(self, views: Sequence[Any], num_latent: int = 8,
+                 burnin: int = 200, nsamples: int = 200, seed: int = 0,
+                 noise: Any = None, device: DeviceLike = None,
+                 zero_init_loadings: bool = True, mesh: Any = None,
+                 pipeline: Optional[str] = None,
+                 chains: Optional[int] = None,
+                 chain_axis: Optional[str] = None,
+                 save_freq: int = 0, save_dir: Optional[str] = None,
+                 callbacks: Sequence[Callable[[SweepInfo], None]] = (),
+                 recorder: Any = None):
+        _refuse_distributed(mesh, pipeline, chain_axis)
+        self.device = resolve_device(device)
+        self.views = [v if isinstance(v, torch.Tensor)
+                      else np.asarray(v, np.float32) for v in views]
+        self.recorder = recorder
+        self.num_latent = num_latent
+        self.burnin = burnin
+        self.nsamples = nsamples
+        self.seed = seed
+        self.noise = noise or AdaptiveGaussian()
+        self.zero_init_loadings = zero_init_loadings
+        self.chains = chains
+        self.save_freq = save_freq
+        self.save_dir = save_dir
+        self.callbacks = callbacks
+
+    def _builder(self) -> ModelBuilder:
+        N = self.views[0].shape[0]
+        b = ModelBuilder(self.num_latent, self.device)
+        b.add_entity("samples", N, prior=FixedNormalPrior(self.num_latent))
+        for m, X in enumerate(self.views):
+            b.add_entity(f"view{m}", X.shape[1],
+                         prior=SpikeAndSlabPrior(self.num_latent))
+            b.add_block("samples", f"view{m}", X, noise=self.noise)
+        return b
+
+    def _build(self) -> Tuple[ModelDef, MFData]:
+        model, data, _ = self._builder().build()
+        return model, data
+
+    @staticmethod
+    def _zero_loadings(state: MFState) -> MFState:
+        fs = list(state.factors)
+        for e in range(1, len(fs)):
+            fs[e] = torch.zeros_like(fs[e])
+        return state._replace(factors=tuple(fs))
+
+    def run(self, resume: bool = False) -> Dict[str, Any]:
+        sess = self._builder().session(
+            burnin=self.burnin, nsamples=self.nsamples, seed=self.seed,
+            chains=self.chains, save_freq=self.save_freq,
+            save_dir=self.save_dir, callbacks=self.callbacks,
+            recorder=self.recorder,
+            init_transform=(self._zero_loadings
+                            if self.zero_init_loadings else None),
+            accumulate_factor_means=True)
+        r = sess.run(resume=resume)
+        if r.n_chains > 1:
+            out = {
+                "Z": r.factor_means[0][0],
+                "W": [m[0] for m in r.factor_means[1:]],
+                "Z_last": r.state.factors[0][0].cpu().numpy(),
+                "W_last": [f[0].cpu().numpy()
+                           for f in r.state.factors[1:]],
+                "Z_chains": r.factor_means[0],
+                "W_chains": r.factor_means[1:],
+            }
+        else:
+            out = {
+                "Z": r.factor_means[0],
+                "W": r.factor_means[1:],
+                "Z_last": r.state.factors[0].cpu().numpy(),
+                "W_last": [f.cpu().numpy() for f in r.state.factors[1:]],
+            }
+        out.update({
+            "rmse_train": [b.rmse_train_trace for b in r.blocks],
+            "runtime_s": r.runtime_s,
+            "compile_s": r.compile_s,
+            "state": r.state,
+            "diagnostics": r.diagnostics,
+            "result": r,
+        })
+        return out
+
+
+def smurff(train, test=None, side_info=(None, None), num_latent=16,
+           burnin=100, nsamples=100, noise=None, seed=0,
+           device: DeviceLike = None, verbose=0, mesh=None, pipeline=None,
+           chains=None, chain_axis=None,
+           save_freq=0, save_dir=None) -> SessionResult:
+    """One-call API (the reference's ``smurff(...)``, with ``device=``
+    where it has ``use_pallas=``): a :class:`TrainSession` over
+    ``train``, with side information per axis, run once."""
+    sess = TrainSession(num_latent=num_latent, burnin=burnin,
+                        nsamples=nsamples, seed=seed, device=device,
+                        verbose=verbose, mesh=mesh, pipeline=pipeline,
+                        chains=chains, chain_axis=chain_axis,
+                        save_freq=save_freq, save_dir=save_dir)
+    sess.add_train_and_test(train, test=test, noise=noise)
+    for axis, F in enumerate(side_info):
+        if F is not None:
+            sess.add_side_info(axis, F)
+    return sess.run()

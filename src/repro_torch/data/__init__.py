@@ -1,3 +1,3 @@
-from .synthetic import TokenStream
+from .synthetic import TokenStream, chembl_like
 
-__all__ = ["TokenStream"]
+__all__ = ["TokenStream", "chembl_like"]

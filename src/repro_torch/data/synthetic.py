@@ -1,14 +1,64 @@
-"""Synthetic LM token streams, for seeded prompts.
+"""Synthetic data: ChEMBL-like MF data and LM token streams, for seeded
+inputs.
 
-A copy of ``TokenStream`` from ``repro/data/synthetic.py`` (pure
-numpy): the same seed gives the same tokens in both packages.  The
-ChEMBL-like MF data and ``make_lm_batch`` (training) are not here; the
-port's MF data comes from ``core.sparse``, and training is a later
-slice (ROADMAP A10).
+Copies of ``chembl_like`` and ``TokenStream`` from
+``repro/data/synthetic.py`` (pure numpy): the same seed gives the same
+arrays in both packages, bitwise.  ``chembl_like`` returns the port's
+``SparseMatrix`` on the device asked for (the card by default).
+``make_lm_batch`` and ``lm_batches`` (training) are a later slice
+(ROADMAP A10).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+from .._device import DeviceLike
+from ..core.sparse import SparseMatrix, from_coo
+
+
+def chembl_like(seed: int, n_compounds: int = 2000, n_proteins: int = 200,
+                density: float = 0.02, rank: int = 16,
+                noise: float = 0.4, n_features: int = 128,
+                feature_noise: float = 0.5, device: DeviceLike = None,
+                ) -> Tuple[SparseMatrix, Tuple, np.ndarray]:
+    """Synthetic compound-activity data: (train ``SparseMatrix`` on
+    ``device``, (i, j, v) test triplets, fingerprints F).
+
+    A planted rank-``rank`` product plus Gaussian noise, with power-law
+    row occupancy (like real assay data); the fingerprints are binarized
+    projections of the true compound factors, so side information
+    helps.
+    """
+    rng = np.random.default_rng(seed)
+    U = rng.normal(size=(n_compounds, rank)).astype(np.float32)
+    V = rng.normal(size=(n_proteins, rank)).astype(np.float32)
+
+    # power-law tests a compound
+    w = (1.0 / np.arange(1, n_compounds + 1) ** 0.7)
+    w = w[rng.permutation(n_compounds)]
+    p_row = w / w.sum()
+    nnz = int(density * n_compounds * n_proteins)
+    i = rng.choice(n_compounds, size=3 * nnz, p=p_row)
+    j = rng.integers(0, n_proteins, size=3 * nnz)
+    ij = np.unique(np.stack([i, j], 1), axis=0)
+    ij = ij[rng.permutation(len(ij))[:nnz]]
+    i, j = ij[:, 0], ij[:, 1]
+    v = np.einsum("ek,ek->e", U[i], V[j]) + noise * rng.normal(
+        size=len(i)).astype(np.float32)
+
+    # ECFP-like binary fingerprints correlated with the latent factors
+    proj = rng.normal(size=(rank, n_features)).astype(np.float32)
+    F = (U @ proj + feature_noise * rng.normal(
+        size=(n_compounds, n_features)) > 0).astype(np.float32)
+
+    n_test = max(1, nnz // 10)
+    test = (i[:n_test], j[:n_test], v[:n_test].astype(np.float32))
+    tr = slice(n_test, None)
+    mat = from_coo(i[tr], j[tr], v[tr].astype(np.float32),
+                   (n_compounds, n_proteins), device=device)
+    return mat, test, F
 
 
 class TokenStream:

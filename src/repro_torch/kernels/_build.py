@@ -19,9 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, List
+
+from ..obs import clock
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -111,11 +112,11 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
             procs[n] = (subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_source(n))],
                 stdout=log, stderr=subprocess.STDOUT), tmp, log,
-                time.perf_counter())
+                clock.perf_counter())
         failed = []
         for n, (proc, tmp, log, t0) in procs.items():
             rc = proc.wait()
-            build_seconds[n] = time.perf_counter() - t0
+            build_seconds[n] = clock.perf_counter() - t0
             log.close()
             if rc == 0:
                 os.replace(tmp, todo[n])

@@ -38,9 +38,18 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_isolation_covers_the_session_layer_and_the_linter():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES[:-1]}
+    assert {"analysis/__init__.py", "analysis/__main__.py",
+            "analysis/invariants.py", "data/synthetic.py",
+            "core/session.py"} <= names
+
+
 def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     import repro_torch.core as tc
     from repro_torch.configs import get_smoke
+    from repro_torch.data import chembl_like
     from repro_torch.launch.serve import BatchedServer, generate
     from repro_torch.models import init_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -58,6 +67,9 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         lambda: tc.ModelDef((), (), 4),
         lambda: tc.make_test_set([0], [0], [0.0]),
         lambda: tc.PredictSession("no-store-needed"),
+        lambda: tc.GFASession([np.zeros((4, 3), np.float32)]),
+        lambda: tc.smurff(np.zeros((4, 3), np.float32)),
+        lambda: chembl_like(0, n_compounds=8, n_proteins=4, density=0.5),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

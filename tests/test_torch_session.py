@@ -3,8 +3,8 @@
 ``Session.run`` and ``TrainSession.run`` at the same seed give the same
 chain: train traces and ``rmse_test`` at the golden-chain tolerance
 (rtol 1e-3 / atol 1e-5).  Errors that both packages raise carry the
-same message; options outside the port's slice raise a ValueError that
-names what the port supports.
+same message; the distributed sweep's options (``mesh=``, ``pipeline=``,
+``chain_axis=``) raise a ValueError that names ROADMAP item A8.
 """
 import jax
 import numpy as np
@@ -182,13 +182,12 @@ def _builder():
 
 
 @pytest.mark.parametrize("what,call", [
-    ("chains=4", lambda b, m: b.add_block("r", "c", m).session(chains=4)),
-    ("save_freq", lambda b, m: b.add_block("r", "c", m).session(
-        save_freq=2, save_dir="unused").run(resume=True)),
     ("mesh=", lambda b, m: b.add_block("r", "c", m).session(
         mesh=object())),
-    ("resume=True", lambda b, m: b.add_block("r", "c", m).session(
-        burnin=1, nsamples=1).run(resume=True)),
+    ("pipeline=", lambda b, m: b.add_block("r", "c", m).session(
+        pipeline="ring")),
+    ("chain_axis=", lambda b, m: b.add_block("r", "c", m).session(
+        chains=2, chain_axis="chain")),
 ])
 def test_options_outside_the_slice_raise(what, call):
     b, m = _builder()
@@ -196,6 +195,7 @@ def test_options_outside_the_slice_raise(what, call):
         call(b, m)
     msg = str(ei.value)
     assert what in msg and "not ported yet" in msg and "ROADMAP" in msg
+    assert "A8" in msg
 
 
 def test_unknown_prior_lists_the_ports_priors():
