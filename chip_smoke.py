@@ -72,7 +72,18 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     requests through ``RecommendServer`` from the pooled store, the
     trace's sweep spans and a recorder-off run (bitwise), and
     ``GFASession`` on ``gfa_views``' data for 1 + 1 sweeps;
-14. lm: holds the ``flash`` kernels against their plain version at the
+14. distributed: a world of ``torch.cuda.device_count()`` ranks, one
+    process a rank, NCCL (``repro_torch.runtime.run_world``), runs the
+    slice at full width through ``make_distributed_step`` under eager and
+    ring, 1 + 3 sweeps, beside the single-device sweep in the same rank
+    (at one rank the first sweep bitwise it and ring's bitwise eager's;
+    the fourth within 2e-4), probit at 16,384 compounds under eager,
+    every sweep's collectives held against ``contract_for``, and
+    ``TrainSession(mesh=...)`` 1 + 1 sweeps into a store that
+    ``PredictSession`` reads; then probes whether gloo takes CUDA
+    tensors and, if it does, runs two ranks on the one card through
+    gloo (eager, each rank's half of the rows at its offset);
+15. lm: holds the ``flash`` kernels against their plain version at the
    reference's probes, ragged cases, GQA groups of 3 and 1 at hd 64
    and the prefill shape, each through the design ``flash.design``
    routes it to (``flash_sm90`` for bf16 at hd 64 and 128), and times
@@ -1983,6 +1994,326 @@ def phase_sessions(seed: int):
 
 
 # the LM slice: Qwen3-4B at full width and depth, random weights
+DIST_SWEEPS = (1, 3)          # untimed first sweep, timed sweeps
+DIST_PROBIT = 16384           # compounds of the probit run
+DIST_GLOO_SWEEPS = 2
+DIST_TOL = dict(rtol=2e-4, atol=2e-4)   # the reference's distributed tol
+
+
+def _dist_model(train, device, noise):
+    from repro_torch.core import ModelBuilder
+    b = ModelBuilder(num_latent=128, device=device)
+    b.add_entity("compound", train.n_rows)
+    b.add_entity("protein", train.n_cols)
+    b.add_block("compound", "protein", train, noise=noise)
+    model, data, _ = b.build()
+    return model, data
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _dist_chain(label, model, data, step, ldata, st, world, pipe):
+    """1 + 3 sweeps of a placed chain: (sweep-1 state, last state, ms
+    of the timed sweeps, launches); each sweep's census held against
+    ``contract_for`` and the kernels' operands checked 16-byte aligned."""
+    import torch
+    from repro_torch.analysis.contract import assert_census, contract_for
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    contract = contract_for(model, (world,), pipe)
+    ops.reset_launch_counts()
+    first, ms, rmse = None, [], []
+    for s in range(sum(DIST_SWEEPS)):
+        D.reset_census()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(ldata, st)
+        torch.cuda.synchronize()
+        if s >= DIST_SWEEPS[0]:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        assert_census(contract, D.census(), where=f"{label} sweep {s}")
+        rmse.append(float(m["rmse_train_0"]))
+        if s == 0:
+            first = step.gather_state(st)
+    counts = ops.launch_counts()
+    if not _aligned(*st.factors) or not all(
+            _aligned(p.idx, p.val, p.mask) for blk in ldata.blocks
+            for p in (blk.rows, blk.cols)):
+        raise AssertionError(f"{label}: a kernel operand of the shard is "
+                             "not 16-byte aligned")
+    return first, st, ms, counts, contract, rmse
+
+
+def _held(label, got, want, hold: str) -> str:
+    """Factors of two states held ``"bitwise"``, ``"elementwise"``
+    within DIST_TOL, or only reported (``"report"``)."""
+    import torch
+    worst, moved, num, den = 0.0, 0, 0.0, 0.0
+    for a, b in zip(got.factors, want.factors):
+        diff = (a - b).abs()
+        if hold == "bitwise" and not torch.equal(a, b):
+            raise AssertionError(f"{label}: not bitwise the single-device "
+                                 f"sweep ({int((diff > 0).sum())} elements)")
+        bad = diff > DIST_TOL["atol"] + DIST_TOL["rtol"] * b.abs()
+        if hold == "elementwise" and bad.any():
+            raise AssertionError(f"{label}: {int(bad.sum())} elements "
+                                 f"beyond {DIST_TOL}")
+        worst = max(worst, diff.max().item())
+        moved += int((diff > 0).sum())
+        num += float((a - b).norm()) ** 2
+        den += float(b.norm()) ** 2
+    return ("bitwise" if moved == 0 else
+            f"max |diff| {worst:.3e}, {moved} elements moved, relative "
+            f"Frobenius {(num / den) ** 0.5:.3e}")
+
+
+def dist_rank(rank, world, out, seed):
+    """One rank of the card's world: the slice under eager and ring and
+    probit under eager, beside the single-device sweep; then
+    ``TrainSession(mesh=...)`` into a store.  Rank 0 prints the report
+    and writes the launch counts to ``out``."""
+    import statistics as stats_
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import (AdaptiveGaussian, PredictSession,
+                                  ProbitNoise, TrainSession, gibbs_step,
+                                  init_state)
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    dev = f"cuda:{torch.cuda.current_device()}"
+    say = print if rank == 0 else (lambda *a, **k: None)
+    mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+    say(f"distributed: world of {world} rank(s), NCCL, mesh "
+        f"{tuple(mesh.mesh.shape)} ('data',); backend "
+        f"{torch.distributed.get_backend()}", flush=True)
+    train, test = slice_data(COMPOUNDS, seed, dev)
+    launches = {}
+    for label, mat, noise, pipes in (
+            ("slice", train, AdaptiveGaussian(), ("eager", "ring")),
+            ("probit", None, ProbitNoise(), ("eager",))):
+        if mat is None:
+            small, _ = slice_data(DIST_PROBIT, seed, dev)
+            mat = with_values(small, (small.coo_v > 0).float())
+        model, data = _dist_model(mat, dev, noise)
+        st0 = init_state(model, data, seed)
+        single_ms, single_rmse, st = [], [], st0
+        for s in range(sum(DIST_SWEEPS)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = gibbs_step(model, data, st)
+            torch.cuda.synchronize()
+            single_rmse.append(float(m["rmse_train_0"]))
+            if s == 0:
+                single_first = st
+            else:
+                single_ms.append((time.perf_counter() - t0) * 1e3)
+        single_last = st
+        line = (f"distributed {label} ({mat.n_rows} x {mat.n_cols}, K=128): "
+                f"single-device median {stats_.median(single_ms):.1f} ms")
+        firsts = {}
+        for pipe in pipes:
+            step, ldata, lst = D.make_distributed_step(model, mesh, data,
+                                                       st0, pipe)
+            assert step.supported
+            first, lst, ms, counts, contract, rmse = _dist_chain(
+                f"{label}/{pipe}", model, data, step, ldata, lst, world,
+                pipe)
+            firsts[pipe] = first
+            launches[f"{label}_{pipe}"] = counts
+            sweeps = sum(DIST_SWEEPS)
+            want = {"gram": 2 * sweeps,
+                    "sddmm_gathered": (3 if label == "probit" else 1)
+                    * sweeps}
+            got = {k: counts[k] for k in want}
+            if got != want or counts["sddmm"]:
+                raise AssertionError(f"distributed {label}/{pipe}: launches "
+                                     f"{counts}, want {want}")
+            # one rank: the first sweep is the single-device sweep's bits
+            # (probit's every sweep: its alpha never moves); later slice
+            # sweeps move by the ULPs of the adaptive alpha, summed over
+            # the padded slots, within the reference's 2e-4.  More ranks
+            # sum the moments in another order too, which a K = 128
+            # chain (probit's tails most) carries past an elementwise
+            # bound: there the rmse of each sweep is held at rtol 1e-3
+            # and the factors are reported
+            hold1 = "bitwise" if world == 1 else "report"
+            hold = ("report" if world > 1 else
+                    "bitwise" if label == "probit" else "elementwise")
+            bits1 = _held(f"{label}/{pipe} sweep 1", first, single_first,
+                          hold1)
+            bits = _held(f"{label}/{pipe} sweep {sweeps}",
+                         step.gather_state(lst), single_last, hold)
+            for s_, (a, b) in enumerate(zip(rmse, single_rmse)):
+                if abs(a - b) > 1e-3 * abs(b):
+                    raise AssertionError(
+                        f"{label}/{pipe} sweep {s_}: rmse_train {a} against "
+                        f"the single-device {b}")
+            line += (f"; {pipe} median {stats_.median(ms):.1f} ms (sweeps "
+                     + ", ".join(f"{t:.1f}" for t in ms)
+                     + f"), sweep 1 {bits1}, sweep {sweeps} vs single "
+                     f"{bits}; census a sweep {contract.all_gathers} "
+                     f"all-gathers, {contract.collective_permutes} hops, "
+                     f"{contract.all_reduces} all-reduces (max "
+                     f"{contract.max_reduce_elems} elements), as "
+                     "contract_for; launches " + str(got))
+            del step, ldata, lst, first
+            torch.cuda.empty_cache()
+        if "ring" in firsts and not all(
+                torch.equal(a, b) for a, b in zip(firsts["ring"].factors,
+                                                  firsts["eager"].factors)):
+            raise AssertionError(f"distributed {label}: ring's first sweep "
+                                 "is not eager's")
+        say(line, flush=True)
+        del model, data, st0, st, single_first, single_last, firsts
+        torch.cuda.empty_cache()
+
+    # the session layer on the mesh: 1 + 1 sweeps into a store
+    store = str(Path(out) / "store")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    sess = TrainSession(num_latent=128, burnin=1, nsamples=1, seed=seed,
+                        device=dev, save_freq=1, save_dir=store, mesh=mesh)
+    sess.add_train_and_test(train, test=test, noise=AdaptiveGaussian())
+    res = sess.run()
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_finite("distributed session", res)
+    if counts["gram"] != 4 or counts["sddmm_gathered"] != 2:
+        raise AssertionError(f"distributed session: launches {counts}")
+    if rank == 0:
+        ps = PredictSession(store, device=dev)
+        pred = ps.predict(test[0], test[1])
+        err = float(abs(pred - res.predictions).max())
+        if err > RELOAD_TOL["atol"] + RELOAD_TOL["rtol"] * float(
+                abs(res.predictions).max()):
+            raise AssertionError(f"distributed session: the store's "
+                                 f"predictions differ by {err}")
+        say(f"distributed session: TrainSession(mesh=world of {world}, "
+            f"burnin=1, nsamples=1, save_freq=1) in {session_s:.2f} s; "
+            f"rmse_test {res.rmse_test:.6f}; PredictSession over its store "
+            f"at {test[0].size} entries, max |diff| {err:.3e}; launches "
+            f"{ {k: counts[k] for k in ('gram', 'sddmm', 'sddmm_gathered')} }",
+            flush=True)
+        (Path(out) / "launches.json").write_text(json.dumps(launches))
+
+
+def dist_gloo_probe(rank, world, out):
+    """Whether gloo takes CUDA tensors for the sweep's two collectives,
+    with both ranks on the one card."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+    x = torch.full((4, 8), float(rank), device="cuda")
+    full = torch.empty((4 * world, 8), device="cuda")
+    dist.all_gather_into_tensor(full, x)
+    y = torch.ones(3, device="cuda")
+    dist.all_reduce(y)
+    if full[:, 0].tolist() != [float(r) for r in range(world)
+                               for _ in range(4)] or y.tolist() != [world] * 3:
+        raise AssertionError(f"gloo over CUDA tensors: wrong values "
+                             f"{full[:, 0].tolist()} {y.tolist()}")
+
+
+def dist_gloo_rank(rank, world, out, seed):
+    """Two ranks on the one card through gloo, eager: each holds half the
+    slice's rows at an offset, in tensors of its own.  The first sweep
+    is held within 2e-4 of the single-device sweep's, the second's rmse
+    at rtol 1e-3 (its factors reported: see ``dist_rank``)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.analysis.contract import assert_census, contract_for
+    from repro_torch.core import AdaptiveGaussian, gibbs_step, init_state
+    from repro_torch.core import distributed as D
+    dev = f"cuda:{torch.cuda.current_device()}"
+    mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+    train, _ = slice_data(COMPOUNDS, seed, dev)
+    model, data = _dist_model(train, dev, AdaptiveGaussian())
+    st0 = init_state(model, data, seed)
+    step, ldata, st = D.make_distributed_step(model, mesh, data, st0,
+                                              "eager")
+    contract = contract_for(model, (world,), "eager")
+    ms, rmse, gathered = [], [], []
+    for s in range(DIST_GLOO_SWEEPS):
+        D.reset_census()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(ldata, st)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        assert_census(contract, D.census(), where=f"gloo sweep {s}")
+        rmse.append(float(m["rmse_train_0"]))
+        gathered.append(step.gather_state(st))
+    if not _aligned(*st.factors):
+        raise AssertionError("gloo: a factor shard is not 16-byte aligned")
+    del step, ldata, st
+    if rank == 0:
+        want, report = st0, []
+        for s in range(DIST_GLOO_SWEEPS):
+            want, m = gibbs_step(model, data, want)
+            hold = "elementwise" if s == 0 else "report"
+            report.append(f"sweep {s + 1} "
+                          + _held(f"gloo sweep {s + 1}", gathered[s], want,
+                                  hold))
+            if abs(rmse[s] - float(m["rmse_train_0"])) > 1e-3 * float(
+                    m["rmse_train_0"]):
+                raise AssertionError(f"gloo sweep {s + 1}: rmse_train "
+                                     f"{rmse[s]} against {m['rmse_train_0']}")
+        print(f"distributed (b): world of {world} ranks on one card through "
+              f"gloo, eager, {DIST_GLOO_SWEEPS} sweeps of the slice "
+              f"(ranks at rows 0 and {COMPOUNDS // world}): sweeps "
+              + ", ".join(f"{t:.1f}" for t in ms) + " ms; vs the "
+              "single-device sweeps: " + "; ".join(report), flush=True)
+
+
+def phase_distributed(seed: int):
+    """The distributed sweep on the card: (a) a world of
+    ``torch.cuda.device_count()`` ranks with NCCL runs the slice at full
+    width under eager and ring, 1 + 3 sweeps, beside the single-device
+    sweep (at one rank the first sweep bitwise it, ring's bitwise
+    eager's, the fourth within 2e-4), probit at 16,384 compounds under
+    eager, each sweep's collectives held against ``contract_for``, and
+    ``TrainSession(mesh=...)`` for 1 + 1 sweeps into a store; (b) where
+    gloo takes CUDA tensors (probed first), two ranks on the one card
+    through gloo, eager.  Returns the kernels' launches on the
+    distributed path."""
+    import tempfile
+    import torch
+    from repro_torch.runtime import run_world
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = run_world("chip_smoke:dist_rank", n, device_type="cuda",
+                         workdir=Path(tmp) / "world", args=(tmp, seed),
+                         extra_paths=[str(ROOT)], timeout_s=600)
+        print(outs[0], end="")
+        print(f"distributed (a): world of {n} in "
+              f"{time.perf_counter() - t0:.1f} s (ranks' start included)")
+        launches = json.loads((Path(tmp) / "launches.json").read_text())
+        try:
+            run_world("chip_smoke:dist_gloo_probe", 2, device_type="cuda",
+                      backend="gloo", local_ranks=[0, 0],
+                      workdir=Path(tmp) / "probe", args=(tmp,),
+                      extra_paths=[str(ROOT)], timeout_s=300)
+        except RuntimeError as err:
+            tail = [line for line in str(err).splitlines() if line.strip()]
+            print("distributed (b): left out: gloo does not take CUDA "
+                  f"tensors here: {tail[-1] if tail else err}")
+            return launches
+        t0 = time.perf_counter()
+        outs = run_world("chip_smoke:dist_gloo_rank", 2, device_type="cuda",
+                         backend="gloo", local_ranks=[0, 0],
+                         workdir=Path(tmp) / "gloo", args=(tmp, seed),
+                         extra_paths=[str(ROOT)], timeout_s=600)
+        print(outs[0], end="")
+        print(f"distributed (b): in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 LM_ARCH = "qwen3_4b"
 LM_PREFILL = (4, 4096)      # prompts x tokens: train_4k's sequence length
 LM_GEN = (8, 128, 32)       # prompts, prompt tokens, new tokens
@@ -2480,11 +2811,21 @@ def main(argv=None) -> int:
     print("== sessions: two chains, store, resume, reload, serve, trace, "
           "GFASession")
     phase_sessions(args.seed)
+    print("== distributed: the sweep over torch.distributed, eager and "
+          "ring")
+    dist_launches = phase_distributed(args.seed)
+    torch.cuda.empty_cache()
     print("== lm: flash, Qwen3-4B forward, generate, BatchedServer")
     flash = phase_lm(args.seed, phase_flash(gen))
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]
+    # the same kernels' launches in the distributed phase's runs (slice
+    # eager and ring, probit eager; 4 sweeps each), apart from the main
+    # path's
+    for name in ("gram", "sddmm_gathered"):
+        entries[name]["distributed_launches"] = {
+            run: c[name] for run, c in dist_launches.items()}
     print(json.dumps({"kernels": [entries["gram"], entries["sddmm"],
                                   entries["sddmm_gathered"], topk,
                                   flash]}))

@@ -13,8 +13,12 @@ Public API (the slice of ``repro.core`` ported so far):
     random_sparse, DenseBlock, dense_block    -- inputs
     ModelDef / MFData / MFState / gibbs_step  -- low-level engine
     chain_keys / multi_chain_step             -- several chains
+    make_distributed_step, make_multi_chain_step,
+    distributed_supported, resolve_pipeline   -- the distributed sweep
 """
 from .blocks import BlockDef, DenseBlock, EntityDef, ModelDef, dense_block
+from .distributed import (distributed_supported, make_distributed_step,
+                          make_multi_chain_step, resolve_pipeline)
 from .gibbs import (MFData, MFState, chain_keys, gibbs_step,
                     init_chain_states, init_state, multi_chain_step,
                     run_sweeps, stack_states, unstack_state,
@@ -32,6 +36,8 @@ from .sparse import (PaddedRows, SparseMatrix, from_coo, from_dense,
 
 __all__ = [
     "BlockDef", "DenseBlock", "EntityDef", "ModelDef", "dense_block",
+    "distributed_supported", "make_distributed_step",
+    "make_multi_chain_step", "resolve_pipeline",
     "MFData", "MFState", "chain_keys", "gibbs_step", "init_chain_states",
     "init_state", "multi_chain_step", "run_sweeps", "stack_states",
     "unstack_state", "with_side_grams",

@@ -176,30 +176,35 @@ def multi_chain_step(model: ModelDef, data: MFData, stacked: MFState
 # ---------------------------------------------------------------------------
 
 def _sparse_contrib(mat: SparseMatrix, as_row: bool, fixed: torch.Tensor,
-                    noise, nstate, key, acc=None, lam=None, u_cur=None):
+                    noise, nstate, key, acc=None, lam=None, u_cur=None,
+                    row_offset=0):
     """alpha-weighted (gram, rhs) of one sparse block for one entity,
     (R,K,K) and (R,K); added in place to ``acc`` = (gram, rhs) when
     given, and ``lam`` added to the Gram when given.  Probit noise draws
     its latents around the predictions of the current factor ``u_cur``
     at every padded slot (padded slots gather row 0; ``augment`` zeroes
-    them)."""
+    them).  ``row_offset`` is the global index of the padded rows' row
+    0: nonzero on a row shard of the distributed sweep."""
     padded = mat.rows if as_row else mat.cols
     pred = None
     if isinstance(noise, ProbitNoise):
         pred = ops.gathered_sddmm_padded(u_cur, fixed, padded.idx)
-    vals, alpha = noise.augment(key, nstate, pred, padded.val, padded.mask)
+    vals, alpha = noise.augment(key, nstate, pred, padded.val, padded.mask,
+                                row_offset=row_offset)
     return ops.gathered_gram_and_rhs(fixed, padded.idx, vals, padded.mask,
                                      alpha, acc=acc, lam=lam)
 
 
 def _dense_contrib(payload: DenseBlock, as_row: bool, fixed: torch.Tensor,
-                   u_cur: torch.Tensor, noise, nstate, key):
+                   u_cur: torch.Tensor, noise, nstate, key, row_offset=0):
     """Contributions of a dense block: (gram_shared | None,
     gram_rows | None, rhs).  A fully observed block gives one (K, K)
-    Gram for every row, a masked one a (R, K, K) Gram per row."""
+    Gram for every row, a masked one a (R, K, K) Gram per row.
+    ``row_offset`` as in ``_sparse_contrib``."""
     X, m = payload.oriented(as_row)             # (R, C)
     pred = u_cur @ fixed.T if isinstance(noise, ProbitNoise) else None
-    vals, alpha = noise.augment(key, nstate, pred, X, m)
+    vals, alpha = noise.augment(key, nstate, pred, X, m,
+                                row_offset=row_offset)
     if payload.fully:
         return alpha * (fixed.T @ fixed), None, alpha * (vals @ fixed)
     gram_rows = alpha * torch.einsum("rc,ck,cl->rkl", m, fixed, fixed)
@@ -265,16 +270,17 @@ def row_bernoulli(key, p: torch.Tensor, row_offset=0) -> torch.Tensor:
 # factor conditionals
 # ---------------------------------------------------------------------------
 
-def _sample_normal_factor(key, rhs, b_p, *, Lam_rows=None, Lam_shared=None):
+def _sample_normal_factor(key, rhs, b_p, *, Lam_rows=None, Lam_shared=None,
+                          row_offset=0):
     """u_i ~ N(Lam_i^{-1} b_i, Lam_i^{-1}) batched over rows.
 
     ``Lam_rows`` (N, K, K) is the per-row precision (the blocks' Grams
     with Lambda_p added), or ``Lam_shared`` (K, K) the one precision of
     every row: then one Cholesky and matrix solves.  rhs (N, K); b_p
-    (K,) or (N, K).
+    (K,) or (N, K).  ``row_offset`` is the global index of row 0.
     """
     b = rhs + b_p if b_p.dim() == 2 else rhs + b_p[None, :]
-    z = row_normals(key, b.shape[0], b.shape[1])
+    z = row_normals(key, b.shape[0], b.shape[1], row_offset)
     if Lam_rows is None:
         L = cholesky(Lam_shared)                             # (K, K)
         mean = solve_lower(L, solve_lower(L, b.T), transpose=True).T
@@ -287,7 +293,8 @@ def _sample_normal_factor(key, rhs, b_p, *, Lam_rows=None, Lam_shared=None):
 
 
 def _sample_sns_factor(model: ModelDef, data: MFData, key, e: int,
-                       u: torch.Tensor, hyper, factors, noises,
+                       u: torch.Tensor, hyper, fixed_view, noises,
+                       row_offset=0,
                        trace: Optional[list] = None) -> torch.Tensor:
     """Coordinate-wise spike-and-slab update for entity ``e``.
 
@@ -301,16 +308,20 @@ def _sample_sns_factor(model: ModelDef, data: MFData, key, e: int,
 
     The inclusion draw folds k into ``k_incl`` and the slab draw into
     ``k_slab`` (``split(key)``), as the reference's loop does.  A dense
-    block's running prediction (R, C) is updated in place.  ``trace``,
-    when a list, receives ``(k, p_incl, s)`` per component (the tests
-    read the inclusion odds there).
+    block's running prediction (R, C) is updated in place.
+    ``fixed_view(o)`` is the whole factor of entity ``o``; ``u`` and the
+    blocks' rows may be a row shard whose row 0 has the global index
+    ``row_offset``: q and l are row-local, and both draws are
+    counter-based on the global row.
+    ``trace``, when a list, receives ``(k, p_incl, s)`` per component
+    (the tests read the inclusion odds there).
     """
     touching = model.blocks_touching(e)
     views = []
     for bi, as_row in touching:
         blk = model.blocks[bi]
         payload = data.blocks[bi]
-        fixed = factors[blk.other(e)]
+        fixed = fixed_view(blk.other(e))
         alpha = noises[bi]["alpha"]
         if blk.sparse:
             padded = payload.rows if as_row else payload.cols
@@ -356,9 +367,9 @@ def _sample_sns_factor(model: ModelDef, data: MFData, key, e: int,
                     + 0.5 * (torch.log(tau[k]) - torch.log(q))
                     + 0.5 * mu * l)
         p_incl = torch.sigmoid(log_odds)
-        s = row_bernoulli(random.fold_in(k_incl, k), p_incl).to(
-            torch.float32)
-        eps = row_normals(random.fold_in(k_slab, k), n, 1)[:, 0]
+        s = row_bernoulli(random.fold_in(k_incl, k), p_incl,
+                          row_offset).to(torch.float32)
+        eps = row_normals(random.fold_in(k_slab, k), n, 1, row_offset)[:, 0]
         u_k = s * (mu + eps / torch.sqrt(q))
         u[:, k] = u_k
         if trace is not None:
@@ -402,8 +413,7 @@ def _prior_terms(prior, hyper, n_rows: int, side, device):
 def _entity_update(model: ModelDef, data: MFData, key, e: int,
                    factors, hypers, noises):
     """Hyper-sample + factor-sample for one entity; returns updates."""
-    ent = model.entities[e]
-    prior = ent.prior
+    prior = model.entities[e].prior
     side = data.sides[e]
     k_hyp, k_fac, k_blk = random.split(key, 3)
     u = factors[e]
@@ -416,33 +426,57 @@ def _entity_update(model: ModelDef, data: MFData, key, e: int,
         hyper = prior.sample_hyper(k_hyp, u, hypers[e])
 
     # 2. factor matrix from its conditional
-    if isinstance(prior, SpikeAndSlabPrior):
-        return _sample_sns_factor(model, data, k_fac, e, u, hyper, factors,
-                                  noises), hyper
+    return _factor_update(model, data, k_fac, k_blk, e, u, hyper,
+                          factors.__getitem__, noises), hyper
 
-    Lam_p, b_p = _prior_terms(prior, hyper, ent.n_rows, side, u.device)
-    touching = model.blocks_touching(e)
+
+def _factor_update(model: ModelDef, data: MFData, k_fac, k_blk, e: int,
+                   u: torch.Tensor, hyper, fixed_view, noises,
+                   row_offset=0, skip=(), pre=None) -> torch.Tensor:
+    """Entity ``e``'s rows drawn from their conditional given ``hyper``.
+
+    ``fixed_view(o)`` is the whole factor of entity ``o``; ``u``, the
+    blocks' rows and the side information may be a row shard whose row
+    0 has the global index ``row_offset`` (the distributed sweep).
+    Blocks in ``skip`` are already summed into ``pre`` = (gram_shared,
+    gram_rows, rhs), the accumulators the rest add to (the ring
+    exchange's streamed dense blocks); with neither, this is the
+    single-device float program.
+    """
+    ent = model.entities[e]
+    prior = ent.prior
+    if isinstance(prior, SpikeAndSlabPrior):
+        return _sample_sns_factor(model, data, k_fac, e, u, hyper,
+                                  fixed_view, noises, row_offset=row_offset)
+
+    Lam_p, b_p = _prior_terms(prior, hyper, ent.n_rows, data.sides[e],
+                              u.device)
+    touching = [(bi, r) for bi, r in model.blocks_touching(e)
+                if bi not in skip]
     # with sparse blocks alone, each adds its alpha-weighted Gram and rhs
     # to the entity's in place and the last adds Lambda_p too; a dense
     # block's Gram joins in the reference's order after the loop
-    fold_lam = all(model.blocks[bi].sparse for bi, _ in touching)
-    gram_shared = gram_rows = rhs = None
+    fold_lam = pre is None and all(model.blocks[bi].sparse
+                                   for bi, _ in touching)
+    gram_shared, gram_rows, rhs = pre or (None, None, None)
     bkeys = random.split(k_blk, max(1, len(model.blocks)))
     for n, (bi, as_row) in enumerate(touching):
         blk = model.blocks[bi]
-        fixed = factors[blk.other(e)]
+        fixed = fixed_view(blk.other(e))
         if blk.sparse:
             acc = None if gram_rows is None else (gram_rows, rhs)
             lam = Lam_p if fold_lam and n == len(touching) - 1 else None
             g, r = _sparse_contrib(data.blocks[bi], as_row, fixed,
                                    blk.noise, noises[bi], bkeys[bi],
-                                   acc=acc, lam=lam, u_cur=u)
+                                   acc=acc, lam=lam, u_cur=u,
+                                   row_offset=row_offset)
             if acc is None and rhs is not None:
                 r = rhs.add_(r)
             gram_rows, rhs = g, r
             continue
         gs, gr, r = _dense_contrib(data.blocks[bi], as_row, fixed, u,
-                                   blk.noise, noises[bi], bkeys[bi])
+                                   blk.noise, noises[bi], bkeys[bi],
+                                   row_offset=row_offset)
         if gs is not None:
             gram_shared = gs if gram_shared is None else gram_shared + gs
         if gr is not None:
@@ -450,18 +484,18 @@ def _entity_update(model: ModelDef, data: MFData, key, e: int,
         rhs = r if rhs is None else rhs.add_(r)
 
     if rhs is None:
-        rhs = torch.zeros((ent.n_rows, model.num_latent),
+        rhs = torch.zeros((u.shape[0], model.num_latent),
                           dtype=torch.float32, device=u.device)
     if gram_rows is None:
         # one precision shared by every row: one Cholesky
         Lam = Lam_p if gram_shared is None else gram_shared + Lam_p
-        u_new = _sample_normal_factor(k_fac, rhs, b_p, Lam_shared=Lam)
-    else:
-        if not fold_lam:
-            gram_rows.add_(Lam_p if gram_shared is None
-                           else gram_shared + Lam_p)
-        u_new = _sample_normal_factor(k_fac, rhs, b_p, Lam_rows=gram_rows)
-    return u_new, hyper
+        return _sample_normal_factor(k_fac, rhs, b_p, Lam_shared=Lam,
+                                     row_offset=row_offset)
+    if not fold_lam:
+        gram_rows.add_(Lam_p if gram_shared is None
+                       else gram_shared + Lam_p)
+    return _sample_normal_factor(k_fac, rhs, b_p, Lam_rows=gram_rows,
+                                 row_offset=row_offset)
 
 
 def _block_pred_observed(model: ModelDef, data: MFData, bi: int, factors):

@@ -10,8 +10,10 @@ The counterpart of ``repro/core/noise.py``:
 Each noise model owns a tiny state dict and two hooks used by the Gibbs
 sweep:
 
-* ``sample_state(key, state, pred, vals, mask)`` -- resample the noise
-  state from residuals at the observed entries.
+* ``sample_state(key, state, pred, vals, mask, sse=None, nnz=None)``
+  -- resample the noise state from residuals at the observed entries;
+  ``sse``/``nnz`` replace the local sums (the distributed sweep passes
+  them all-reduced over the row shards).
 * ``augment(key, state, pred, vals, mask, row_offset=0)`` -- return the
   effective (values, precision) the factor update regresses on; for
   Gaussian noise the values themselves, for probit the truncated-normal
@@ -44,7 +46,8 @@ class FixedGaussian:
         return {"alpha": torch.tensor(self.precision, dtype=torch.float32,
                                       device=device)}
 
-    def sample_state(self, key, state, pred, vals, mask):
+    def sample_state(self, key, state, pred, vals, mask, sse=None,
+                     nnz=None):
         return state
 
     def augment(self, key, state, pred, vals, mask, row_offset=0):
@@ -67,10 +70,16 @@ class AdaptiveGaussian:
         return {"alpha": torch.tensor(self.sn_init, dtype=torch.float32,
                                       device=device)}
 
-    def sample_state(self, key, state, pred, vals, mask):
-        resid = (vals - pred) * mask
-        sse = torch.sum(resid * resid)
-        nnz = torch.sum(mask)
+    def sample_state(self, key, state, pred, vals, mask, sse=None,
+                     nnz=None):
+        """``sse``/``nnz`` override the local residual sums: the
+        distributed sweep all-reduces them over the row shards first, so
+        every rank draws the same alpha from the same key."""
+        if sse is None:
+            resid = (vals - pred) * mask
+            sse = torch.sum(resid * resid)
+        if nnz is None:
+            nnz = torch.sum(mask)
         a_post = self.a0 + 0.5 * nnz
         b_post = self.b0 + 0.5 * sse
         alpha = random.gamma(key, a_post) / b_post
@@ -142,7 +151,8 @@ class ProbitNoise:
         return {"alpha": torch.tensor(1.0, dtype=torch.float32,
                                       device=device)}
 
-    def sample_state(self, key, state, pred, vals, mask):
+    def sample_state(self, key, state, pred, vals, mask, sse=None,
+                     nnz=None):
         return state
 
     def augment(self, key, state, pred, vals, mask, row_offset=0):

@@ -34,9 +34,14 @@ around the kernels' build and one ``sweep`` span a sweep, fenced with
 ``REPRO_OBS_DIR`` or ``save_dir/obs``.  The chain is the same bits with
 the recorder on or off.
 
-The distributed sweep (``mesh=``, ``pipeline=``, ``chain_axis=``) is
-not ported yet and raises a ValueError naming ROADMAP.md item A8.
-Errors the two packages share carry the reference's messages.  Macau's
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) runs the chain
+through the distributed sweep of ``distributed.py``, one process a
+rank, ``pipeline=`` choosing the fixed factor's exchange and
+``chain_axis=`` a mesh dim to split the chains over; every rank calls
+``run()``, gets the whole result, and rank 0 alone writes the store.  A
+model outside the sharded subset warns, naming why, and every rank runs
+the whole single-device sweep.  Errors the two packages share carry the
+reference's messages.  Macau's
 side^T side is computed once, when the builder makes the data
 (``gibbs.with_side_grams``), where the reference recomputes it each
 sweep.
@@ -49,7 +54,9 @@ are built already, and on the CPU).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import warnings
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple, Union)
 
@@ -70,23 +77,62 @@ from .priors import (FixedNormalPrior, MacauPrior, NormalPrior,
                      SpikeAndSlabPrior)
 from .sparse import SparseMatrix
 
-_SUPPORTED = ("the port runs on one card; the distributed sweep is "
-              "ROADMAP.md queue A, item 8 (A8)")
+def _check_mesh(mesh: Any, pipeline: Optional[str],
+                chain_axis: Optional[str]) -> None:
+    """Validate the distributed sweep's knobs where they are given:
+    ``mesh`` a ``DeviceMesh``, a known ``pipeline``, and no
+    ``chain_axis`` without a mesh."""
+    from .distributed import resolve_pipeline
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise ValueError(
+                "mesh= takes a torch.distributed.device_mesh.DeviceMesh "
+                "(dims named from ('pod', 'data', 'model') plus an "
+                f"optional chain axis), got {type(mesh).__name__}")
+    if pipeline is not None:
+        resolve_pipeline(pipeline)
+    if chain_axis is not None and mesh is None:
+        raise ValueError(
+            f"chain_axis={chain_axis!r} shards chains over a mesh "
+            "axis; pass mesh= too")
 
 
-def _unsupported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: {_SUPPORTED}")
+def _place_step(model: ModelDef, data: MFData, state: MFState, mesh: Any,
+                pipeline: Optional[str], chains: int,
+                chain_axis: Optional[str]):
+    """(distributed step or None, data, state) to run the chain with.
 
-
-def _refuse_distributed(mesh: Any, pipeline: Optional[str],
-                        chain_axis: Optional[str]) -> None:
-    """Raise for the distributed sweep's knobs, which every entry point
-    takes as the reference's do."""
-    given = [name for name, v in (("mesh=", mesh), ("pipeline=", pipeline),
-                                  ("chain_axis=", chain_axis))
-             if v is not None]
-    if given:
-        raise _unsupported(f"the distributed sweep ({', '.join(given)})")
+    Without a mesh: None and the inputs (the single-device sweep), with
+    a warning when a ``pipeline`` was asked for.  With one: this rank's
+    placement from ``make_distributed_step`` (one chain) or
+    ``make_multi_chain_step``, after a warning naming why when the model
+    is outside the sharded subset (then every rank runs the whole
+    single-device sweep).
+    """
+    from .distributed import (distributed_unsupported_reason,
+                              make_distributed_step, make_multi_chain_step,
+                              resolve_pipeline)
+    resolve_pipeline(pipeline)
+    if mesh is None:
+        if pipeline is not None:
+            warnings.warn(
+                f"pipeline={pipeline!r} has no effect without mesh=: "
+                "the session runs the single-device sweep",
+                stacklevel=3)
+        return None, data, state
+    reason = distributed_unsupported_reason(model, mesh, data)
+    if reason is not None:
+        warnings.warn(
+            f"model is outside the sharded subset on this mesh "
+            f"({reason}); every rank runs the whole single-device sweep",
+            stacklevel=3)
+    if chains == 1:
+        return make_distributed_step(model, mesh, data, state,
+                                     pipeline=pipeline)
+    return make_multi_chain_step(model, mesh, data, state,
+                                 pipeline=pipeline, chains=chains,
+                                 chain_axis=chain_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -421,9 +467,12 @@ class Session:
       twenty times a run.
     * ``recorder`` (None: a fresh one, enabled by ``REPRO_OBS=1``) is
       shared with the checkpoint savers and records the sweep spans.
-
-    ``mesh``, ``pipeline`` and ``chain_axis`` exist in the reference and
-    raise here until the distributed sweep is ported (A8).
+    * ``mesh`` (a ``DeviceMesh``; every rank of the world runs the
+      session) runs the distributed sweep, ``pipeline`` ("eager" or
+      "ring", None: ``REPRO_PIPELINE``) chooses its exchange and
+      ``chain_axis`` splits the chains over a mesh dim.  The whole
+      state is gathered at the sweeps that accumulate, keep, store or
+      call back, and at the last; rank 0 writes the store.
     """
 
     def __init__(self, model: ModelDef, data: MFData, *,
@@ -439,7 +488,7 @@ class Session:
                                                    MFState]] = None,
                  accumulate_factor_means: bool = False,
                  recorder: Any = None):
-        _refuse_distributed(mesh, pipeline, chain_axis)
+        _check_mesh(mesh, pipeline, chain_axis)
         self.model = model
         self.data = data
         self.tests = dict(tests or {})
@@ -451,7 +500,10 @@ class Session:
         self.burnin = burnin
         self.nsamples = nsamples
         self.seed = seed
+        self.mesh = mesh
+        self.pipeline = pipeline
         self.chains = resolve_chains(chains)
+        self.chain_axis = chain_axis
         self.save_freq = save_freq
         self.save_dir = save_dir
         self.verbose = verbose
@@ -484,15 +536,17 @@ class Session:
         spec["run"] = self._run_spec(chain)
         save_model_spec(os.path.join(directory, MODEL_SPEC_FILE), spec)
 
-    def _make_savers(self, recorder=None):
+    def _make_savers(self, recorder=None, write: bool = True):
         """One ``CheckpointManager`` a chain, ``keep=None`` (a
         posterior-sample store retains every step).  One chain keeps
         the single-chain layout (``save_dir/model.json`` +
         ``save_dir/samples/``); C > 1 nests a single-chain store a chain
-        under ``save_dir/chain_<c>/``."""
+        under ``save_dir/chain_<c>/``.  ``write=False`` (a rank other
+        than 0) writes no ``model.json``: its savers only restore."""
         from ..checkpoint import CheckpointManager
         from .modelspec import SAMPLES_SUBDIR, chain_subdir
-        self._spec_at(self.save_dir)
+        if write:
+            self._spec_at(self.save_dir)
         if self.chains == 1:
             return [CheckpointManager(
                 os.path.join(self.save_dir, SAMPLES_SUBDIR), keep=None,
@@ -500,7 +554,8 @@ class Session:
         savers = []
         for c in range(self.chains):
             cdir = os.path.join(self.save_dir, chain_subdir(c))
-            self._spec_at(cdir, chain=c)
+            if write:
+                self._spec_at(cdir, chain=c)
             savers.append(CheckpointManager(
                 os.path.join(cdir, SAMPLES_SUBDIR), keep=None,
                 recorder=recorder))
@@ -526,6 +581,22 @@ class Session:
         return step, stack_states(chains)
 
     # -- run ---------------------------------------------------------------
+
+    def _wire_bytes(self, dstep) -> int:
+        """Bytes a rank receives a sweep by the communication contract
+        (``analysis.contract``), the ``bytes_on_wire`` of every sweep
+        span: 0 on one card and where every rank runs the whole
+        sweep."""
+        if dstep is None or not dstep.supported:
+            return 0
+        from ..analysis.contract import contract_for, contract_wire_bytes
+        from .distributed import _dim_size
+        c = contract_for(
+            self.model, tuple(int(n) for n in self.mesh.mesh.shape),
+            self.pipeline, chains=self.chains,
+            chain_axis_size=(None if self.chain_axis is None
+                             else _dim_size(self.mesh, self.chain_axis)))
+        return contract_wire_bytes(self.model, c)
 
     def _export_obs(self, rec) -> None:
         """Write the run's trace and metrics snapshots when the recorder
@@ -562,12 +633,16 @@ class Session:
         rec.set_kind("session")
         C = self.chains
         state = self._init()
+        rank0 = True
+        if self.mesh is not None:
+            import torch.distributed as dist
+            rank0 = dist.get_rank() == 0
 
         savers = []
         start = 0
         resumed_from: Optional[int] = None
         if self.save_freq:
-            savers = self._make_savers(recorder=rec)
+            savers = self._make_savers(recorder=rec, write=rank0)
             if resume:
                 restored = self._restore(savers, state)
                 if restored is not None:
@@ -578,9 +653,11 @@ class Session:
                 "resume=True needs save_freq > 0 and a save_dir "
                 "holding the interrupted chain's samples")
 
-        def step(d, s):
-            return gibbs_step(model, d, s) if C == 1 else \
-                multi_chain_step(model, d, s)
+        dstep, data_run, state_run = _place_step(
+            model, data, state, self.mesh, self.pipeline, C,
+            self.chain_axis)
+        step = dstep if dstep is not None else functools.partial(
+            gibbs_step if C == 1 else multi_chain_step, model)
 
         accs = {bi: PredictAccumulator(ts) for bi, ts in self.tests.items()}
         total = self.burnin + self.nsamples
@@ -593,6 +670,7 @@ class Session:
             rec.complete("session/compile", t_c, cat="session",
                          phase="compile")
         obs_on = rec.enabled
+        bytes_on_wire = self._wire_bytes(dstep) if obs_on else 0
         n_blocks = len(model.blocks)
         train_traces: List[List[float]] = [[] for _ in range(n_blocks)]
         chain_train_traces: List[List[List[float]]] = [
@@ -614,18 +692,26 @@ class Session:
         for sweep in range(start, total):
             if obs_on:
                 t_sweep = rec.now()
-            state, metrics = step(data, state)
+            state_run, metrics = step(data_run, state_run)
             if obs_on:
                 # fence: the sweep's device time, not its dispatch time
                 synchronize(dev)
                 t_done = rec.now()
+            in_sampling = sweep >= self.burnin
+            if dstep is None:
+                state = state_run
+            else:
+                # every chain's metrics, and the whole state where the
+                # loop reads it (counted apart from the sweep's census)
+                metrics = dstep.gather_metrics(metrics)
+                if in_sampling or self.callbacks or sweep == total - 1:
+                    state = dstep.gather_state(state_run)
             for bi in range(n_blocks):
                 arr = np.atleast_1d(
                     metrics[f"rmse_train_{bi}"].cpu().numpy())
                 train_traces[bi].append(float(arr[0]))
                 for c in range(C):
                     chain_train_traces[c][bi].append(float(arr[c]))
-            in_sampling = sweep >= self.burnin
             if in_sampling:
                 # pool the chains' draws step-major, chain-minor: the
                 # order PredictSession replays from a multi-chain store
@@ -661,7 +747,7 @@ class Session:
                     diag_traces.setdefault(
                         f"factor_rms_{ent.name}", []).append(np.atleast_1d(
                             rms.cpu().numpy().astype(np.float64)))
-                if savers and \
+                if savers and rank0 and \
                         (sweep - self.burnin + 1) % self.save_freq == 0:
                     if C == 1:
                         savers[0].save(sweep + 1, state)
@@ -673,9 +759,8 @@ class Session:
                     "sweep": sweep,
                     "phase": "sample" if in_sampling else "burnin",
                     "stage": "first" if sweep == start else "steady",
-                    # bytes a device sends a sweep: none on one card (the
-                    # reference's contract gives 0 for a single shard)
-                    "bytes_on_wire": 0,
+                    # bytes a rank receives a sweep, by the contract
+                    "bytes_on_wire": bytes_on_wire,
                 }
                 tr = diag_traces.get("rmse_train_0")
                 if tr:
@@ -708,7 +793,7 @@ class Session:
         if diag_traces:
             diag = compute_diagnostics(
                 {k: np.stack(v, axis=1) for k, v in diag_traces.items()})
-            if savers:
+            if savers and rank0:
                 save_diagnostics(self.save_dir, diag)
         synchronize(dev)
         runtime = clock.perf_counter() - t0
@@ -761,7 +846,8 @@ class Session:
                     "extend the chain, or rerun without resume=True.")
             means = [(s / max(n_acc, 1)).cpu().numpy() for s in sums]
         rec.gauge("session.chains", C)
-        self._export_obs(rec)
+        if rank0:
+            self._export_obs(rec)
         return SessionResult(
             rmse_test=head.rmse_test,
             auc_test=head.auc_test,
@@ -806,7 +892,7 @@ class TrainSession:
                  chain_axis: Optional[str] = None,
                  callbacks: Sequence[Callable[[SweepInfo], None]] = (),
                  recorder: Any = None):
-        _refuse_distributed(mesh, pipeline, chain_axis)
+        _check_mesh(mesh, pipeline, chain_axis)
         self.num_latent = num_latent
         self.burnin = burnin
         self.nsamples = nsamples
@@ -818,7 +904,10 @@ class TrainSession:
         self.verbose = verbose
         self.save_freq = save_freq
         self.save_dir = save_dir
+        self.mesh = mesh
+        self.pipeline = pipeline
         self.chains = chains
+        self.chain_axis = chain_axis
         self.callbacks = callbacks
         self._train: Optional[Any] = None
         self._test: Optional[TestSet] = None
@@ -883,7 +972,8 @@ class TrainSession:
             resume: bool = False) -> SessionResult:
         sess = self._builder().session(
             burnin=self.burnin, nsamples=self.nsamples, seed=self.seed,
-            chains=self.chains, save_freq=self.save_freq,
+            mesh=self.mesh, pipeline=self.pipeline, chains=self.chains,
+            chain_axis=self.chain_axis, save_freq=self.save_freq,
             save_dir=self.save_dir, verbose=self.verbose,
             callbacks=self.callbacks, recorder=self.recorder)
         return sess.run(keep_samples=keep_samples, resume=resume)
@@ -914,7 +1004,7 @@ class GFASession:
                  save_freq: int = 0, save_dir: Optional[str] = None,
                  callbacks: Sequence[Callable[[SweepInfo], None]] = (),
                  recorder: Any = None):
-        _refuse_distributed(mesh, pipeline, chain_axis)
+        _check_mesh(mesh, pipeline, chain_axis)
         self.device = resolve_device(device)
         self.views = [v if isinstance(v, torch.Tensor)
                       else np.asarray(v, np.float32) for v in views]
@@ -925,7 +1015,10 @@ class GFASession:
         self.seed = seed
         self.noise = noise or AdaptiveGaussian()
         self.zero_init_loadings = zero_init_loadings
+        self.mesh = mesh
+        self.pipeline = pipeline
         self.chains = chains
+        self.chain_axis = chain_axis
         self.save_freq = save_freq
         self.save_dir = save_dir
         self.callbacks = callbacks
@@ -954,7 +1047,8 @@ class GFASession:
     def run(self, resume: bool = False) -> Dict[str, Any]:
         sess = self._builder().session(
             burnin=self.burnin, nsamples=self.nsamples, seed=self.seed,
-            chains=self.chains, save_freq=self.save_freq,
+            mesh=self.mesh, pipeline=self.pipeline, chains=self.chains,
+            chain_axis=self.chain_axis, save_freq=self.save_freq,
             save_dir=self.save_dir, callbacks=self.callbacks,
             recorder=self.recorder,
             init_transform=(self._zero_loadings

@@ -121,8 +121,8 @@ def test_one_sns_update_from_carried_state_flips_only_at_ties(kind):
         trace = []
         tkey = torch.from_numpy(key.astype(np.int64))
         got = tgibbs._sample_sns_factor(
-            tm, tdata, tkey, e, ts.factors[e], ts.hypers[e], ts.factors,
-            ts.noises, trace=trace).numpy()
+            tm, tdata, tkey, e, ts.factors[e], ts.hypers[e],
+            ts.factors.__getitem__, ts.noises, trace=trace).numpy()
         k_incl = trandom.split(tkey)[0]
         differs = (got != 0) != (want != 0)
         for r in np.nonzero(differs.any(axis=1))[0]:

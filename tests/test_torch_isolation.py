@@ -46,6 +46,15 @@ def test_isolation_covers_the_session_layer_and_the_linter():
             "core/session.py"} <= names
 
 
+def test_isolation_covers_the_distributed_layer():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES[:-1]}
+    assert {"core/distributed.py", "analysis/contract.py",
+            "runtime/__init__.py", "runtime/__main__.py",
+            "runtime/fault.py", "runtime/straggler.py",
+            "runtime/world.py"} <= names
+
+
 def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     import repro_torch.core as tc
     from repro_torch.configs import get_smoke

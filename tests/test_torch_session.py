@@ -4,7 +4,7 @@
 chain: train traces and ``rmse_test`` at the golden-chain tolerance
 (rtol 1e-3 / atol 1e-5).  Errors that both packages raise carry the
 same message; the distributed sweep's options (``mesh=``, ``pipeline=``,
-``chain_axis=``) raise a ValueError that names ROADMAP item A8.
+``chain_axis=``), misused, raise a ValueError saying what they take.
 """
 import jax
 import numpy as np
@@ -181,21 +181,32 @@ def _builder():
     return b, tmat
 
 
+# the distributed sweep's options, misused: what each error must say
+_MISUSED = {
+    "mesh=": "mesh= takes a torch.distributed.device_mesh.DeviceMesh",
+    "pipeline=": "unknown pipeline 'warp'; valid pipelines: eager, ring",
+    "chain_axis=": ("chain_axis='chain' shards chains over a mesh axis; "
+                    "pass mesh= too"),
+}
+
+
 @pytest.mark.parametrize("what,call", [
     ("mesh=", lambda b, m: b.add_block("r", "c", m).session(
         mesh=object())),
     ("pipeline=", lambda b, m: b.add_block("r", "c", m).session(
-        pipeline="ring")),
+        pipeline="warp")),
     ("chain_axis=", lambda b, m: b.add_block("r", "c", m).session(
         chains=2, chain_axis="chain")),
 ])
 def test_options_outside_the_slice_raise(what, call):
+    """The distributed sweep's options are ported
+    (``tests/test_torch_distributed.py``); misused, they raise with the
+    reference's messages (``pipeline=`` and ``chain_axis=``) or name
+    what ``mesh=`` takes."""
     b, m = _builder()
     with pytest.raises(ValueError) as ei:
         call(b, m)
-    msg = str(ei.value)
-    assert what in msg and "not ported yet" in msg and "ROADMAP" in msg
-    assert "A8" in msg
+    assert _MISUSED[what] in str(ei.value)
 
 
 def test_unknown_prior_lists_the_ports_priors():
