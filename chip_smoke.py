@@ -95,7 +95,21 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    the first and last layer's captured inputs), ``generate`` on 8
    prompts of 128 tokens
    (decode held against forward) and ``BatchedServer`` (8 slots: the
-   same 8 prompts, bitwise ``generate``'s tokens; then 16 requests).
+   same 8 prompts, bitwise ``generate``'s tokens; then 16 requests);
+16. train: the flash forward's LSE output (both designs' out bitwise
+    without it, out and lse held against the plain version's) at the
+    probes and the training shape; the ``flash_bwd`` kernel against
+    its plain version at the probes, at the training path's shape (8 x
+    4,096, 9/3 heads of 64) and at Qwen3-4B's prefill shape (4 x 4,096,
+    32/8 of 128), two calls bitwise, timed beside SDPA's backward and
+    the plain version; ``train`` on SmolLM-135M at full width and
+    depth, 30 steps of 8 x 4,096 tokens (the loss must fall; 60 flash
+    and 30 flash_bwd launches a step under remat; every step's time,
+    the median and the whole window's rate), one step twice from one
+    state (bitwise), n_micro=2's gradients against n_micro=1's, a
+    profiled step, ``generate`` on the trained model against its
+    cast-once bf16 copy (bitwise), and a 12-step run restarted after a
+    lost device at step 10 against the uninterrupted run (bitwise).
 
 Every failed check raises, so the exit code is not 0.  The last two
 lines are the ``kernels`` JSON and the device JSON.  Without a CUDA
@@ -104,6 +118,7 @@ device, or outside a checkout, it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -1140,7 +1155,7 @@ def serve_store512(seed: int):
         wall = (time.perf_counter() - t0) * 1e3
         counts = ops.launch_counts()
         want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0,
-                "topk_score": 2, "flash": 0}
+                "topk_score": 2, "flash": 0, "flash_bwd": 0}
         if counts != want:
             raise AssertionError(f"store512: launch counts {counts}, want "
                                  f"{want}")
@@ -2440,7 +2455,7 @@ def phase_flash(gen):
 
 def profile_once(fn, label):
     """fn() under torch.profiler: wall, device busy, idle share and the
-    kernels with the most device time."""
+    kernels with the most device time; returns the busy ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2462,6 +2477,7 @@ def profile_once(fn, label):
     for e in kernels[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+    return busy
 
 
 def phase_lm(seed: int, flash_entry):
@@ -2638,7 +2654,7 @@ def phase_lm(seed: int, flash_entry):
     # forwards: the timed ones, generate's prefill and the one decode is
     # held against
     want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0, "topk_score": 0,
-            "flash": cfg.n_layers * (n_fwd + 2)}
+            "flash": cfg.n_layers * (n_fwd + 2), "flash_bwd": 0}
     if counts != want or kflash.design_launches["flash_sm90"] != want["flash"]:
         raise AssertionError(f"lm: launch counts {counts} "
                              f"({kflash.design_launches} by source), want "
@@ -2668,6 +2684,447 @@ def phase_lm(seed: int, flash_entry):
               f"{tuple(q.shape)}: max abs err {e:.3e}")
     flash_entry["launches"] = counts["flash"]
     return flash_entry
+
+
+TRAIN_ARCH = "smollm_135m"
+TRAIN_SHAPE = (8, 4096)     # sequences x tokens a step: train_4k's length
+TRAIN_STEPS = 30
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=30)
+RESUME = (12, 4, 10)        # steps, save_every, the step a device is lost
+BWD_QWEN = ((4, 4096, 32, 128), (4, 4096, 8, 128))   # Qwen3-4B prefill
+# n_micro=2 against n_micro=1, one step from one state on one batch:
+# the loss, and each leaf's gradient as AdamW receives it, in the
+# relative Frobenius norm |g2 - g1| / |g1|.  The microbatches' bf16
+# products run at half the rows (cuBLAS may pick another kernel, another
+# fp32 summation order, so bf16 outputs move by an ulp, 2^-8) and each
+# microbatch's bf16 weight gradient is rounded apart before the fp32
+# sum: three independent roundings of at most 2^-9 (rms 2^-9 / sqrt(3))
+# against n_micro=1's one, about 2^-9 of a leaf's norm in quadrature.
+# Loss rtol 1e-3 (the bf16 logits' 2^-9, averaged); gradients 2^-6, 8
+# times the roundings' share, for the ulps that move activations and
+# travel through 30 layers.  A fault (a microbatch lost or counted
+# twice, a missing 1/n_micro) moves a leaf by 1/2 or more.  Read on an
+# NVIDIA H100 80GB HBM3: at most 2.6e-3 over SmolLM-135M's 272 leaves
+# (median 2.3e-3), the same as at smoke size on the CPU.
+MICRO_TOL = dict(loss_rtol=1e-3, grad_rtol=2.0 ** -6)
+
+
+def flash_bwd_bound(q_shape, kv_shape):
+    """(ms, by, operations) of one causal bf16 backward from position 0:
+    q, k, v, out, dout and lse read once, dq, dk, dv written once; five
+    products of 2 hd operations per visible (query, key) pair and head
+    (S, dP, dV, dK, dQ), at the tensor cores' bf16 rate."""
+    B, Sq, H, hd = q_shape
+    Sk, KVH = kv_shape[1], kv_shape[2]
+    pairs = sum(min(Sk, s + 1) for s in range(Sq))
+    n_bytes = 2 * (4 * B * Sq * H * hd + 4 * B * Sk * KVH * hd) \
+        + 4 * B * H * Sq
+    n_ops = 10 * B * H * hd * pairs
+    return bound(n_bytes, n_ops, PEAK_BF16_FLOPS) + (n_ops,)
+
+
+def sdpa_bwd(q, k, v, dout):
+    """PyTorch's fused attention backward alone on the same inputs (the
+    yardstick): a function running torch.autograd.grad of one SDPA
+    forward, kept for every call."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+    g = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (qt, kt, vt), g,
+                                       retain_graph=True)
+
+
+def phase_flash_bwd(gen):
+    """The LSE forward (both designs' out bitwise without it, out and lse
+    held against the plain version's) and the flash_bwd kernel against its
+    plain version at the probes, at the training path's shape and at
+    Qwen3-4B's prefill shape; at both path shapes, in turns, the kernel,
+    SDPA's backward and the plain version.  Returns the kernels-line
+    entry without launches, with the forward's errors under
+    ``lse_max_abs_err`` and ``flash_max_abs_err``."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import flash_bwd as kbwd
+    from repro_torch.kernels import ops, ref
+    for line in _build.build_log("flash_bwd").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas flash_bwd: {line.strip()}")
+    print(f"flash_bwd tolerance: rtol {ref.FLASH_BWD_RTOL[torch.float32]} "
+          f"(fp32), {ref.FLASH_BWD_RTOL[torch.bfloat16]} (bf16) of |plain| "
+          f"+ sum |terms|; lse {ref.LSE_RTOL} (1 + |lse|) (kernels/ref.py "
+          "states why)")
+
+    def rand(shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    bf16 = torch.bfloat16
+    B, S = TRAIN_SHAPE
+    path = ((B, S, 9, 64), (B, S, 3, 64))
+    probes = [(label, q, kv, dt, kw) for label, (q, kv, dt, kw)
+              in ops.KERNELS["flash_bwd"].items()]
+    # the LSE forward: out bitwise without lse on the design the wrapper
+    # routes to, and on flash.cu for the bf16 probes at hd 64 and 128;
+    # out and lse held against the plain version's
+    errs, out_errs, lse_errs = [], [], []
+    for label, q_shape, kv_shape, dt, kw in probes + [
+            ("train path", *path, bf16, dict(causal=True))]:
+        q, k, v = (rand(s, dt) for s in (q_shape, kv_shape, kv_shape))
+        sources = [kflash.design(dt, q_shape[3])]
+        if sources[0] == "flash_sm90":
+            sources.append("flash")
+        for src in sources:
+            lse = torch.empty(q_shape[0], q_shape[2], q_shape[1],
+                              device="cuda")
+            out = kflash.launch(src, q, k, v, **kw, lse=lse)
+            plain = kflash.launch(src, q, k, v, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out, plain):
+                raise AssertionError(f"lse forward {label} on {src}: out "
+                                     "differs from the forward without lse")
+            out_errs.append(ref.check_attention(out, q, k, v, **kw,
+                                                what=f"out {label} {src}"))
+            lse_errs.append(ref.check_lse(lse, q, k, v, **kw,
+                                          what=f"lse {label} {src}"))
+            print(f"  lse forward {label} {str(dt)[6:]} on {src}: out "
+                  f"bitwise, out max abs err {out_errs[-1]:.3e}, lse max "
+                  f"abs err {lse_errs[-1]:.3e}")
+        del q, k, v
+    # the backward against its plain version, twice bitwise
+    for label, q_shape, kv_shape, dt, kw in probes + [
+            ("train path", *path, bf16, dict(causal=True)),
+            ("qwen3_4b prefill", *BWD_QWEN, bf16, dict(causal=True))]:
+        q, k, v, g = (rand(s, dt) for s in (q_shape, kv_shape, kv_shape,
+                                            q_shape))
+        out, lse = kflash.flash_cuda(q, k, v, **kw, return_lse=True)
+        grads = kbwd.flash_bwd_cuda(q, k, v, out, lse, g, **kw)
+        again = kbwd.flash_bwd_cuda(q, k, v, out, lse, g, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash_bwd {label}: two calls differ")
+        e = ref.check_attention_bwd(grads, q, k, v, out, lse, g, **kw,
+                                    what=f"flash_bwd {label}")
+        errs.append(e)
+        print(f"  flash_bwd {label} {tuple(q_shape)}/{kv_shape[2]} "
+              f"{str(dt)[6:]} {kw}: max abs err {e:.3e}, two calls bitwise")
+        del q, k, v, g, out, lse, grads, again
+        torch.cuda.empty_cache()
+
+    entry = None
+    for label, (q_shape, kv_shape) in (("train path", path),
+                                       ("qwen3_4b prefill", BWD_QWEN)):
+        q, k, v, g = (rand(s, bf16) for s in (q_shape, kv_shape, kv_shape,
+                                              q_shape))
+        out, lse = kflash.flash_cuda(q, k, v, causal=True, return_lse=True)
+        fns = {"flash_bwd": lambda: kbwd.flash_bwd_cuda(
+                   q, k, v, out, lse, g, causal=True),
+               "SDPA backward": sdpa_bwd(q, k, v, g),
+               "plain": lambda: ref.attention_bwd_ref(q, k, v, out, lse, g,
+                                                      causal=True)}
+        times = {n: [] for n in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for n in order:
+                times[n].append(time_ms(fns[n], n=5 if n == "plain"
+                                        else 20))
+        ms = {n: sum(t) / len(t) for n, t in times.items()}
+        fwd_ms = time_ms(lambda: kflash.flash_cuda(q, k, v, causal=True,
+                                                   return_lse=True))
+        b_ms, b_by, n_ops = flash_bwd_bound(q_shape, kv_shape)
+        print(f"  flash_bwd at {label} {q_shape}/{kv_shape[2]} bf16 causal, "
+              f"bound {b_ms:.3f} ms by {b_by} ({n_ops / 1e9:.1f} GFLOP); two "
+              "rounds in turns, mean:")
+        for n, t in times.items():
+            print(f"    {n}: {ms[n]:.3f} ms ({', '.join(f'{x:.3f}' for x in t)}"
+                  f"), {n_ops / ms[n] / 1e9:.1f} TFLOP/s, "
+                  f"{b_ms / ms[n]:.3f} of the bound")
+        print(f"    flash forward with lse at the same shape: {fwd_ms:.3f} "
+              f"ms; flash_bwd / SDPA backward "
+              f"{ms['flash_bwd'] / ms['SDPA backward']:.3f}")
+        if entry is None:
+            entry = {"name": "flash_bwd", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+                     "replaces": "src/repro/models/layers.py:245 (jnp "
+                                 "custom_vjp; no Pallas kernel)",
+                     "max_abs_err": max(errs), "ms": ms["flash_bwd"],
+                     "plain_ms": ms["plain"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": ms["SDPA backward"],
+                     "qwen3_4b_prefill": {}}
+        else:
+            entry["qwen3_4b_prefill"] = {
+                "ms": ms["flash_bwd"], "plain_ms": ms["plain"],
+                "bound_ms": b_ms, "library_ms": ms["SDPA backward"]}
+        del q, k, v, g, out, lse, fns
+        torch.cuda.empty_cache()
+    entry["lse_max_abs_err"] = max(lse_errs)
+    entry["flash_max_abs_err"] = max(out_errs)
+    return entry
+
+
+def _clone_state(model, opt_state):
+    import copy
+    from repro_torch.optim import OptState
+    return copy.deepcopy(model), OptState(
+        {n: t.clone() for n, t in opt_state.m.items()},
+        {n: t.clone() for n, t in opt_state.v.items()},
+        opt_state.step.clone())
+
+
+def _same_training_state(a, b, what):
+    """Raise unless two (params, OptState) are the same bits."""
+    import torch
+    pa, pb = dict(a[0].named_parameters()), dict(b[0].named_parameters())
+    diff = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    diff += [f"m[{n}]" for n in pa if not torch.equal(a[1].m[n], b[1].m[n])]
+    diff += [f"v[{n}]" for n in pa if not torch.equal(a[1].v[n], b[1].v[n])]
+    if diff or int(a[1].step) != int(b[1].step):
+        raise AssertionError(f"{what}: {len(diff)} leaves differ (first "
+                             f"{diff[:4]}), steps {int(a[1].step)} and "
+                             f"{int(b[1].step)}")
+
+
+def phase_train(seed: int, bwd_entry):
+    """LM training at SmolLM-135M's full width and depth: 30 steps of 8 x
+    4,096 tokens through ``repro_torch.launch.train.train``, its launch
+    counts and its profile; one step twice from one state; resume and
+    restart against an uninterrupted run; n_micro=2 against n_micro=1;
+    ``generate`` on the trained model against its cast-once copy.
+    Returns (flash_bwd entry with launches, flash launches of the run)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_lm_batch
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import for_serving, param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FailureSim
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_SHAPE
+    opt = AdamWConfig(**TRAIN_OPT)
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}, "
+          f"compute {cfg.dtype}; {param_count(cfg)[0]:,} parameters held as "
+          f"fp32 masters; {TRAIN_STEPS} steps of {B} x {S} tokens, "
+          f"AdamW {TRAIN_OPT}, remat on")
+
+    # every step timed on the host clock between synchronisations, by
+    # wrapping the module's make_train_step; beside each step, the
+    # allocator's retries (a cudaFree of the cache after a failed
+    # cudaMalloc) and the seconds in Python's garbage collector, so that
+    # a slow step can be placed
+    spans, retries, gc_ms = [], [], []
+    in_gc = []
+    orig = ttrain.make_train_step
+
+    def on_gc(phase, info):
+        if phase == "start":
+            in_gc.append(time.perf_counter())
+        elif in_gc:
+            dt = (time.perf_counter() - in_gc.pop()) * 1e3
+            if gc_ms:           # from a step's start to the next's
+                gc_ms[-1] += dt
+
+    def timed_make(*a, **kw):
+        step = orig(*a, **kw)
+
+        def timed(*x):
+            torch.cuda.synchronize()
+            r0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            gc_ms.append(0.0)
+            t = time.perf_counter()
+            r = step(*x)
+            torch.cuda.synchronize()
+            spans.append((t, time.perf_counter()))
+            retries.append(torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0) - r0)
+            return r
+        return timed
+
+    # the earlier phases' garbage is collected here, not in a timed step
+    # (a full collection of it takes seconds on the card's host)
+    t = time.perf_counter()
+    n = gc.collect()
+    print(f"train: gc.collect() before the run: {n} unreachable objects in "
+          f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ttrain.make_train_step = timed_make
+    gc.callbacks.append(on_gc)
+    try:
+        t0 = time.perf_counter()
+        run = ttrain.train(cfg, steps=TRAIN_STEPS, batch=B, seq=S,
+                           opt_cfg=opt, seed=seed, log_every=5)
+        wall = time.perf_counter() - t0
+    finally:
+        ttrain.make_train_step = orig
+        gc.callbacks.remove(on_gc)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = cfg.n_layers
+    want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0, "topk_score": 0,
+            "flash": 2 * n_layers * TRAIN_STEPS,
+            "flash_bwd": n_layers * TRAIN_STEPS}
+    if counts != want or kflash.design_launches["flash_sm90"] != \
+            want["flash"]:
+        raise AssertionError(f"train: launch counts {counts} "
+                             f"({kflash.design_launches} by source), want "
+                             f"{want}, all flash on flash_sm90")
+    losses = run["losses"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"train: loss did not fall, {first} -> {last}")
+    step_ms = [(e - t) * 1e3 for t, e in spans]
+    med = statistics.median(step_ms[1:])
+    # the window: steps 2 to the last, from the second step's start to
+    # the last step's end, host work between steps included
+    window_s = spans[-1][1] - spans[1][0]
+    window_rate = (TRAIN_STEPS - 1) * B * S / window_s
+    print(f"train: {TRAIN_STEPS} steps in {wall:.1f} s wall; step ms first "
+          f"{step_ms[0]:.1f}, then median {med:.1f} (min "
+          f"{min(step_ms[1:]):.1f}, max {max(step_ms[1:]):.1f}); "
+          f"{B * S / med * 1e3:.0f} tokens/s at the median step, "
+          f"{window_rate:.0f} tokens/s over steps 2-{TRAIN_STEPS} "
+          f"({window_s * 1e3:.1f} ms wall, "
+          f"{window_s * 1e3 - sum(step_ms[1:]):.1f} of it between steps); "
+          "peak device memory "
+          f"{peak / 1e9:.2f} GB")
+    print("train: step ms " + " ".join(
+        f"{i + 1}:{t:.1f}" + (f"[retries {r}]" if r else "")
+        + (f"[gc {g:.1f}]" if g >= 0.1 else "")
+        for i, (t, r, g) in enumerate(zip(step_ms, retries, gc_ms))))
+    print(f"train: loss mean of the first five {first:.4f}, of the last five "
+          f"{last:.4f}; losses " + " ".join(f"{x:.3f}" for x in losses))
+    print(f"train: launches {counts} in {TRAIN_STEPS} steps: flash "
+          f"{counts['flash'] // TRAIN_STEPS} a step (forward and the "
+          f"checkpointed recompute of {n_layers} layers, all on flash_sm90), "
+          f"flash_bwd {counts['flash_bwd'] // TRAIN_STEPS} a step")
+    model, ost = run["params"], run["opt_state"]
+    stream = TokenStream(cfg.vocab_size, seed=seed)
+    t = time.perf_counter()
+    batch = make_lm_batch(stream, TRAIN_STEPS, B, S)
+    torch.cuda.synchronize()
+    print(f"train: one step's batch from TokenStream (host) to the card in "
+          f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    step1 = ttrain.make_train_step(cfg, opt, n_micro=1)
+
+    # one step twice from one state: the same bits?
+    a = _clone_state(model, ost)
+    b = _clone_state(model, ost)
+    step1(*a, batch)
+    step1(*b, batch)
+    torch.cuda.synchronize()
+    _same_training_state(a, b, "one step twice from one state")
+    print("train: one step twice from one state gives the same bits "
+          "(params, m, v, step)")
+    del a, b
+
+    # n_micro=2 against n_micro=1 on one batch from one state: the loss
+    # and each leaf's gradient, as adamw_update receives it
+    grads = []
+    orig_update = ttrain.adamw_update
+
+    def spy_update(opt_cfg, params, g, state):
+        grads.append(g)
+        return orig_update(opt_cfg, params, g, state)
+
+    a = _clone_state(model, ost)
+    b = _clone_state(model, ost)
+    ttrain.adamw_update = spy_update
+    try:
+        _, _, m1 = step1(*a, batch)
+        _, _, m2 = ttrain.make_train_step(cfg, opt, n_micro=2)(*b, batch)
+    finally:
+        ttrain.adamw_update = orig_update
+    torch.cuda.synchronize()
+    g1, g2 = grads
+    rel = {n: float(torch.linalg.vector_norm(g2[n] - g1[n])
+                    / torch.linalg.vector_norm(g1[n])) for n in g1}
+    worst = sorted(rel, key=rel.get, reverse=True)
+    dl = abs(float(m2["loss"]) - float(m1["loss"]))
+    tol = MICRO_TOL
+    print(f"train: n_micro=2 vs 1: loss {float(m2['loss']):.6f} vs "
+          f"{float(m1['loss']):.6f} (|diff| {dl:.2e}), grad norm "
+          f"{float(m2['grad_norm']):.6f} vs {float(m1['grad_norm']):.6f}; "
+          f"each leaf's gradient, |g2 - g1| / |g1| (Frobenius): max "
+          f"{rel[worst[0]]:.3e}, median "
+          f"{statistics.median(rel.values()):.3e} over {len(rel)} leaves, "
+          "the largest " + ", ".join(f"{n} {rel[n]:.3e}"
+                                     for n in worst[:4])
+          + f"; tolerance {tol}")
+    if dl > tol["loss_rtol"] * abs(float(m1["loss"])) or \
+            rel[worst[0]] > tol["grad_rtol"]:
+        raise AssertionError("train: n_micro=2 is outside the stated "
+                             "tolerance of n_micro=1")
+    del a, b, grads, g1, g2
+
+    # where a step spends the card's time
+    prof = _clone_state(model, ost)
+    busy = profile_once(lambda: step1(*prof, batch),
+                        f"one train step B={B} S={S}")
+    # the profiler slows the host, not the kernels
+    mean_step = window_s * 1e3 / (TRAIN_STEPS - 1)
+    print(f"train: device busy {busy:.1f} ms against the median unprofiled "
+          f"step of {med:.1f} ms: idle share {1 - busy / med:.3f}; against "
+          f"the window's mean step of {mean_step:.1f} ms: "
+          f"{1 - busy / mean_step:.3f}")
+    del prof
+
+    # generate on the trained fp32-master model against its cast-once copy
+    prompts = stream.batch(TRAIN_STEPS + 1, 4, 64)[:, :64]
+    got = tserve.generate(cfg, model, prompts, max_new=16)
+    want_toks = tserve.generate(cfg, for_serving(model), prompts,
+                                max_new=16)
+    if not np.array_equal(got, want_toks):
+        raise AssertionError("generate on the trained model differs from "
+                             "its cast-once bf16 copy")
+    print("train: generate on the trained fp32-master model (4 prompts of "
+          "64 + 16 tokens) gives the tokens of its weights cast to bf16 "
+          "once, bitwise")
+    del run, model, ost
+    torch.cuda.empty_cache()
+
+    # resume and restart against an uninterrupted run
+    steps, every, lost = RESUME
+    ropt = AdamWConfig(**dict(TRAIN_OPT, total_steps=steps))
+    whole = ttrain.train(cfg, steps=steps, batch=B, seq=S, opt_cfg=ropt,
+                         seed=seed, log_every=0)
+    whole_state = (whole["params"], whole["opt_state"])
+    with tempfile.TemporaryDirectory() as d:
+        sim = FailureSim(fail_at=[lost])
+        cut = ttrain.train(cfg, steps=steps, batch=B, seq=S, opt_cfg=ropt,
+                           seed=seed, log_every=0, ckpt_dir=d,
+                           save_every=every, failure_sim=sim)
+    if sim.failures != 1 or cut["final_step"] != steps:
+        raise AssertionError(f"restart: {sim.failures} failures, final step "
+                             f"{cut['final_step']}")
+    _same_training_state((cut["params"], cut["opt_state"]), whole_state,
+                         "restart after FailureSim")
+    print(f"train: {steps} steps with a checkpoint every {every} and a lost "
+          f"device at step {lost} (resumed from step "
+          f"{lost // every * every}, {len(cut['losses'])} steps run) end on "
+          "the uninterrupted run's bits (params, m, v, step)")
+    del whole, whole_state, cut
+    torch.cuda.empty_cache()
+    bwd_entry["launches"] = counts["flash_bwd"]
+    bwd_entry["launches_per_step"] = counts["flash_bwd"] // TRAIN_STEPS
+    bwd_entry["train_step_ms"] = med
+    bwd_entry["train_tokens_per_s"] = B * S / med * 1e3
+    bwd_entry["train_window_tokens_per_s"] = window_rate
+    bwd_entry["train_peak_gb"] = peak / 1e9
+    return bwd_entry, counts["flash"]
 
 
 def busy_ms(events) -> float:
@@ -2817,6 +3274,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("== lm: flash, Qwen3-4B forward, generate, BatchedServer")
     flash = phase_lm(args.seed, phase_flash(gen))
+    torch.cuda.empty_cache()
+    print("== train: the LSE forward, flash_bwd, SmolLM-135M training, "
+          "resume")
+    bwd, flash["train_launches"] = phase_train(args.seed,
+                                               phase_flash_bwd(gen))
+    flash["train_launches_per_step"] = flash["train_launches"] \
+        // TRAIN_STEPS
+    flash["lse_max_abs_err"] = bwd.pop("lse_max_abs_err")
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               bwd.pop("flash_max_abs_err"))
+    flash["note"] = ("on the training path both designs also write each "
+                     "row's log-sum-exp for flash_bwd; launches count the "
+                     "lm phase, train_launches the train phase")
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]
@@ -2828,7 +3298,7 @@ def main(argv=None) -> int:
             run: c[name] for run, c in dist_launches.items()}
     print(json.dumps({"kernels": [entries["gram"], entries["sddmm"],
                                   entries["sddmm_gathered"], topk,
-                                  flash]}))
+                                  flash, bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

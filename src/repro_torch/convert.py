@@ -8,8 +8,12 @@ return the port's on a given device: sparse and dense blocks, side
 information, and every prior's hyper-state (Macau's ``beta`` and
 ``beta_prec``, spike-and-slab's ``rho`` and ``tau`` among them).  ``lm_params_from_reference``
 takes the reference's LM params tree as nested dicts of such arrays and
-returns the port's ``Transformer``.  The parity tests use them to start
-both packages from the same state and weights.  This module imports
+returns the port's ``Transformer`` (``train=True``: fp32 masters with
+gradients), ``opt_state_from_reference`` its AdamW state by the port's
+parameter names, and ``reference_leaf`` reads the leaf of a reference
+tree (params, gradients, moments) that a port parameter name stands
+for.  The parity tests use them to start both packages from the same
+state and weights.  This module imports
 nothing of JAX or ``repro``: it reads fields and keys by name.
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ from .core.sparse import PaddedRows, SparseMatrix
 from .models import layers as L
 from .models.config import ModelConfig
 from .models.transformer import Layer, Transformer, check_supported
+from .optim import OptState
 
 
 def _t(x, dev: torch.device) -> torch.Tensor:
@@ -101,7 +106,8 @@ def data_from_reference(blocks: Sequence[Any], sides: Sequence[Any],
 
 
 def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
-                             device: DeviceLike = None) -> Transformer:
+                             device: DeviceLike = None,
+                             train: bool = False) -> Transformer:
     """The port's ``Transformer`` from the reference's params tree
     (``repro.models.init_model``'s, as nested dicts of arrays).
 
@@ -110,11 +116,12 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
     port's stack, and ``pro{i}`` its prologue layer i.  Projection and
     embedding weights are cast to the compute dtype once here (the
     reference casts them inside every apply; the cast is elementwise,
-    so the bits are the same); norm scales stay fp32.  Raises for the
-    families the port does not run yet."""
+    so the bits are the same), or with ``train`` held as the
+    reference's fp32 masters with ``requires_grad=True``; norm scales
+    stay fp32.  Raises for the families the port does not run yet."""
     check_supported(cfg)
     dev = resolve_device(device)
-    dt = L.cdtype(cfg)
+    dt = L.held_dtype(cfg, train)
 
     def w(x, dtype=dt):
         return _t(np.asarray(x, np.float32), dev).to(dtype)
@@ -147,4 +154,43 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
     pro = [layer(params[f"pro{i}"]) for i in range(len(cfg.prologue))]
     stack = [layer(repeat(params["stack"][f"l{i}"], r))
              for r in range(cfg.repeats) for i in range(len(cfg.pattern))]
-    return Transformer(cfg, emb, pro, stack, norm(params["final_norm"]))
+    model = Transformer(cfg, emb, pro, stack, norm(params["final_norm"]))
+    return model.requires_grad_(train)
+
+
+def reference_leaf(tree: Dict[str, Any], name: str,
+                   cfg: ModelConfig) -> np.ndarray:
+    """The leaf of a reference tree shaped like the LM params (the
+    params, their gradients, AdamW's moments) that the port's parameter
+    ``name`` stands for: ``stack.{j}.<path>`` is repeat ``j //
+    len(pattern)`` of ``stack/l{j % len(pattern)}/<path>``,
+    ``pro.{i}.<path>`` is ``pro{i}/<path>``, the rest by its path."""
+    parts = name.split(".")
+    r = None
+    if parts[0] == "stack":
+        j = int(parts[1])
+        r, i = divmod(j, len(cfg.pattern))
+        parts = ["stack", f"l{i}"] + parts[2:]
+    elif parts[0] == "pro":
+        parts = [f"pro{parts[1]}"] + parts[2:]
+    node = tree
+    for key in parts:
+        node = node[key]
+    node = np.asarray(node)
+    return node if r is None else node[r]
+
+
+def opt_state_from_reference(opt_state, model: Transformer) -> OptState:
+    """The port's ``OptState`` from the reference's (``m``, ``v`` trees
+    shaped like the params, ``step``), by ``model``'s parameter names,
+    on ``model``'s device."""
+    dev = model.device
+    names = [n for n, _ in model.named_parameters()]
+
+    def tree(t):
+        return {n: _t(np.asarray(reference_leaf(t, n, model.cfg),
+                                 np.float32), dev) for n in names}
+
+    return OptState(tree(opt_state.m), tree(opt_state.v),
+                    torch.tensor(int(np.asarray(opt_state.step)),
+                                 dtype=torch.int32, device=dev))

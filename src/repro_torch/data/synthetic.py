@@ -1,20 +1,20 @@
 """Synthetic data: ChEMBL-like MF data and LM token streams, for seeded
 inputs.
 
-Copies of ``chembl_like`` and ``TokenStream`` from
-``repro/data/synthetic.py`` (pure numpy): the same seed gives the same
-arrays in both packages, bitwise.  ``chembl_like`` returns the port's
-``SparseMatrix`` on the device asked for (the card by default).
-``make_lm_batch`` and ``lm_batches`` (training) are a later slice
-(ROADMAP A10).
+Copies of ``chembl_like``, ``TokenStream``, ``make_lm_batch`` and
+``lm_batches`` from ``repro/data/synthetic.py`` (pure numpy): the same
+seed gives the same arrays in both packages, bitwise.  ``chembl_like``
+returns the port's ``SparseMatrix`` and the LM batches their tensors on
+the device asked for (the card by default).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+import torch
 
-from .._device import DeviceLike
+from .._device import DeviceLike, resolve_device
 from ..core.sparse import SparseMatrix, from_coo
 
 
@@ -89,3 +89,38 @@ class TokenStream:
             out[:, t] = tok
             state = tok % self.n_states
         return out
+
+
+def make_lm_batch(stream: TokenStream, step: int, batch: int, seq: int,
+                  frontend_tokens: int = 0, d_model: int = 0,
+                  enc_frames: int = 0, device: DeviceLike = None
+                  ) -> Dict[str, torch.Tensor]:
+    """One training batch on ``device``: ``tokens`` and ``labels``
+    (batch, seq) int64, the stream's step ``step`` shifted by one, and
+    the stub modality embeddings (``frontend`` (batch, frontend_tokens,
+    d_model), ``enc_frames`` (batch, enc_frames, d_model), fp32) where
+    asked for; the reference's values, bitwise."""
+    dev = resolve_device(device)
+    toks = torch.from_numpy(stream.batch(step, batch, seq).astype(np.int64))
+    out = {"tokens": toks[:, :-1].contiguous().to(dev),
+           "labels": toks[:, 1:].contiguous().to(dev)}
+    if frontend_tokens:
+        rng = np.random.default_rng((stream.seed, step, 7))
+        out["frontend"] = torch.from_numpy(
+            rng.normal(size=(batch, frontend_tokens, d_model))
+            .astype(np.float32)).to(dev)
+    if enc_frames:
+        rng = np.random.default_rng((stream.seed, step, 11))
+        out["enc_frames"] = torch.from_numpy(
+            rng.normal(size=(batch, enc_frames, d_model))
+            .astype(np.float32)).to(dev)
+    return out
+
+
+def lm_batches(stream: TokenStream, start_step: int, batch: int, seq: int,
+               **kw) -> Iterator[Dict[str, torch.Tensor]]:
+    """``make_lm_batch`` of steps ``start_step``, ``start_step + 1``, ..."""
+    step = start_step
+    while True:
+        yield make_lm_batch(stream, step, batch, seq, **kw)
+        step += 1

@@ -47,10 +47,13 @@ _SIGNATURES = {
     "topk_score": {"topk_score_f32": [ctypes.c_void_p] * 7
                    + [ctypes.c_int64] * 9
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
-    "flash": {"flash_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 19
+    # the flash entries take lse's address as an int64 after q_offset
+    "flash": {"flash_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 20
               + [ctypes.c_void_p]},
     "flash_sm90": {"flash_sm90_fwd": [ctypes.c_void_p] * 4
-                   + [ctypes.c_int64] * 18 + [ctypes.c_void_p]},
+                   + [ctypes.c_int64] * 19 + [ctypes.c_void_p]},
+    "flash_bwd": {"flash_bwd": [ctypes.c_void_p] * 10
+                  + [ctypes.c_int64] * 10 + [ctypes.c_void_p]},
 }
 
 # sources outside csrc/ (a kept design timed beside the current one),

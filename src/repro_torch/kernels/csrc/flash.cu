@@ -18,7 +18,11 @@
 //
 // Layout: q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), each read in
 // place through its strides (the last dimension contiguous); out
-// (B, Sq, H, hd) contiguous, in q's type.  A block owns 64 rows of one
+// (B, Sq, H, hd) contiguous, in q's type; lse, when its pointer is not
+// null, (B, H, Sq) fp32: each row's log-sum-exp m + log(l) of its
+// scaled scores, natural log, +inf for a row that sees no key (the
+// backward's exp(s - lse) is then 0).  out is the same bits with and
+// without it.  A block owns 64 rows of one
 // (b, kv head): row R of that head's Sq * G rows is position R / G,
 // head kvh * G + R % G, so every K/V tile the block loads serves all G
 // query heads that share it.  Key tiles that lie wholly outside every
@@ -72,6 +76,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                // (B, H, Sq) or null
   int64_t q_sb, q_ss, q_sh;  // strides in elements
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -101,6 +106,15 @@ __device__ __forceinline__ bool visible(const Args& a, int n, int qpos) {
   if (!a.causal) return true;
   if (n > qpos) return false;
   return a.window <= 0 || n > qpos - a.window;
+}
+
+// lse of folded row R (position R / G, head kvh * G + R % G) from its
+// running max m2 (log2 units) and denominator l: (m2 + log2 l) ln 2, or
+// +inf where l == 0
+__device__ __forceinline__ void write_lse(const Args& a, int b, int kvh,
+                                          int G, int R, float m2, float l) {
+  const int64_t i = ((int64_t)b * a.H + kvh * G + R % G) * a.Sq + R / G;
+  a.lse[i] = l == 0.f ? INFINITY : (m2 + log2f(l)) * 0.6931471805599453f;
 }
 
 // ---------------------------------------------------------------------
@@ -371,6 +385,8 @@ __global__ void __launch_bounds__(THREADS, 3)
   for (int half = 0; half < 2; ++half) {
     const int R = half ? r_hi : r_lo;
     if (R >= rows) continue;
+    if (a.lse != nullptr && lane % 4 == 0)
+      write_lse(a, b, kvh, G, R, half ? m_hi : m_lo, half ? l_hi : l_lo);
     const float inv = half ? inv_hi : inv_lo;
     const int64_t row_off =
         (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * a.hd;
@@ -465,6 +481,7 @@ __global__ void __launch_bounds__(THREADS32)
     __syncthreads();
   }
   if (R < rows) {
+    if (a.lse != nullptr && t4 == 0) write_lse(a, b, kvh, G, R, m, l);
     const float inv = 1.f / (l == 0.f ? 1.f : l);
     float* out = static_cast<float*>(a.o) +
                  (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * a.hd;
@@ -488,7 +505,9 @@ cudaError_t launch_bf16(const Args& a, dim3 grid, cudaStream_t st) {
 }  // namespace
 
 // q, k, v, out: device pointers; strides in elements (the last
-// dimension contiguous); is_bf16 picks the tensor-core kernel, else fp32.
+// dimension contiguous); lse: the address of a (B, H, Sq) fp32 buffer,
+// passed as an integer like the sizes, or 0 for none; is_bf16 picks the
+// tensor-core kernel, else fp32.
 // The caller has checked shapes, hd % 8 == 0, hd <= 128, the 16-byte
 // alignment of bf16 rows, and 0 <= q_offset, 0 <= window.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -497,14 +516,15 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int64_t k_sh, int64_t v_sb, int64_t v_ss,
                          int64_t v_sh, int64_t B, int64_t Sq, int64_t Sk,
                          int64_t H, int64_t KVH, int64_t hd, int64_t causal,
-                         int64_t window, int64_t q_offset, int64_t is_bf16,
-                         void* stream) {
+                         int64_t window, int64_t q_offset, int64_t lse,
+                         int64_t is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = out;
+  a.lse = reinterpret_cast<float*>(lse);
   a.q_sb = q_sb;
   a.q_ss = q_ss;
   a.q_sh = q_sh;

@@ -65,7 +65,11 @@
 //
 // Layout: q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), read in place
 // through their strides (last dimension contiguous, rows and strides
-// 16-byte aligned, as TMA needs); out (B, Sq, H, hd) contiguous bf16.
+// 16-byte aligned, as TMA needs); out (B, Sq, H, hd) contiguous bf16;
+// lse, when its pointer is not null, (B, H, Sq) fp32: each row's
+// log-sum-exp m + log(l) of its scaled scores, natural log, +inf for a
+// row that sees no key (the backward's exp(s - lse) is then 0).  out is
+// the same bits with and without it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -85,6 +89,7 @@ constexpr int LINE = 128;       // bytes of a swizzled shared line (64 bf16)
 struct Args {
   const __nv_bfloat16* q;
   __nv_bfloat16* o;
+  float* lse;                   // (B, H, Sq) or null
   int64_t q_sb, q_ss, q_sh;     // strides in elements
   int B, Sq, Sk, H, KVH;
   int causal, window, q_offset;
@@ -615,6 +620,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int half = 0; half < 2; ++half) {
       const int R = half ? r_hi : r_lo;
       if (R >= rows) continue;
+      if (a.lse != nullptr && lane % 4 == 0) {
+        // (m2 + log2 l) ln 2 from the log2-unit max m2, +inf where l == 0
+        const float m2 = half ? m_hi : m_lo, l = half ? l_hi : l_lo;
+        a.lse[((int64_t)b * a.H + kvh * G + R % G) * a.Sq + R / G] =
+            l == 0.f ? INFINITY : (m2 + log2f(l)) * 0.6931471805599453f;
+      }
       const float inv = half ? inv_hi : inv_lo;
       __nv_bfloat16* out =
           a.o + (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * HD;
@@ -631,6 +642,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 #undef FULL_V
 #undef EMPTY_K
 #undef EMPTY_V
+}
+
+// every lse of a call with no key: +inf
+__global__ void fill_inf(float* x, int64_t n) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x)
+    x[i] = INFINITY;
 }
 
 // ---- host ------------------------------------------------------------
@@ -702,7 +720,8 @@ cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mv,
 // Error codes besides cudaError_t: 1000 + the CUresult of a tensor map
 // that did not encode, 999 when the driver has no cuTensorMapEncodeTiled.
 // q, k, v, out: device pointers; strides in elements (the last
-// dimension contiguous).  The caller has checked shapes, bf16, hd 64 or
+// dimension contiguous); lse: the address of a (B, H, Sq) fp32 buffer,
+// passed as an integer like the sizes, or 0 for none.  The caller has checked shapes, bf16, hd 64 or
 // 128, the 16-byte alignment of pointers and strides, and
 // 0 <= q_offset, 0 <= window.
 extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
@@ -712,12 +731,18 @@ extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
                               int64_t v_sh, int64_t B, int64_t Sq,
                               int64_t Sk, int64_t H, int64_t KVH, int64_t hd,
                               int64_t causal, int64_t window,
-                              int64_t q_offset, void* stream) {
+                              int64_t q_offset, int64_t lse, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
   if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
-  if (Sk <= 0)   // no key: every row is 0
-    return (int)cudaMemsetAsync(out, 0, (size_t)(B * Sq * H * hd * 2), st);
+  if (Sk <= 0) {  // no key: every row is 0, every lse +inf
+    cudaError_t err =
+        cudaMemsetAsync(out, 0, (size_t)(B * Sq * H * hd * 2), st);
+    if (err != cudaSuccess || lse == 0) return (int)err;
+    fill_inf<<<256, 256, 0, st>>>(reinterpret_cast<float*>(lse),
+                                  B * H * Sq);
+    return (int)cudaGetLastError();
+  }
   const int64_t blocks = (Sq * (H / KVH) + BM - 1) / BM * B * KVH;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   EncodeTiled enc = encoder();
@@ -730,6 +755,7 @@ extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.o = static_cast<__nv_bfloat16*>(out);
+  a.lse = reinterpret_cast<float*>(lse);
   a.q_sb = q_sb;
   a.q_ss = q_ss;
   a.q_sh = q_sh;

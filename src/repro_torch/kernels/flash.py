@@ -10,6 +10,11 @@ bounds it on the card and how the design answers that.  Their plain
 version is ``ref.attention_ref``.  ``launches`` counts the calls that
 launched a kernel, one per call, and ``design_launches`` splits that
 count by source.
+
+With ``return_lse`` both kernels also write each row's log-sum-exp
+(B, H, Sq) fp32, which the backward (``flash_bwd.py``) reads; ``out``
+is the same bits with and without it.  The C entries take the buffer's
+address as an integer after ``q_offset`` (0 for none).
 """
 from __future__ import annotations
 
@@ -32,10 +37,12 @@ def design(dtype: torch.dtype, hd: int) -> str:
 
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool, window: int = 0,
-               q_offset: int = 0) -> torch.Tensor:
+               causal: bool, window: int = 0, q_offset: int = 0,
+               return_lse: bool = False):
     """out (B, Sq, H, hd) in q's dtype from CUDA tensors q (B, Sq, H, hd)
-    and k, v (B, Sk, KVH, hd), read in place through their strides.
+    and k, v (B, Sk, KVH, hd), read in place through their strides;
+    with ``return_lse``, (out, lse (B, H, Sq) fp32): each row's
+    log-sum-exp of its scaled scores, +inf for a row that sees no key.
     fp32 (CUDA cores, no TF32) or bf16 (tensor cores), by the kernel of
     :func:`design`.  Raises on what the kernels do not take: another
     dtype, mixed dtypes, a head width that is not a multiple of 8 or is
@@ -86,42 +93,47 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if source == "flash" and B * KVH > 65535:
         raise ValueError(f"flash_cuda: B*KVH = {B * KVH} exceeds the grid's "
                          "65535")
+    lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     out = launch(source, q, k, v, causal=causal, window=window,
-                 q_offset=q_offset)
+                 q_offset=q_offset, lse=lse)
     launches += 1
     design_launches[source] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def launch(source: str, q, k, v, *, causal: bool, window: int = 0,
-           q_offset: int = 0) -> torch.Tensor:
+           q_offset: int = 0, lse=None) -> torch.Tensor:
     """One launch of ``source``'s kernel on tensors that
-    :func:`flash_cuda` has checked, on the current stream; counts
-    nothing (``chip_smoke.py`` and the card's tests call it to run one
-    design beside the other)."""
+    :func:`flash_cuda` has checked, on the current stream, writing the
+    rows' log-sum-exp into ``lse`` (B, H, Sq) fp32 when it is given;
+    counts nothing (``chip_smoke.py`` and the card's tests call it to
+    run one design beside the other)."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     (fn_name,) = _build._SIGNATURES[source]
     fn = getattr(_build.load(source), fn_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*launch_args(q, k, v, out, causal=causal, window=window,
-                              q_offset=q_offset, source=source), stream)
+                              q_offset=q_offset, source=source, lse=lse),
+                 stream)
     _build.check(err, fn_name)
     return out
 
 
 def launch_args(q, k, v, out, *, causal: bool, window: int,
-                q_offset: int, source: str = "flash") -> tuple:
+                q_offset: int, source: str = "flash", lse=None) -> tuple:
     """The C entry's arguments but the stream: the four data pointers,
     the (batch, sequence, head) strides of q, k and v in elements, then
-    B, Sq, Sk, H, KVH, hd, causal, window, q_offset and, for
-    ``flash.cu``'s entry alone, is_bf16."""
+    B, Sq, Sk, H, KVH, hd, causal, window, q_offset, the address of
+    ``lse`` (0 for None) and, for ``flash.cu``'s entry alone,
+    is_bf16."""
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             B, Sq, Sk, H, KVH, hd, int(bool(causal)), int(window),
-            int(q_offset))
+            int(q_offset), 0 if lse is None else lse.data_ptr())
     if source == "flash":
         return args + (int(q.dtype == torch.bfloat16),)
     return args

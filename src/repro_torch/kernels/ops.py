@@ -16,6 +16,10 @@ probes with their dtypes).  ``gathered_gram_and_rhs``,
 entries: the sweep's gather, Gram, alpha and Lambda_p in one launch,
 and the predictions at gathered rows (or at every slot of a padded
 layout) without the (E, K) copies; their probes are the port's own.
+``flash_attention_fwd`` (the forward with its row log-sum-exp) and
+``flash_attention_bwd`` are the attention gradient's entries, which
+the reference computes outside any Pallas kernel; ``flash_bwd``'s
+probes are flash's plus GQA groups of 3 at hd 64.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Dict, Optional
 import torch
 
 from . import flash as _flash
+from . import flash_bwd as _flash_bwd
 from . import gram as _gram
 from . import ref
 from . import sddmm as _sddmm
@@ -132,6 +137,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              q_offset=q_offset)
 
 
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int = 0, q_offset: int = 0):
+    """``flash_attention`` that also returns each row's log-sum-exp:
+    (out, lse (B, H, Sq) fp32, +inf for a row that sees no key), which
+    ``flash_attention_bwd`` takes.  ``out`` is the same bits as
+    ``flash_attention``'s.  Counted under ``flash``."""
+    if q.is_cuda:
+        return _flash.flash_cuda(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, return_lse=True)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, return_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool, window: int = 0,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of attention from its inputs, the forward's ``out``
+    and ``lse`` and dout; see kernels/flash_bwd.py.  On the card one
+    call of the CUDA kernel on contiguous copies where an operand is not
+    contiguous (autograd may hand a strided dout); on the CPU
+    ``ref.attention_bwd_ref``."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if q.is_cuda:
+        return _flash_bwd.flash_bwd_cuda(
+            *(x.contiguous() for x in (q, k, v, out, lse, dout)), **kw)
+    return ref.attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+
+
 def exclusion_mask(exclude, B: int, N: int, device) -> torch.Tensor:
     """(B, N) float32, 1.0 where ``exclude`` is truthy (zeros for None);
     raises the reference's error on another shape."""
@@ -161,7 +195,8 @@ def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
     return {"gram": _gram.launches, "sddmm": _sddmm.launches,
             "sddmm_gathered": _sddmm.gathered_launches,
-            "topk_score": _topk.launches, "flash": _flash.launches}
+            "topk_score": _topk.launches, "flash": _flash.launches,
+            "flash_bwd": _flash_bwd.launches}
 
 
 def reset_launch_counts() -> None:
@@ -170,6 +205,7 @@ def reset_launch_counts() -> None:
     _sddmm.gathered_launches = 0
     _topk.launches = 0
     _flash.launches = 0
+    _flash_bwd.launches = 0
     _flash.design_launches.update(dict.fromkeys(_flash.design_launches, 0))
 
 
@@ -213,6 +249,16 @@ KERNELS = {
             (1, 130, 2, 8), (1, 130, 1, 8), torch.bfloat16,
             dict(causal=False))},
 }
+# the backward's: flash's probes, then GQA groups of 3 at hd 64 (the LM
+# path's widths), causal from 0 and windowed from an offset
+KERNELS["flash_bwd"] = {
+    **KERNELS["flash"],
+    "causal GQA3 b2 s200 h9/3 hd64 bf16": (
+        (2, 200, 9, 64), (2, 200, 3, 64), torch.bfloat16,
+        dict(causal=True)),
+    "windowed offset GQA3 s100 vs 300 hd64 bf16": (
+        (1, 100, 6, 64), (1, 300, 2, 64), torch.bfloat16,
+        dict(causal=True, window=80, q_offset=200))}
 
 
 def gathered_sddmm_probe(E: int, K: int, n_u: int, n_v: int, runs, device,

@@ -6,11 +6,15 @@ tensors, the CPU tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 ``gathered_gram_ref``, ``gathered_sddmm_ref`` and
 ``gathered_sddmm_padded_ref`` are the plain versions of the port's own
-fused entries.  Of the reference's bf16 branches only
+fused entries, and ``attention_bwd_ref`` that of the attention
+backward (``flash_bwd.py``), which has no Pallas kernel in the
+reference.  Of the reference's bf16 branches only
 ``gram_ref``'s is ported; the others belong to the ``bf16_gather`` slice
 (ROADMAP).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -205,9 +209,31 @@ def check_topk_score(got, want, us: torch.Tensor, v: torch.Tensor,
     return dm.max().item(), ds.max().item()
 
 
+def _scores(q, k, causal, window, q_offset, inplace=True):
+    """The fp32 scaled scores (B, H, Sq, Sk) of q and GQA-repeated k,
+    -inf where the mask hides a key (updated out of place when
+    ``inplace`` is False, for ``attention_ref``'s autograd witness: the
+    same values)."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    kf = torch.repeat_interleave(k.to(torch.float32), H // KVH, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf)
+    root = torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    s = s.div_(root) if inplace else s / root
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        ok = kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        s = s.masked_fill_(~ok, -torch.inf) if inplace \
+            else s.masked_fill(~ok, -torch.inf)
+    return s
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0, return_lse: bool = False):
     """Plain-softmax attention, the plain version of the flash kernel.
 
     Materialises the full (Sq, Sk) fp32 score matrix -- exactly what the
@@ -218,30 +244,33 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv head over its G query heads.  Rows with every key masked return
     0, as the kernel's ``l == 0`` guard does.  The score matrix is
     updated in place, so one (B, H, Sq, Sk) fp32 buffer is the peak.
+    Where autograd records the call (an operand that requires grad) the
+    same operations run out of place, with the same values; no path of
+    the package records it (the attention Function calls this with
+    autograd off), so that branch serves only the tests that hold
+    ``attention_bwd_ref`` against ``torch.autograd.grad`` through it.
 
-    q (B, Sq, H, hd), k/v (B, Sk, KVH, hd) -> (B, Sq, H, hd) in q's dtype.
+    q (B, Sq, H, hd), k/v (B, Sk, KVH, hd) -> (B, Sq, H, hd) in q's dtype;
+    with ``return_lse`` also each row's log-sum-exp m + log(l) of the
+    scaled scores, (B, H, Sq) fp32, +inf where l == 0 (the backward's
+    exp(s - lse) is then 0).
     """
-    B, Sq, H, hd = q.shape
-    Sk, KVH = k.shape[1], k.shape[2]
-    G = H // KVH
-    qf = q.to(torch.float32)
-    kf = torch.repeat_interleave(k.to(torch.float32), G, dim=2)
-    vf = torch.repeat_interleave(v.to(torch.float32), G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    s.div_(torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
-    if causal:
-        qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
-        kpos = torch.arange(Sk, device=q.device)[None, :]
-        ok = kpos <= qpos
-        if window > 0:
-            ok &= kpos > qpos - window
-        s.masked_fill_(~ok, -torch.inf)
+    H, KVH = q.shape[2], k.shape[2]
+    vf = torch.repeat_interleave(v.to(torch.float32), H // KVH, dim=2)
+    inplace = not (torch.is_grad_enabled()
+                   and any(x.requires_grad for x in (q, k, v)))
+    s = _scores(q, k, causal, window, q_offset, inplace)
     m = torch.amax(s, dim=-1, keepdim=True)
-    s.sub_(torch.where(torch.isfinite(m), m, 0.0)).exp_()
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    s = s.sub_(m).exp_() if inplace else (s - m).exp()
     l = torch.sum(s, dim=-1, keepdim=True)
-    s.div_(torch.where(l == 0.0, 1.0, l))
-    out = torch.einsum("bhqk,bkhd->bqhd", s, vf)
-    return out.to(q.dtype)
+    s = s.div_(torch.where(l == 0.0, 1.0, l)) if inplace \
+        else s / torch.where(l == 0.0, 1.0, l)
+    out = torch.einsum("bhqk,bkhd->bqhd", s, vf).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0.0, torch.inf, m + torch.log(l))
+    return out, lse[..., 0]
 
 
 # The stated tolerance of the flash kernel against ``attention_ref`` on
@@ -285,3 +314,156 @@ def check_attention(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             f"; max |diff| {diff.max().item():.3e}; tolerance rtol {rtol} "
             "of |plain| + sum p|v| (kernels/ref.py states why)")
     return diff.max().item()
+
+
+def _attention_bwd(q, k, v, out, lse, dout, causal, window, q_offset,
+                   magnitude=False):
+    """One batch row of the backward in fp32 (see attention_bwd_ref);
+    with ``magnitude``, the same sums over the terms' magnitudes:
+    |q|, |k|, |v|, |out|, |dout| in, and dS = P (dP + D) / sqrt(hd), so
+    that each output is the sum of |terms| of the true one."""
+    B, Sq, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    f32 = [x.to(torch.float32) for x in (q, k, v, out, dout)]
+    if magnitude:
+        f32 = [x.abs() for x in f32]
+    qf, kf, vf, of, gf = f32
+    kf, vf = (torch.repeat_interleave(x, G, dim=2) for x in (kf, vf))
+    p = _scores(q, k, causal, window, q_offset)         # the true scores
+    p.sub_(lse[..., None]).exp_()                       # 0 where masked
+    D = torch.einsum("bqhd,bqhd->bhq", gf, of)
+    ds = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    if magnitude:
+        ds.add_(D[..., None])
+    else:
+        ds.sub_(D[..., None])
+    ds.mul_(p).mul_(1.0 / math.sqrt(hd))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    Sk = k.shape[1]
+    dk = dk.reshape(B, Sk, KVH, G, hd).sum(3)
+    dv = dv.reshape(B, Sk, KVH, G, hd).sum(3)
+    return dq, dk, dv
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor,
+                      dout: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, q_offset: int = 0):
+    """Plain attention backward, the plain version of the flash_bwd
+    kernel (the reference's counterpart is the jnp custom_vjp
+    ``layers._flash_vjp_bwd``).
+
+    Materialises, batch row by batch row, the fp32 P = exp(s - lse) of
+    the masked scaled scores (0 where masked or where lse is +inf), then
+    D = rowsum(dout . out), dS = P (dP - D) / sqrt(hd) with
+    dP = dout v^T, dq = dS k, dk = dS^T q and dv = P^T dout, summing dk
+    and dv over each kv head's G query heads.  Two (H, Sq, Sk) fp32
+    buffers a batch row are the peak.
+
+    q, out, dout (B, Sq, H, hd), k/v (B, Sk, KVH, hd), lse (B, H, Sq)
+    fp32 (``attention_ref(..., return_lse=True)``'s) -> (dq, dk, dv) in
+    the dtypes of q, k and v.
+    """
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    parts = [_attention_bwd(*(x[b:b + 1] for x in (q, k, v, out, lse,
+                                                   dout)), **kw)
+             for b in range(q.shape[0])]
+    return tuple(torch.cat([p[i] for p in parts]).to(x.dtype)
+                 for i, x in enumerate((q, k, v)))
+
+
+def attention_bwd_magnitude(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: int = 0, q_offset: int = 0):
+    """(dq, dk, dv)-shaped fp32 sums of the magnitudes of each output's
+    terms: ``attention_bwd_ref``'s sums over |q|, |k|, |v|, |out|,
+    |dout| with dS = P (|dP| + |D|) / sqrt(hd), P of the true scores."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    return tuple(torch.cat(parts) for parts in zip(*(
+        _attention_bwd(*(x[b:b + 1] for x in (q, k, v, out, lse, dout)),
+                       **kw, magnitude=True)
+        for b in range(q.shape[0]))))
+
+
+# The stated tolerance of the kernels' row log-sum-exp against
+# ``attention_ref``'s: both take the max and the sum of exp in fp32, the
+# kernels in log2 units (scores times log2(e) / sqrt(hd), then ex2 and
+# log2), so the exponent moves by a few fp32 roundings of |lse|-sized
+# values (2^-24 each) and log(l) by the sum's 1e-6 relative error:
+# |kernel - plain| <= 1e-5 (1 + |plain|), and +inf exactly where the
+# plain version's row sees no key.
+LSE_RTOL = 1e-5
+
+
+def check_lse(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, *, causal: bool, window: int = 0,
+              q_offset: int = 0, what: str = "flash lse") -> float:
+    """Hold a kernel's ``lse`` against ``attention_ref``'s within
+    ``LSE_RTOL``; returns the max |got - plain| over the finite rows."""
+    _, want = attention_ref(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, return_lse=True)
+    inf = torch.isinf(want)
+    if not torch.equal(torch.isinf(got), inf) or (got[inf] < 0).any():
+        raise AssertionError(f"{what}: the +inf rows differ from the plain "
+                             "version's")
+    g, w = got[~inf], want[~inf]
+    diff = (g - w).abs()
+    if not torch.isfinite(g).all() or (
+            diff > LSE_RTOL * (1 + w.abs())).any():
+        raise AssertionError(
+            f"{what}: disagrees with the plain version, max |diff| "
+            f"{diff.max().item():.3e}, tolerance {LSE_RTOL} (1 + |lse|)")
+    return diff.max().item() if diff.numel() else 0.0
+
+
+# The stated tolerance of the flash_bwd kernel against
+# ``attention_bwd_ref`` on the same inputs, output by output:
+# |kernel - plain| <= rtol * (|plain| + m), m the sum of the output's
+# terms' magnitudes (``attention_bwd_ref`` over |inputs|, with
+# dS = P (|dP| + |D|) / sqrt(hd); ``check_attention_bwd``).
+# * fp32: two fp32 sums in sequence (dP and D over hd, then dq over the
+#   keys or dk, dv over the rows) in another order, and P through exp2
+#   of log2-scaled scores (a few 1e-7 relative).  rtol 2e-5;
+# * bf16: the kernel rounds P to bf16 for dV = P^T dout and dS to bf16
+#   for dq = dS k and dk = dS^T q (2^-9 of the terms' magnitude each),
+#   and both sides round the output to bf16 (2^-9 of |out| each); the
+#   products are exact in the tensor cores with fp32 sums.  rtol 2^-8,
+#   as the forward's.
+FLASH_BWD_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -8}
+
+
+def check_attention_bwd(got, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool, window: int = 0, q_offset: int = 0,
+                        what: str = "flash_bwd") -> float:
+    """Hold ``got`` = (dq, dk, dv) against ``attention_bwd_ref`` of the
+    same inputs within ``FLASH_BWD_RTOL``; raises AssertionError naming
+    the output and its worst element, returns the max |got - plain|."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    mags = attention_bwd_magnitude(q, k, v, out, lse, dout, **kw)
+    rtol = FLASH_BWD_RTOL[q.dtype]
+    worst = 0.0
+    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mags):
+        g, w = g.to(torch.float32), w.to(torch.float32)
+        if tuple(g.shape) != tuple(w.shape):
+            raise AssertionError(f"{what}: {name} {tuple(g.shape)}, plain "
+                                 f"{tuple(w.shape)}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: {name} is not finite")
+        diff = (g - w).abs()
+        bad = diff > rtol * (w.abs() + m)
+        if bad.any():
+            i = tuple(bad.nonzero()[0].tolist())
+            raise AssertionError(
+                f"{what}: {name} disagrees with the plain version at "
+                f"{int(bad.sum())} of {bad.numel()} elements, first at "
+                f"{list(i)}: got {g[i].item():.6e}, plain {w[i].item():.6e}"
+                f", magnitude {m[i].item():.3e}; max |diff| "
+                f"{diff.max().item():.3e}; tolerance rtol {rtol} of "
+                "|plain| + sum |terms| (kernels/ref.py states why)")
+        worst = max(worst, diff.max().item() if diff.numel() else 0.0)
+    return worst

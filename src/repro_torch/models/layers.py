@@ -7,21 +7,29 @@ holds the reference's parameter leaves under the same names
 (``wq.w``, ``q_norm.scale``, ``wi.w`` ...), and an ``apply_*`` function
 that takes it, as the reference's ``apply_*`` takes its params dict.
 
-Weights are held in the compute dtype (``cdtype``): the reference keeps
-fp32 masters and casts them inside every apply; the cast is
+Weights are held in one of two ways (``held_dtype``).  A serving model
+holds them in the compute dtype (``cdtype``), frozen: the reference
+keeps fp32 masters and casts them inside every apply; the cast is
 elementwise, so casting once when the weights are made or loaded gives
 the same bits and saves a read of the fp32 masters (and a write of the
-cast) on every call.  Norm scales stay fp32, as the reference applies
-them.  Nothing here trains: every parameter has ``requires_grad=False``.
+cast) on every call.  A training model (``train=True``) holds the
+reference's fp32 masters with ``requires_grad=True``.  Every ``apply_*``
+casts each leaf to ``cdtype`` where it reads it, as the reference does:
+for a serving model that cast is the tensor itself, so its bits do not
+move; for a training model the gradient flows back through the cast
+into the fp32 master.  Norm scales stay fp32 either way, as the
+reference applies them.
 
 Attention has two modes, as in the reference: a causal prefill/forward
-over the whole sequence, which runs ``kernels.ops.flash_attention`` (the
-hand-written CUDA kernel on the card) where the reference runs
-``chunked_attention``; and a decode step against a KV cache, which stays
-plain PyTorch, as the reference's ``decode_attention`` is outside any
-Pallas kernel.  Sliding windows (the ring-buffer decode),
-cross-attention, MLA, MoE and SSM blocks are not ported yet (ROADMAP
-A10): ``models.transformer.check_supported`` refuses their configs.
+over the whole sequence, which runs the hand-written CUDA kernels on the
+card where the reference runs ``chunked_attention`` -- without autograd
+``kernels.ops.flash_attention``, and under autograd ``attention_fn``,
+whose backward is the flash_bwd kernel; and a decode step against a KV
+cache, which stays plain PyTorch, as the reference's
+``decode_attention`` is outside any Pallas kernel.  Sliding windows
+(the ring-buffer decode), cross-attention, MLA, MoE and SSM blocks are
+not ported yet (ROADMAP A10): ``models.transformer.check_supported``
+refuses their configs.
 """
 from __future__ import annotations
 
@@ -42,7 +50,15 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def held_dtype(cfg: ModelConfig, train: bool) -> torch.dtype:
+    """The dtype projection and embedding weights are held in: fp32
+    masters for training, the compute dtype for serving."""
+    return torch.float32 if train else cdtype(cfg)
+
+
 def _frozen(x: torch.Tensor) -> nn.Parameter:
+    """A leaf, frozen; a training model turns every leaf on with
+    ``requires_grad_(True)`` once built."""
     return nn.Parameter(x, requires_grad=False)
 
 
@@ -154,9 +170,9 @@ class Attention(nn.Module):
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   device=None) -> Attention:
+                   device=None, dtype=None) -> Attention:
     D, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kw = dict(dtype=cdtype(cfg), device=device)
+    kw = dict(dtype=dtype or cdtype(cfg), device=device)
 
     def bias(n):
         return torch.zeros((n,), **kw) if cfg.qkv_bias else None
@@ -171,11 +187,49 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _proj(p: Dense, x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
-    y = torch.matmul(x, p.w)
+def _proj(p: Dense, x: torch.Tensor, n_heads: int, hd: int,
+          dtype: torch.dtype) -> torch.Tensor:
+    y = torch.matmul(x, p.w.to(dtype))
     if p.bias is not None:
-        y = y + p.bias
+        y = y + p.bias.to(dtype)
     return y.reshape(*x.shape[:-1], n_heads, hd)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the flash kernels: the forward saves q, k, v, out
+    and the rows' log-sum-exp, the backward is one flash_bwd call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # autograd may hand a strided dout: the entry makes it contiguous
+        # for the kernel
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def attention_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: int = 0,
+                 q_offset: int = 0) -> torch.Tensor:
+    """``ops.flash_attention`` with a gradient: under autograd (an
+    operand that requires grad) a ``torch.autograd.Function`` whose
+    forward runs ``ops.flash_attention_fwd`` and whose backward runs
+    ``ops.flash_attention_bwd`` (the kernels on the card, their plain
+    versions on the CPU); otherwise ``ops.flash_attention`` itself.
+    Both give the same output bits."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
@@ -190,13 +244,14 @@ def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     reference's ``dynamic_update_slice`` clamps its start, so the last
     row is overwritten, and so is it here.  Returns (y, new cache) with
     ``len + 1``.  Without a cache: the whole sequence from position 0,
-    through ``ops.flash_attention``.
+    through ``attention_fn``.
     """
+    dt = cdtype(cfg)
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _proj(p.wq, x, H, hd)
-    k = _proj(p.wk, x, KVH, hd)
-    v = _proj(p.wv, x, KVH, hd)
+    q = _proj(p.wq, x, H, hd, dt)
+    k = _proj(p.wk, x, KVH, hd, dt)
+    v = _proj(p.wv, x, KVH, hd, dt)
     if cfg.qk_norm:
         q = rms_norm(p.q_norm, q, cfg.norm_eps)
         k = rms_norm(p.k_norm, k, cfg.norm_eps)
@@ -218,9 +273,9 @@ def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                            device=x.device)[None].expand(B, S)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        out = ops.flash_attention(q, k, v, causal=True)
+        out = attention_fn(q, k, v, causal=True)
 
-    y = torch.matmul(out.reshape(B, S, H * hd), p.wo.w)
+    y = torch.matmul(out.reshape(B, S, H * hd), p.wo.w.to(dt))
     return y, new_cache
 
 
@@ -246,10 +301,10 @@ class MLP(nn.Module):
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
-             d_ff: Optional[int] = None, device=None) -> MLP:
+             d_ff: Optional[int] = None, device=None, dtype=None) -> MLP:
     D = cfg.d_model
     Fd = d_ff or cfg.d_ff
-    kw = dict(dtype=cdtype(cfg), device=device)
+    kw = dict(dtype=dtype or cdtype(cfg), device=device)
     if cfg.mlp_gelu:
         return MLP(Dense(_dense(gen, D, D, Fd, **kw), torch.zeros((Fd,), **kw)),
                    Dense(_dense(gen, Fd, Fd, D, **kw), torch.zeros((D,), **kw)))
@@ -259,12 +314,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 
 def apply_mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = cdtype(cfg)
     if cfg.mlp_gelu:
-        h = F.gelu(torch.matmul(x, p.wi.w) + p.wi.bias, approximate="tanh")
-        return torch.matmul(h, p.wdown.w) + p.wdown.bias
-    g = torch.matmul(x, p.wg.w)
-    h = torch.matmul(x, p.wi.w)
-    return torch.matmul(F.silu(g) * h, p.wdown.w)
+        h = F.gelu(torch.matmul(x, p.wi.w.to(dt)) + p.wi.bias.to(dt),
+                   approximate="tanh")
+        return torch.matmul(h, p.wdown.w.to(dt)) + p.wdown.bias.to(dt)
+    g = torch.matmul(x, p.wg.w.to(dt))
+    h = torch.matmul(x, p.wi.w.to(dt))
+    return torch.matmul(F.silu(g) * h, p.wdown.w.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -279,8 +336,9 @@ class Embed(nn.Module):
         self.embed, self.unembed = embed, unembed
 
 
-def init_embed(gen: torch.Generator, cfg: ModelConfig, device=None) -> Embed:
-    kw = dict(dtype=cdtype(cfg), device=device)
+def init_embed(gen: torch.Generator, cfg: ModelConfig, device=None,
+               dtype=None) -> Embed:
+    kw = dict(dtype=dtype or cdtype(cfg), device=device)
     p = Embed(Dense(_dense(gen, cfg.d_model, cfg.vocab_size, cfg.d_model,
                            **kw)))
     if not cfg.tie_embeddings:
@@ -291,9 +349,13 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device=None) -> Embed:
 
 def embed_tokens(p: Embed, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return p.embed.w[tokens]
+    """The whole table cast to the compute dtype, then gathered, as the
+    reference does: the gradient of repeated tokens accumulates in that
+    dtype before it reaches the fp32 master."""
+    return p.embed.w.to(cdtype(cfg))[tokens]
 
 
 def unembed(p: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    w = p.embed.w.T if cfg.tie_embeddings else p.unembed.w
+    dt = cdtype(cfg)
+    w = p.embed.w.to(dt).T if cfg.tie_embeddings else p.unembed.w.to(dt)
     return torch.matmul(x, w)

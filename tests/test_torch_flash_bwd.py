@@ -1,0 +1,244 @@
+"""The port's attention gradient against the JAX package's, on the CPU.
+
+On the CPU ``repro_torch.kernels.ops.flash_attention_bwd`` runs the
+plain version ``ref.attention_bwd_ref`` (the CUDA kernel
+``csrc/flash_bwd.cu`` needs the card: ``test_torch_kernels_cuda.py``
+and ``chip_smoke.py`` hold it against this plain version).  It is held
+against ``jax.vjp`` of the reference's ``layers.flash_attention`` (the
+jnp custom_vjp whose backward ``_flash_vjp_bwd`` the kernel stands for)
+and of ``layers.chunked_attention`` (the model path's attention under
+plain autodiff), and against ``torch.autograd.grad`` through the port's
+``ref.attention_ref``: causal with GQA groups of 1, 2 and 3, windowed
+from an offset (fully masked rows included), and non-causal.
+
+Fully masked rows: the reference's model path masks with -1e30, so a
+row that sees no key there takes the mean of v (and passes gradient to
+every key), where the port's kernels and both packages' ``attention_ref``
+return 0 (the ``l == 0`` guard).  Against the -1e30 paths those rows get
+dout = 0, so that they contribute nothing on either side; against
+``attention_ref`` (autograd) every row has a random dout.
+
+Tolerance, fp32: |port - reference| <= 1e-5 (|reference| + m), m the
+sum of the magnitudes of the output's terms
+(``ref.attention_bwd_magnitude``): the same fp32 function summed in
+another order (rounding errors grow with the sum of |terms|), plus
+1e-7 absolute where both sides are 0 up to rounding.  The row
+log-sum-exp: 1e-6 (1 + |lse|) against the reference's ``m + log(l)``.
+"""
+import ctypes
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.layers import _flash_fwd as jflash_fwd
+from repro.models.layers import chunked_attention
+from repro.models.layers import flash_attention as jflash
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash as tflash
+from repro_torch.kernels import flash_bwd as tflash_bwd
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import layers as tL
+
+RTOL, ATOL = 1e-5, 1e-7
+
+# (label, q shape, k/v shape, masking arguments, chunk of the reference's
+# flash_attention and chunked_attention)
+CASES = [
+    ("causal G1", (2, 48, 4, 16), (2, 48, 4, 16), dict(causal=True), 16),
+    ("causal G2", (1, 64, 4, 32), (1, 64, 2, 32), dict(causal=True), 32),
+    ("causal G3 smollm", (2, 40, 9, 64), (2, 40, 3, 64),
+     dict(causal=True), 40),
+    ("windowed offset, masked rows", (1, 24, 4, 8), (1, 20, 2, 8),
+     dict(causal=True, window=3, q_offset=19), 8),
+    ("windowed offset G3", (2, 30, 6, 16), (2, 50, 2, 16),
+     dict(causal=True, window=12, q_offset=20), 10),
+    ("noncausal G2 sk ragged", (2, 20, 4, 8), (2, 33, 2, 8),
+     dict(causal=False), 20),
+]
+IDS = [c[0] for c in CASES]
+
+
+def _inputs(q_shape, kv_shape, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.normal(size=s).astype(np.float32)
+                  for s in (q_shape, kv_shape, kv_shape, q_shape))
+    return q, k, v, g
+
+
+def _port(q, k, v, g, kw):
+    """(out, lse, (dq, dk, dv)) of the port's plain forward and
+    backward, fp32 on the CPU."""
+    t = [torch.from_numpy(x) for x in (q, k, v, g)]
+    out, lse = tops.flash_attention_fwd(*t[:3], **kw)
+    grads = tops.flash_attention_bwd(*t[:3], out, lse, t[3], **kw)
+    return t, out, lse, grads
+
+
+def _visible(Sq, Sk, kw):
+    """(Sq,) bool: the query rows that see at least one key."""
+    if not kw.get("causal"):
+        return np.full(Sq, Sk > 0)
+    qpos = kw.get("q_offset", 0) + np.arange(Sq)
+    lo = qpos - kw["window"] + 1 if kw.get("window") else np.zeros(Sq)
+    return (np.minimum(qpos, Sk - 1) >= np.maximum(lo, 0))
+
+
+def _close(t, out, lse, got, want, g, kw, what):
+    mags = tref.attention_bwd_magnitude(*t[:3], out, lse, g, **kw)
+    for name, a, b, m in zip(("dq", "dk", "dv"), got, want, mags):
+        a, b, m = a.numpy(), np.asarray(b, np.float32), m.numpy()
+        assert np.isfinite(a).all()
+        bad = np.abs(a - b) > RTOL * (np.abs(b) + m) + ATOL
+        assert not bad.any(), (what, name, np.abs(a - b).max(),
+                               int(bad.sum()))
+
+
+def _jax_vjp(fn, q, k, v, g):
+    with jax.threefry_partitionable(False):
+        _, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))
+        return vjp(jnp.asarray(g))
+
+
+@pytest.mark.parametrize("label,q_shape,kv_shape,kw,chunk", CASES, ids=IDS)
+def test_plain_backward_matches_reference_flash_vjp(label, q_shape,
+                                                    kv_shape, kw, chunk):
+    q, k, v, g = _inputs(q_shape, kv_shape)
+    g[:, ~_visible(q_shape[1], kv_shape[1], kw)] = 0.0
+    t, out, lse, got = _port(q, k, v, g, kw)
+    causal, window, q_offset = (kw["causal"], kw.get("window", 0),
+                                kw.get("q_offset", 0))
+    want = _jax_vjp(lambda a, b, c: jflash(a, b, c, causal, window,
+                                           q_offset, chunk), q, k, v, g)
+    _close(t, out, lse, got, want, t[3], kw, "flash_attention vjp")
+
+
+@pytest.mark.parametrize("label,q_shape,kv_shape,kw,chunk", CASES, ids=IDS)
+def test_plain_backward_matches_reference_chunked_attention(
+        label, q_shape, kv_shape, kw, chunk):
+    q, k, v, g = _inputs(q_shape, kv_shape, seed=1)
+    g[:, ~_visible(q_shape[1], kv_shape[1], kw)] = 0.0
+    t, out, lse, got = _port(q, k, v, g, kw)
+    want = _jax_vjp(lambda a, b, c: chunked_attention(a, b, c, chunk=chunk,
+                                                      **kw), q, k, v, g)
+    _close(t, out, lse, got, want, t[3], kw, "chunked_attention vjp")
+
+
+@pytest.mark.parametrize("label,q_shape,kv_shape,kw,chunk", CASES, ids=IDS)
+def test_plain_backward_matches_autograd_through_plain_forward(
+        label, q_shape, kv_shape, kw, chunk):
+    q, k, v, g = _inputs(q_shape, kv_shape, seed=2)
+    t, out, lse, got = _port(q, k, v, g, kw)
+    leaves = [x.clone().requires_grad_() for x in t[:3]]
+    want = torch.autograd.grad(tref.attention_ref(*leaves, **kw), leaves,
+                               t[3])
+    _close(t, out, lse, got, want, t[3], kw, "autograd")
+    if not _visible(q_shape[1], kv_shape[1], kw).all():
+        assert torch.isinf(lse).any() and (got[0][:, ~torch.from_numpy(
+            _visible(q_shape[1], kv_shape[1], kw))] == 0).all()
+
+
+@pytest.mark.parametrize("label,q_shape,kv_shape,kw,chunk", CASES, ids=IDS)
+def test_lse_matches_reference_row_statistics(label, q_shape, kv_shape, kw,
+                                              chunk):
+    """lse = m + log(l) of the reference's flash forward on the rows
+    that see a key; +inf on the others."""
+    q, k, v, _ = _inputs(q_shape, kv_shape, seed=3)
+    _, lse = tref.attention_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                                **kw, return_lse=True)
+    with jax.threefry_partitionable(False):
+        _, ms, ls = jflash_fwd(*(jnp.asarray(x) for x in (q, k, v)),
+                               kw["causal"], kw.get("window", 0),
+                               kw.get("q_offset", 0), chunk)
+    # (n, B, KVH, G, C) -> (B, H, Sq)
+    n, B, KVH, G, C = ms.shape
+    want = np.asarray(ms + jnp.log(ls)).transpose(1, 2, 3, 0, 4).reshape(
+        B, KVH * G, n * C)
+    seen = _visible(q_shape[1], kv_shape[1], kw)
+    got = lse.numpy()
+    assert np.isinf(got[..., ~seen]).all() and (got[..., ~seen] > 0).all()
+    np.testing.assert_allclose(got[..., seen], want[..., seen], rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_attention_fn_gradient_is_the_plain_backward():
+    """Under autograd the layers' attention_fn runs the Function (plain
+    forward with lse, plain backward on the CPU); without autograd it is
+    ops.flash_attention, the same output bits."""
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs((2, 20, 6, 16),
+                                                       (2, 20, 2, 16)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tL.attention_fn(*leaves, causal=True)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), tops.flash_attention(q, k, v,
+                                                          causal=True))
+    got = torch.autograd.grad(out, leaves, g)
+    _, lse = tref.attention_ref(q, k, v, causal=True, return_lse=True)
+    want = tref.attention_bwd_ref(q, k, v, out.detach(), lse, g,
+                                  causal=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        plain = tL.attention_fn(*leaves, causal=True)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+
+
+def test_cpu_gradient_entries_launch_no_kernel():
+    tops.reset_launch_counts()
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs((1, 8, 2, 8),
+                                                       (1, 8, 1, 8)))
+    out, lse = tops.flash_attention_fwd(q, k, v, causal=True)
+    tops.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    assert tops.launch_counts()["flash"] == 0
+    assert tops.launch_counts()["flash_bwd"] == 0
+
+
+def test_cuda_backward_wrapper_refuses_cpu_tensors():
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs((1, 8, 2, 8),
+                                                       (1, 8, 1, 8)))
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        tflash_bwd.flash_bwd_cuda(q, k, v, q, lse, g, causal=True)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        tflash.flash_cuda(q, k, v, causal=True, return_lse=True)
+
+
+def _c_params(source, entry):
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+    return [p.split()[-1].lstrip("*") for p in sig.split(",")]
+
+
+def test_backward_signature_fits_the_c_entry():
+    """The wrapper's ctypes signature is the C entry's: ten pointers,
+    ten int64 sizes and flags, the stream."""
+    params = _c_params("flash_bwd", "flash_bwd")
+    ((name, argtypes),) = _build._SIGNATURES["flash_bwd"].items()
+    assert name == "flash_bwd" and len(argtypes) == len(params)
+    assert params[:10] == ["q", "k", "v", "out", "dout", "lse", "delta",
+                           "dq", "dk", "dv"]
+    assert all(t is ctypes.c_void_p for t in argtypes[:10])
+    assert params[10:-1] == ["B", "Sq", "Sk", "H", "KVH", "hd", "causal",
+                             "window", "q_offset", "is_bf16"]
+    assert all(t is ctypes.c_int64 for t in argtypes[10:-1])
+    assert argtypes[-1] is ctypes.c_void_p and params[-1] == "stream"
+
+
+@pytest.mark.parametrize("source,entry", [("flash", "flash_fwd"),
+                                          ("flash_sm90", "flash_sm90_fwd")])
+def test_forward_entries_take_the_lse_address_after_q_offset(source, entry):
+    params = _c_params(source, entry)
+    i = params.index("lse")
+    assert params[i - 1] == "q_offset"
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 4)
+    with_lse = tflash.launch_args(q, k, k, q, causal=True, window=0,
+                                  q_offset=0, source=source, lse=lse)
+    assert with_lse[i] == lse.data_ptr()
+    assert tflash.launch_args(q, k, k, q, causal=True, window=0,
+                              q_offset=0, source=source)[i] == 0

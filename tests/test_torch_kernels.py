@@ -87,7 +87,7 @@ def test_cpu_dispatch_launches_no_kernel():
                                              [0, 0], [4, 1]], np.int32)))
     assert tops.launch_counts() == {"gram": 0, "sddmm": 0,
                                     "sddmm_gathered": 0, "topk_score": 0,
-                                    "flash": 0}
+                                    "flash": 0, "flash_bwd": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -108,8 +108,18 @@ def test_probe_envelope_mirrors_reference():
     their shapes and dtypes; flash's all three of the reference's, with
     their dtypes (``test_torch_flash.py`` holds their masking
     arguments).  ``sddmm_gathered`` is the port's own entry: its
-    production probe is sddmm's production shape."""
+    production probe is sddmm's production shape.  ``flash_bwd`` is the
+    port's own too (the reference has no Pallas backward): flash's
+    probes, then GQA groups of 3 at hd 64."""
     for name, probes in tops.KERNELS.items():
+        if name == "flash_bwd":
+            own = {label: p for label, p in probes.items()
+                   if label not in tops.KERNELS["flash"]}
+            assert {label: p for label, p in probes.items()
+                    if label not in own} == tops.KERNELS["flash"]
+            assert own and all(q[2] == 3 * kv[2] and q[3] == kv[3] == 64
+                               for q, kv, _, _ in own.values())
+            continue
         if name == "sddmm_gathered":
             E, K = probes["production e4096 K128"][:2]
             assert (E, K) == tops.KERNELS["sddmm"]["production e4096 K128"]

@@ -8,14 +8,16 @@ on the card they run with
 This file imports neither JAX nor ``repro``, so it runs where only the
 port is installed.  Tolerance rtol 1e-5 / atol 1e-4 (gram) and 1e-5
 (sddmm): fp32 on both sides, summed in another order; topk_score is
-held by ``ref.check_topk_score`` and flash by ``ref.check_attention``,
-whose comments state their tolerances.
+held by ``ref.check_topk_score``, flash by ``ref.check_attention`` and
+``ref.check_lse``, flash_bwd by ``ref.check_attention_bwd``, whose
+comments state their tolerances.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash as tflash
+from repro_torch.kernels import flash_bwd as tflash_bwd
 from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -745,3 +747,125 @@ def test_flash_sm90_gives_the_same_bits_twice(cuda):
     b = tops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# the backward: its probes, then head widths 8 to 128 with a window from
+# an offset (fully masked rows), non-causal G = 1 and causal G = 3
+BWD_CASES = [(q, kv, kw) for q, kv, _, kw in
+             tops.KERNELS["flash_bwd"].values()] + [
+    ((2, 70, 6, hd), (2, 90, 2, hd), dict(causal=True, window=33,
+                                          q_offset=25))
+    for hd in (8, 16, 40, 64, 120, 128)] + [
+    ((1, 8, 2, 64), (1, 4, 1, 64), dict(causal=True, window=2, q_offset=3)),
+    ((2, 50, 3, 32), (2, 77, 3, 32), dict(causal=False)),
+    ((1, 300, 9, 64), (1, 300, 3, 64), dict(causal=True)),
+    ((1, 130, 32, 128), (1, 130, 8, 128), dict(causal=True))]
+
+
+def _bwd_inputs(q_shape, kv_shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(device, dtype)
+            for s in (q_shape, kv_shape, kv_shape, q_shape)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("q_shape,kv_shape,kw", BWD_CASES,
+                         ids=[f"{q}-{kv}-{kw}" for q, kv, kw in BWD_CASES])
+def test_flash_bwd_kernel_matches_plain(cuda, q_shape, kv_shape, kw, dtype):
+    q, k, v, g = _bwd_inputs(q_shape, kv_shape, dtype, cuda,
+                             sum(q_shape) + sum(kv_shape))
+    out, lse = tops.flash_attention_fwd(q, k, v, **kw)
+    before = tops.launch_counts()["flash_bwd"]
+    grads = tops.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_bwd"] == before + 1
+    assert [x.dtype for x in grads] == [dtype] * 3
+    tref.check_attention_bwd(grads, q, k, v, out, lse, g, **kw)
+    # no floating-point atomics: a second call gives the same bits
+    again = tops.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["flash_sm90", "flash"])
+@pytest.mark.parametrize("q_shape,kv_shape,kw", WIDE_CASES[:6],
+                         ids=[f"{q}-{kv}-{kw}" for q, kv, kw in
+                              WIDE_CASES[:6]])
+def test_lse_forward_keeps_the_output_bits(cuda, q_shape, kv_shape, kw,
+                                           source):
+    """Both designs: out with the lse output is the bits of out without
+    it, and lse is the plain version's."""
+    q, k, v = _bf16((q_shape, kv_shape, kv_shape), cuda,
+                    sum(q_shape) + sum(kv_shape))
+    lse = torch.full((q_shape[0], q_shape[2], q_shape[1]), torch.nan,
+                     device=cuda)
+    out = tflash.launch(source, q, k, v, **kw, lse=lse)
+    plain = tflash.launch(source, q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    tref.check_lse(lse, q, k, v, **kw, what=source)
+
+
+@pytest.mark.cuda
+def test_lse_of_a_call_with_no_key_is_inf(cuda):
+    q = torch.randn(1, 5, 4, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 0, 2, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 5, device=cuda)
+    out = tflash.launch("flash_sm90", q, k, k, causal=False, lse=lse)
+    torch.cuda.synchronize()
+    assert (out == 0).all() and torch.isinf(lse).all() and (lse > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_attention_fn_gradient_matches_autograd_of_the_plain_version(
+        cuda, dtype):
+    """The layers' autograd Function on the card (flash forward with lse,
+    flash_bwd backward) against torch.autograd through
+    ``ref.attention_ref`` on the same inputs, within the backward's
+    stated tolerance; a strided dout is taken."""
+    from repro_torch.models import layers as tL
+    q, k, v, g = _bwd_inputs((2, 150, 9, 64), (2, 150, 3, 64), dtype, cuda,
+                             11)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tL.attention_fn(*leaves, causal=True)
+    gt = g.transpose(1, 2).contiguous().transpose(1, 2)      # strided
+    got = torch.autograd.grad(out, leaves, gt)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(tref.attention_ref(*plain, causal=True),
+                               plain, g)
+    _, lse = tref.attention_ref(q, k, v, causal=True, return_lse=True)
+    rtol = tref.FLASH_BWD_RTOL[dtype]
+    mags = tref.attention_bwd_magnitude(q, k, v, out.detach(), lse, g,
+                                        causal=True)
+    for a, b, m in zip(got, want, mags):
+        assert a.dtype == dtype
+        diff = (a.float() - b.float()).abs()
+        assert (diff <= rtol * (b.float().abs() + m)).all(), \
+            diff.max().item()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v, g = _bwd_inputs((1, 8, 4, 16), (1, 8, 2, 16), torch.float32,
+                             cuda, 0)
+    out, lse = tops.flash_attention_fwd(q, k, v, causal=True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tflash_bwd.flash_bwd_cuda(q.half(), k.half(), v.half(), out.half(),
+                                  lse, g.half(), causal=True)
+    with pytest.raises(TypeError, match="lse"):
+        tflash_bwd.flash_bwd_cuda(q, k, v, out, lse.double(), g,
+                                  causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash_bwd.flash_bwd_cuda(q, k, v, out, lse,
+                                  g.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), causal=True)
+    with pytest.raises(ValueError, match="KVH"):
+        tflash_bwd.flash_bwd_cuda(q[:, :, :3].contiguous(), k, v,
+                                  out[:, :, :3].contiguous(), lse[:, :3]
+                                  .contiguous(), g[:, :, :3].contiguous(),
+                                  causal=True)
