@@ -98,13 +98,18 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    same 8 prompts, bitwise ``generate``'s tokens; then 16 requests);
 16. train: the flash forward's LSE output (both designs' out bitwise
     without it, out and lse held against the plain version's) at the
-    probes and the training shape; the ``flash_bwd`` kernel against
-    its plain version at the probes, at the training path's shape (8 x
-    4,096, 9/3 heads of 64) and at Qwen3-4B's prefill shape (4 x 4,096,
-    32/8 of 128), two calls bitwise, timed beside SDPA's backward and
+    probes and the training shape; the ``flash_bwd`` kernels against
+    their plain version at the probes, at the training path's shape (8
+    x 4,096, 9/3 heads of 64) and at Qwen3-4B's prefill shape (4 x
+    4,096, 32/8 of 128), each through the design ``flash_bwd.design``
+    routes it to (``flash_bwd_sm90`` for bf16 at hd 64 and 128; its
+    ptxas lines printed, a spill fails), two calls bitwise, the path
+    shapes also against the first design (``csrc/flash_bwd.cu``, which
+    still serves fp32 and the other widths) within the same tolerance, and timed beside it, SDPA's backward and
     the plain version; ``train`` on SmolLM-135M at full width and
     depth, 30 steps of 8 x 4,096 tokens (the loss must fall; 60 flash
-    and 30 flash_bwd launches a step under remat; every step's time,
+    and 30 flash_bwd launches a step under remat, all flash_bwd on
+    ``flash_bwd_sm90``; every step's time,
     the median and the whole window's rate), one step twice from one
     state (bitwise), n_micro=2's gradients against n_micro=1's, a
     profiled step, ``generate`` on the trained model against its
@@ -119,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import statistics
 import subprocess
@@ -152,6 +158,7 @@ STORE512_K = 2048
 PREVIOUS_TOPK = "scripts_dev/topk_score_v1.cu"
 PREVIOUS_GRAM = "scripts_dev/gram_v1.cu"
 PREVIOUS_SDDMM = "scripts_dev/sddmm_v1.cu"
+PREVIOUS_FLASH_BWD = "src/repro_torch/kernels/csrc/flash_bwd.cu"
 # the store's reload runs the in-session accumulator's float program
 # over exact copies of the samples: the same bits are expected, and
 # 1e-6 relative (the reference's reload tolerance) is what is held
@@ -279,6 +286,12 @@ def phase_card():
     print(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
           + ", ".join(f"{k} {v:.2f} s"
                       for k, v in sorted(_build.build_seconds.items())))
+    # the sources this run built, by content, so that a time in the docs
+    # can be tied to the file it was measured on
+    for name in sorted(_build._SIGNATURES):
+        src = _build._source(name)
+        print(f"  sha256 {src.relative_to(ROOT)}: "
+              f"{hashlib.sha256(src.read_bytes()).hexdigest()}")
     for name in ("gram", "topk_score", "flash", "flash_sm90"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
@@ -310,8 +323,9 @@ def phase_card():
 
 
 def ptxas_by_kernel(log: str):
-    """{kernel: its ptxas lines} of gram.cu's or sddmm.cu's build log,
-    kernels named from their mangled entry names."""
+    """{kernel: its ptxas lines} of a source's build log, kernels named
+    from their mangled entry names (gram's, sddmm's and the flash
+    backward's as templates, others as mangled)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -321,12 +335,19 @@ def ptxas_by_kernel(log: str):
             k = re.search(r"(gram_rows_kernel|gram_tiled_kernel)I"
                           r"(13__nv_bfloat16|f)(Lb[01])?", mangled)
             t = re.search(r"sddmm_tiles_kernelILb([01])E", mangled)
+            f = re.search(r"(dkdv_kernel|dq_kernel|stats_kernel|"
+                          r"dkdv_bf16_kernel|dq_bf16_kernel|delta_kernel)"
+                          r"I(Li(\d+)E|f|13__nv_bfloat16)", mangled)
             name = mangled if k is None else (
                 f"{k.group(1)}<{'bf16' if 'bfloat' in k.group(2) else 'float'}"
                 + (f", {k.group(3)[-1] == '1'}" if k.group(3) else "") + ">")
             if t:
                 name = (f"sddmm_tiles_kernel<"
                         f"{'float4' if t.group(1) == '1' else 'float'}>")
+            if f:
+                name = f"{f.group(1)}<" + (
+                    f.group(3) or ("float" if f.group(2) == "f" else "bf16")) \
+                    + ">"
             out[name] = []
         elif name and ("spill" in line or "registers" in line):
             out[name].append(line.strip())
@@ -2453,9 +2474,10 @@ def phase_flash(gen):
             "previous_source": "src/repro_torch/kernels/csrc/flash.cu"}
 
 
-def profile_once(fn, label):
+def profile_once(fn, label, sums=None):
     """fn() under torch.profiler: wall, device busy, idle share and the
-    kernels with the most device time; returns the busy ms."""
+    kernels with the most device time, and those whose names hold a key
+    of ``sums``, which gets each key's device ms; returns the busy ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2474,9 +2496,13 @@ def profile_once(fn, label):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in kernels[:8]:
+    named = [e for e in kernels[8:] if any(k in e.key for k in sums or ())]
+    for e in kernels[:8] + named:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+    for k in sums or ():
+        sums[k] = sum(e.self_device_time_total for e in kernels
+                      if k in e.key) / 1e3
     return busy
 
 
@@ -2740,20 +2766,34 @@ def sdpa_bwd(q, k, v, dout):
 
 def phase_flash_bwd(gen):
     """The LSE forward (both designs' out bitwise without it, out and lse
-    held against the plain version's) and the flash_bwd kernel against its
-    plain version at the probes, at the training path's shape and at
-    Qwen3-4B's prefill shape; at both path shapes, in turns, the kernel,
-    SDPA's backward and the plain version.  Returns the kernels-line
-    entry without launches, with the forward's errors under
-    ``lse_max_abs_err`` and ``flash_max_abs_err``."""
+    held against the plain version's) and the flash_bwd kernels against
+    their plain version at the probes, at the training path's shape and
+    at Qwen3-4B's prefill shape, each through the design that
+    ``flash_bwd.design`` routes it to, two calls bitwise; at both path
+    shapes the routed design (``flash_bwd_sm90``) also against the first
+    design (``csrc/flash_bwd.cu``, launched uncounted through
+    ``flash_bwd.launch``) within the same tolerance,
+    and, in turns, the routed design, the first design, SDPA's backward
+    and the plain version timed.  Returns the kernels-line entry without
+    launches, with the forward's errors under ``lse_max_abs_err`` and
+    ``flash_max_abs_err``."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import flash_bwd as kbwd
     from repro_torch.kernels import ops, ref
-    for line in _build.build_log("flash_bwd").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas flash_bwd: {line.strip()}")
+    for name in ("flash_bwd_sm90", "flash_bwd"):
+        kernels = ptxas_by_kernel(_build.build_log(name))
+        for kernel, lines in kernels.items():
+            print(f"  ptxas {name} {kernel}: " + "; ".join(lines))
+    for line in _build.build_log("flash_bwd_sm90").splitlines():
+        if "C75" in line:
+            print(f"  ptxas flash_bwd_sm90: {line.strip()[:160]}")
+    spills = [k for k, lines in ptxas_by_kernel(_build.build_log(
+        "flash_bwd_sm90")).items() for line in lines
+        if "spill" in line and " 0 bytes spill stores" not in line]
+    if spills:
+        raise AssertionError(f"flash_bwd_sm90 spills in {spills}")
     print(f"flash_bwd tolerance: rtol {ref.FLASH_BWD_RTOL[torch.float32]} "
           f"(fp32), {ref.FLASH_BWD_RTOL[torch.bfloat16]} (bf16) of |plain| "
           f"+ sum |terms|; lse {ref.LSE_RTOL} (1 + |lse|) (kernels/ref.py "
@@ -2794,25 +2834,48 @@ def phase_flash_bwd(gen):
                   f"bitwise, out max abs err {out_errs[-1]:.3e}, lse max "
                   f"abs err {lse_errs[-1]:.3e}")
         del q, k, v
-    # the backward against its plain version, twice bitwise
+    # the backward against its plain version, twice bitwise, through the
+    # design the wrapper routes to; at the path shapes the first design
+    # too, and the routed design against it
+    served = set()
     for label, q_shape, kv_shape, dt, kw in probes + [
             ("train path", *path, bf16, dict(causal=True)),
             ("qwen3_4b prefill", *BWD_QWEN, bf16, dict(causal=True))]:
         q, k, v, g = (rand(s, dt) for s in (q_shape, kv_shape, kv_shape,
                                             q_shape))
         out, lse = kflash.flash_cuda(q, k, v, **kw, return_lse=True)
+        source = kbwd.design(dt, q_shape[3])
+        before = kbwd.design_launches[source]
         grads = kbwd.flash_bwd_cuda(q, k, v, out, lse, g, **kw)
         again = kbwd.flash_bwd_cuda(q, k, v, out, lse, g, **kw)
         torch.cuda.synchronize()
+        if kbwd.design_launches[source] != before + 2:
+            raise AssertionError(f"flash_bwd {label}: not served by {source}")
+        served.add(source)
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError(f"flash_bwd {label}: two calls differ")
-        e = ref.check_attention_bwd(grads, q, k, v, out, lse, g, **kw,
-                                    what=f"flash_bwd {label}")
+        want = ref.attention_bwd_ref(q, k, v, out, lse, g, **kw)
+        mags = ref.attention_bwd_magnitude(q, k, v, out, lse, g, **kw)
+        e = ref.check_bwd_close(grads, want, mags, dt,
+                                what=f"flash_bwd {label} on {source}")
         errs.append(e)
+        note = ""
+        if label in ("train path", "qwen3_4b prefill"):
+            prev = kbwd.launch("flash_bwd", q, k, v, out, lse, g, **kw)
+            e1 = ref.check_bwd_close(prev, want, mags, dt,
+                                     what=f"first design {label}")
+            e2 = ref.check_bwd_close(grads, prev, mags, dt,
+                                     what=f"{source} against the first "
+                                     f"design {label}")
+            note = (f"; {PREVIOUS_FLASH_BWD} max abs err {e1:.3e}, "
+                    f"{source} against it {e2:.3e}")
+            del prev
         print(f"  flash_bwd {label} {tuple(q_shape)}/{kv_shape[2]} "
-              f"{str(dt)[6:]} {kw}: max abs err {e:.3e}, two calls bitwise")
-        del q, k, v, g, out, lse, grads, again
+              f"{str(dt)[6:]} {kw} on {source}: max abs err {e:.3e}, two "
+              f"calls bitwise{note}")
+        del q, k, v, g, out, lse, grads, again, want, mags
         torch.cuda.empty_cache()
+    print(f"flash_bwd served by {sorted(served)}")
 
     entry = None
     for label, (q_shape, kv_shape) in (("train path", path),
@@ -2820,8 +2883,11 @@ def phase_flash_bwd(gen):
         q, k, v, g = (rand(s, bf16) for s in (q_shape, kv_shape, kv_shape,
                                               q_shape))
         out, lse = kflash.flash_cuda(q, k, v, causal=True, return_lse=True)
-        fns = {"flash_bwd": lambda: kbwd.flash_bwd_cuda(
-                   q, k, v, out, lse, g, causal=True),
+        source = kbwd.design(bf16, q_shape[3])
+        fns = {source: lambda: kbwd.launch(source, q, k, v, out, lse, g,
+                                           causal=True),
+               "first design": lambda: kbwd.launch(
+                   "flash_bwd", q, k, v, out, lse, g, causal=True),
                "SDPA backward": sdpa_bwd(q, k, v, g),
                "plain": lambda: ref.attention_bwd_ref(q, k, v, out, lse, g,
                                                       causal=True)}
@@ -2842,21 +2908,25 @@ def phase_flash_bwd(gen):
                   f"), {n_ops / ms[n] / 1e9:.1f} TFLOP/s, "
                   f"{b_ms / ms[n]:.3f} of the bound")
         print(f"    flash forward with lse at the same shape: {fwd_ms:.3f} "
-              f"ms; flash_bwd / SDPA backward "
-              f"{ms['flash_bwd'] / ms['SDPA backward']:.3f}")
+              f"ms; {source} / first design "
+              f"{ms[source] / ms['first design']:.3f}, {source} / SDPA "
+              f"backward {ms[source] / ms['SDPA backward']:.3f}")
         if entry is None:
             entry = {"name": "flash_bwd", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+                     "source": f"src/repro_torch/kernels/csrc/{source}.cu",
                      "replaces": "src/repro/models/layers.py:245 (jnp "
                                  "custom_vjp; no Pallas kernel)",
-                     "max_abs_err": max(errs), "ms": ms["flash_bwd"],
+                     "max_abs_err": max(errs), "ms": ms[source],
                      "plain_ms": ms["plain"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": ms["SDPA backward"],
+                     "previous_ms": ms["first design"],
+                     "previous_source": PREVIOUS_FLASH_BWD,
                      "qwen3_4b_prefill": {}}
         else:
             entry["qwen3_4b_prefill"] = {
-                "ms": ms["flash_bwd"], "plain_ms": ms["plain"],
-                "bound_ms": b_ms, "library_ms": ms["SDPA backward"]}
+                "ms": ms[source], "plain_ms": ms["plain"],
+                "bound_ms": b_ms, "library_ms": ms["SDPA backward"],
+                "previous_ms": ms["first design"]}
         del q, k, v, g, out, lse, fns
         torch.cuda.empty_cache()
     entry["lse_max_abs_err"] = max(lse_errs)
@@ -2899,6 +2969,7 @@ def phase_train(seed: int, bwd_entry):
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream, make_lm_batch
     from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import flash_bwd as kbwd
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as tserve
     from repro_torch.launch import train as ttrain
@@ -2976,10 +3047,13 @@ def phase_train(seed: int, bwd_entry):
             "flash": 2 * n_layers * TRAIN_STEPS,
             "flash_bwd": n_layers * TRAIN_STEPS}
     if counts != want or kflash.design_launches["flash_sm90"] != \
-            want["flash"]:
+            want["flash"] or kbwd.design_launches["flash_bwd_sm90"] != \
+            want["flash_bwd"]:
         raise AssertionError(f"train: launch counts {counts} "
-                             f"({kflash.design_launches} by source), want "
-                             f"{want}, all flash on flash_sm90")
+                             f"({kflash.design_launches}, "
+                             f"{kbwd.design_launches} by source), want "
+                             f"{want}, all flash on flash_sm90 and all "
+                             "flash_bwd on flash_bwd_sm90")
     losses = run["losses"]
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"train: losses {losses}")
@@ -3010,7 +3084,8 @@ def phase_train(seed: int, bwd_entry):
     print(f"train: launches {counts} in {TRAIN_STEPS} steps: flash "
           f"{counts['flash'] // TRAIN_STEPS} a step (forward and the "
           f"checkpointed recompute of {n_layers} layers, all on flash_sm90), "
-          f"flash_bwd {counts['flash_bwd'] // TRAIN_STEPS} a step")
+          f"flash_bwd {counts['flash_bwd'] // TRAIN_STEPS} a step (all on "
+          "flash_bwd_sm90)")
     model, ost = run["params"], run["opt_state"]
     stream = TokenStream(cfg.vocab_size, seed=seed)
     t = time.perf_counter()
@@ -3072,8 +3147,12 @@ def phase_train(seed: int, bwd_entry):
 
     # where a step spends the card's time
     prof = _clone_state(model, ost)
+    bwd_ms = dict.fromkeys(("dkdv_kernel", "dq_kernel", "stats_kernel"))
     busy = profile_once(lambda: step1(*prof, batch),
-                        f"one train step B={B} S={S}")
+                        f"one train step B={B} S={S}", sums=bwd_ms)
+    print(f"train: flash_bwd's device time a step {sum(bwd_ms.values()):.1f} "
+          f"ms (" + ", ".join(f"{k} {v:.1f}" for k, v in bwd_ms.items())
+          + ")")
     # the profiler slows the host, not the kernels
     mean_step = window_s * 1e3 / (TRAIN_STEPS - 1)
     print(f"train: device busy {busy:.1f} ms against the median unprofiled "
@@ -3120,6 +3199,7 @@ def phase_train(seed: int, bwd_entry):
     torch.cuda.empty_cache()
     bwd_entry["launches"] = counts["flash_bwd"]
     bwd_entry["launches_per_step"] = counts["flash_bwd"] // TRAIN_STEPS
+    bwd_entry["train_device_ms_per_step"] = sum(bwd_ms.values())
     bwd_entry["train_step_ms"] = med
     bwd_entry["train_tokens_per_s"] = B * S / med * 1e3
     bwd_entry["train_window_tokens_per_s"] = window_rate

@@ -30,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+# flash_bwd.cu's entry; flash_bwd_sm90.cu's takes the same arguments
+_FLASH_BWD = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
 _GRAM_PRE = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
              + [ctypes.c_int, ctypes.c_void_p])
 
@@ -52,8 +54,8 @@ _SIGNATURES = {
               + [ctypes.c_void_p]},
     "flash_sm90": {"flash_sm90_fwd": [ctypes.c_void_p] * 4
                    + [ctypes.c_int64] * 19 + [ctypes.c_void_p]},
-    "flash_bwd": {"flash_bwd": [ctypes.c_void_p] * 10
-                  + [ctypes.c_int64] * 10 + [ctypes.c_void_p]},
+    "flash_bwd": {"flash_bwd": _FLASH_BWD},
+    "flash_bwd_sm90": {"flash_bwd_sm90": _FLASH_BWD},
 }
 
 # sources outside csrc/ (a kept design timed beside the current one),

@@ -1,15 +1,20 @@
 """Launch wrapper of the hand-written CUDA flash-attention backward.
 
-``csrc/flash_bwd.cu`` computes (dq, dk, dv) from q, k, v, the forward's
-output and row log-sum-exp (``flash.flash_cuda(..., return_lse=True)``)
-and dout: fp32 on the CUDA cores, bf16 on the tensor cores, GQA, causal,
-windowed and from ``q_offset``, with no floating-point atomics, so that
-a gradient is the same bits run after run.  It replaces no Pallas
-kernel: the reference's attention gradient is the jnp custom_vjp
-``repro/models/layers.py::_flash_vjp_bwd``.  The source's header says
-what bounds it on the card and how the design answers that.  Its plain
+Two sources compute (dq, dk, dv) from q, k, v, the forward's output and
+row log-sum-exp (``flash.flash_cuda(..., return_lse=True)``) and dout,
+chosen by :func:`design` from the dtype and the head width:
+``csrc/flash_bwd_sm90.cu`` (wgmma, TMA, warp specialisation) takes bf16
+at hd 64 and 128, the head widths of every published config;
+``csrc/flash_bwd.cu`` (mma.sync in bf16, CUDA cores in fp32) takes fp32
+and the other bf16 widths.  Both do GQA, causal, windowed and from
+``q_offset``, with no floating-point atomics, so that a gradient is the
+same bits run after run.  They replace no Pallas kernel: the
+reference's attention gradient is the jnp custom_vjp
+``repro/models/layers.py::_flash_vjp_bwd``.  Each header says what
+bounds it on the card and how the design answers that.  Their plain
 version is ``ref.attention_bwd_ref``.  ``launches`` counts the calls
-that launched it (three kernels a call), one per call.
+that launched a design (three kernels a call), one per call, and
+``design_launches`` splits that count by source.
 """
 from __future__ import annotations
 
@@ -19,6 +24,17 @@ from . import _build
 from .flash import HD_MAX
 
 launches = 0
+design_launches = {"flash_bwd_sm90": 0, "flash_bwd": 0}
+SM90_HEAD_DIMS = (64, 128)
+SM90_ROWS = 128   # flash_bwd_sm90's statistics pad Sq to a multiple of this
+
+
+def design(dtype: torch.dtype, hd: int) -> str:
+    """The source whose kernels serve a call: ``flash_bwd_sm90`` for
+    bf16 at hd 64 or 128, ``flash_bwd`` otherwise."""
+    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
+        return "flash_bwd_sm90"
+    return "flash_bwd"
 
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -26,11 +42,11 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    *, causal: bool, window: int = 0, q_offset: int = 0):
     """(dq, dk, dv) in the operands' dtype from CUDA tensors q, out, dout
     (B, Sq, H, hd), k, v (B, Sk, KVH, hd) and lse (B, H, Sq) fp32, all
-    contiguous.  Raises on what the kernels do not take: another dtype,
-    mixed dtypes, a tensor that is not contiguous or off a 16-byte
-    boundary, a head width that is not a multiple of 8 or is above 128,
-    H not a multiple of KVH, B * KVH above the grid's 65535, or a
-    negative window or offset."""
+    contiguous, by the kernels of :func:`design`.  Raises on what the
+    kernels do not take: another dtype, mixed dtypes, a tensor that is
+    not contiguous or off a 16-byte boundary, a head width that is not a
+    multiple of 8 or is above 128, H not a multiple of KVH, B * KVH above
+    the grid's 65535 (flash_bwd.cu), or a negative window or offset."""
     global launches
     named = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))
     for name, x in named + (("lse", lse),):
@@ -70,15 +86,43 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd % 8 or not 8 <= hd <= HD_MAX:
         raise ValueError(f"flash_bwd_cuda: head width {hd} must be a "
                          f"multiple of 8 in [8, {HD_MAX}]")
-    if B * KVH > 65535:
+    source = design(q.dtype, hd)
+    # flash_bwd.cu's grids have B*KVH in y; flash_bwd_sm90.cu's are
+    # one-dimensional
+    if source == "flash_bwd" and B * KVH > 65535:
         raise ValueError(f"flash_bwd_cuda: B*KVH = {B * KVH} exceeds the "
                          "grid's 65535")
     if window < 0 or q_offset < 0:
         raise ValueError(f"flash_bwd_cuda: window={window} and q_offset="
                          f"{q_offset} must be >= 0")
+    grads = launch(source, q, k, v, out, lse, dout, causal=causal,
+                   window=window, q_offset=q_offset)
+    launches += 1
+    design_launches[source] += 1
+    return grads
+
+
+def launch(source: str, q, k, v, out, lse, dout, *, causal: bool,
+           window: int = 0, q_offset: int = 0):
+    """One launch of ``source``'s kernels (the C entry named in
+    ``_build._SIGNATURES[source]``, which takes ``flash_bwd.cu``'s
+    arguments) on tensors that :func:`flash_bwd_cuda` has checked, on
+    the current stream; counts nothing (``chip_smoke.py`` and the card's
+    tests call it to run one design beside the other).  The scratch
+    buffer of the row statistics is (B, H, Sq) fp32 for ``flash_bwd``
+    and (B, H, 2, Sq rounded up to 128) for ``flash_bwd_sm90``."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _build.load("flash_bwd").flash_bwd
+    if source == "flash_bwd_sm90":
+        sqp = -(-Sq // SM90_ROWS) * SM90_ROWS
+        delta = torch.empty((B, H, 2, sqp), dtype=torch.float32,
+                            device=q.device)
+    else:
+        delta = torch.empty((B, H, Sq), dtype=torch.float32,
+                            device=q.device)
+    (fn_name,) = _build._SIGNATURES[source]
+    fn = getattr(_build.load(source), fn_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -86,6 +130,5 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H,
                  KVH, hd, int(bool(causal)), int(window), int(q_offset),
                  int(q.dtype == torch.bfloat16), stream)
-    _build.check(err, "flash_bwd")
-    launches += 1
+    _build.check(err, fn_name)
     return dq, dk, dv

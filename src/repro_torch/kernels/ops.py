@@ -207,6 +207,8 @@ def reset_launch_counts() -> None:
     _flash.launches = 0
     _flash_bwd.launches = 0
     _flash.design_launches.update(dict.fromkeys(_flash.design_launches, 0))
+    _flash_bwd.design_launches.update(
+        dict.fromkeys(_flash_bwd.design_launches, 0))
 
 
 # probe shapes of the reference's ops.KERNELS envelope (and of the

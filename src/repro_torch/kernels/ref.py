@@ -445,12 +445,23 @@ def check_attention_bwd(got, q: torch.Tensor, k: torch.Tensor,
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
     mags = attention_bwd_magnitude(q, k, v, out, lse, dout, **kw)
-    rtol = FLASH_BWD_RTOL[q.dtype]
+    return check_bwd_close(got, want, mags, q.dtype, what=what)
+
+
+def check_bwd_close(got, want, mags, dtype: torch.dtype,
+                    what: str = "flash_bwd") -> float:
+    """Hold ``got`` = (dq, dk, dv) against ``want`` within
+    ``FLASH_BWD_RTOL[dtype]`` of |want| + ``mags`` (the terms'
+    magnitudes, ``attention_bwd_magnitude``): ``check_attention_bwd``
+    with the plain version as ``want``, or one design against another;
+    raises AssertionError naming the output and its worst element,
+    returns the max |got - want|."""
+    rtol = FLASH_BWD_RTOL[dtype]
     worst = 0.0
     for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mags):
         g, w = g.to(torch.float32), w.to(torch.float32)
         if tuple(g.shape) != tuple(w.shape):
-            raise AssertionError(f"{what}: {name} {tuple(g.shape)}, plain "
+            raise AssertionError(f"{what}: {name} {tuple(g.shape)}, want "
                                  f"{tuple(w.shape)}")
         if not torch.isfinite(g).all():
             raise AssertionError(f"{what}: {name} is not finite")
@@ -459,11 +470,11 @@ def check_attention_bwd(got, q: torch.Tensor, k: torch.Tensor,
         if bad.any():
             i = tuple(bad.nonzero()[0].tolist())
             raise AssertionError(
-                f"{what}: {name} disagrees with the plain version at "
+                f"{what}: {name} is outside the tolerance at "
                 f"{int(bad.sum())} of {bad.numel()} elements, first at "
-                f"{list(i)}: got {g[i].item():.6e}, plain {w[i].item():.6e}"
+                f"{list(i)}: got {g[i].item():.6e}, want {w[i].item():.6e}"
                 f", magnitude {m[i].item():.3e}; max |diff| "
                 f"{diff.max().item():.3e}; tolerance rtol {rtol} of "
-                "|plain| + sum |terms| (kernels/ref.py states why)")
+                "|want| + sum |terms| (kernels/ref.py states why)")
         worst = max(worst, diff.max().item() if diff.numel() else 0.0)
     return worst

@@ -1,9 +1,10 @@
 """The port's attention gradient against the JAX package's, on the CPU.
 
 On the CPU ``repro_torch.kernels.ops.flash_attention_bwd`` runs the
-plain version ``ref.attention_bwd_ref`` (the CUDA kernel
-``csrc/flash_bwd.cu`` needs the card: ``test_torch_kernels_cuda.py``
-and ``chip_smoke.py`` hold it against this plain version).  It is held
+plain version ``ref.attention_bwd_ref`` (the CUDA kernels
+``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` need the card:
+``test_torch_kernels_cuda.py`` and ``chip_smoke.py`` hold them against
+this plain version; here ``design()`` and the C entries' signatures).  It is held
 against ``jax.vjp`` of the reference's ``layers.flash_attention`` (the
 jnp custom_vjp whose backward ``_flash_vjp_bwd`` the kernel stands for)
 and of ``layers.chunked_attention`` (the model path's attention under
@@ -26,7 +27,9 @@ another order (rounding errors grow with the sum of |terms|), plus
 log-sum-exp: 1e-6 (1 + |lse|) against the reference's ``m + log(l)``.
 """
 import ctypes
+import importlib.util
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -195,6 +198,41 @@ def test_cpu_gradient_entries_launch_no_kernel():
     tops.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
     assert tops.launch_counts()["flash"] == 0
     assert tops.launch_counts()["flash_bwd"] == 0
+    assert set(tflash_bwd.design_launches.values()) == {0}
+
+
+@pytest.mark.parametrize("hd", tflash_bwd.SM90_HEAD_DIMS)
+def test_cpu_bf16_gradient_at_the_hopper_widths_launches_no_kernel(hd):
+    """bf16 at hd 64 and 128, the widths the card sends to
+    flash_bwd_sm90, runs the plain version on the CPU: no design counts
+    a launch, and the gradient is ``attention_bwd_ref``'s bits."""
+    tops.reset_launch_counts()
+    q, k, v, g = (torch.from_numpy(x).bfloat16() for x in _inputs(
+        (1, 12, 4, hd), (1, 12, 2, hd)))
+    out, lse = tops.flash_attention_fwd(q, k, v, causal=True)
+    got = tops.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    want = tref.attention_bwd_ref(q, k, v, out, lse, g, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tops.launch_counts()["flash_bwd"] == 0
+    assert set(tflash_bwd.design_launches.values()) == {0}
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "flash_bwd_sm90"),
+    (torch.bfloat16, 128, "flash_bwd_sm90"),
+    (torch.float32, 64, "flash_bwd"),
+    (torch.float32, 128, "flash_bwd"),
+    (torch.bfloat16, 8, "flash_bwd"),
+    (torch.bfloat16, 32, "flash_bwd"),
+    (torch.bfloat16, 120, "flash_bwd")])
+def test_backward_design_routes_by_dtype_and_head_width(dtype, hd, want):
+    """bf16 at hd 64 and 128 goes to the Hopper design, fp32 and the
+    other widths to flash_bwd.cu; every source has a ctypes row and a
+    launch count."""
+    assert tflash_bwd.design(dtype, hd) == want
+    assert want in _build._SIGNATURES
+    assert set(tflash_bwd.design_launches) == {"flash_bwd_sm90",
+                                               "flash_bwd"}
 
 
 def test_cuda_backward_wrapper_refuses_cpu_tensors():
@@ -226,6 +264,34 @@ def test_backward_signature_fits_the_c_entry():
                              "window", "q_offset", "is_bf16"]
     assert all(t is ctypes.c_int64 for t in argtypes[10:-1])
     assert argtypes[-1] is ctypes.c_void_p and params[-1] == "stream"
+
+
+def test_hopper_backward_signature_fits_its_c_entry():
+    """flash_bwd_sm90.cu's entry takes flash_bwd.cu's arguments, and its
+    ctypes row is flash_bwd's: ten pointers, ten int64, the stream."""
+    params = _c_params("flash_bwd_sm90", "flash_bwd_sm90")
+    ((name, argtypes),) = _build._SIGNATURES["flash_bwd_sm90"].items()
+    assert name == "flash_bwd_sm90" and len(argtypes) == len(params)
+    assert params == _c_params("flash_bwd", "flash_bwd")
+    assert argtypes == _build._SIGNATURES["flash_bwd"]["flash_bwd"]
+    assert all(t is ctypes.c_void_p for t in argtypes[:10])
+    assert all(t is ctypes.c_int64 for t in argtypes[10:-1])
+    assert argtypes[-1] is ctypes.c_void_p and params[-1] == "stream"
+
+
+def test_first_backward_design_is_the_source_timed_as_previous():
+    """chip_smoke.py times the first bf16 design beside the Hopper one by
+    launching flash_bwd.cu by name; the report's previous_source is that
+    file, which still takes bf16 at hd 64 and 128."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke_names",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    src = _build._source("flash_bwd")
+    assert (root / cs.PREVIOUS_FLASH_BWD).resolve() == src.resolve()
+    text = src.read_text()
+    assert "launch_bf16<64>(a" in text and "launch_bf16<128>(a" in text
 
 
 @pytest.mark.parametrize("source,entry", [("flash", "flash_fwd"),

@@ -9,8 +9,9 @@ This file imports neither JAX nor ``repro``, so it runs where only the
 port is installed.  Tolerance rtol 1e-5 / atol 1e-4 (gram) and 1e-5
 (sddmm): fp32 on both sides, summed in another order; topk_score is
 held by ``ref.check_topk_score``, flash by ``ref.check_attention`` and
-``ref.check_lse``, flash_bwd by ``ref.check_attention_bwd``, whose
-comments state their tolerances.
+``ref.check_lse``, flash_bwd by ``ref.check_attention_bwd`` (and its
+Hopper design against its first design, ``csrc/flash_bwd.cu``,
+by ``ref.check_bwd_close``), whose comments state their tolerances.
 """
 import numpy as np
 import pytest
@@ -769,24 +770,116 @@ def _bwd_inputs(q_shape, kv_shape, dtype, device, seed):
             for s in (q_shape, kv_shape, kv_shape, q_shape)]
 
 
+# bf16 cases at the Hopper backward's head widths (64, 128) that cross
+# its tiles (128 keys and 64 positions in dK/dV, 128 positions and 64 or
+# 128 keys in dQ): Sq and Sk that are not multiples of 64 or 128, GQA
+# groups of 1, 3 and 4, windows from an offset (rows that see no key),
+# not causal
+BWD_SM90_CASES = [
+    ((2, 100, 6, 64), (2, 100, 2, 64), dict(causal=True)),
+    ((2, 257, 8, 64), (2, 257, 2, 64), dict(causal=True)),
+    ((1, 77, 4, 128), (1, 333, 4, 128), dict(causal=True, q_offset=256)),
+    ((2, 130, 8, 128), (2, 500, 2, 128),
+     dict(causal=True, window=200, q_offset=370)),
+    ((3, 70, 6, 128), (3, 90, 2, 128),
+     dict(causal=True, window=33, q_offset=25)),
+    ((1, 24, 4, 64), (1, 20, 2, 64), dict(causal=True, window=3,
+                                          q_offset=19)),
+    ((1, 64, 8, 128), (1, 1000, 2, 128), dict(causal=False)),
+    ((2, 150, 16, 64), (2, 190, 16, 64), dict(causal=False))]
+
+
+def _bwd_params(cases):
+    """(case, dtype, source) for every design that takes the case:
+    flash_bwd.cu always, flash_bwd_sm90.cu for bf16 at hd 64 and 128."""
+    out = []
+    for q_shape, kv_shape, kw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            sources = ["flash_bwd"]
+            if tflash_bwd.design(dtype, q_shape[3]) == "flash_bwd_sm90":
+                sources.insert(0, "flash_bwd_sm90")
+            out += [pytest.param(q_shape, kv_shape, kw, dtype, src,
+                                 id=f"{q_shape}-{kv_shape}-{kw}-"
+                                 f"{str(dtype)[6:]}-{src}")
+                    for src in sources]
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("q_shape,kv_shape,kw", BWD_CASES,
-                         ids=[f"{q}-{kv}-{kw}" for q, kv, kw in BWD_CASES])
-def test_flash_bwd_kernel_matches_plain(cuda, q_shape, kv_shape, kw, dtype):
+@pytest.mark.parametrize("q_shape,kv_shape,kw,dtype,source",
+                         _bwd_params(BWD_CASES + BWD_SM90_CASES))
+def test_flash_bwd_kernel_matches_plain(cuda, q_shape, kv_shape, kw, dtype,
+                                        source):
+    """Each design that takes a case, within the stated tolerance of the
+    plain version: the one ``design`` routes to through
+    ``ops.flash_attention_bwd`` (counted, on that design), the other
+    launched directly; dq is 0 where a row sees no key; no
+    floating-point atomics: a second call gives the same bits."""
     q, k, v, g = _bwd_inputs(q_shape, kv_shape, dtype, cuda,
                              sum(q_shape) + sum(kv_shape))
     out, lse = tops.flash_attention_fwd(q, k, v, **kw)
+    routed = tflash_bwd.design(dtype, q_shape[3]) == source
     before = tops.launch_counts()["flash_bwd"]
-    grads = tops.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    by_source = dict(tflash_bwd.design_launches)
+
+    def call():
+        if routed:
+            return tops.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+        return tflash_bwd.launch(source, q, k, v, out, lse, g, **kw)
+    grads = call()
     torch.cuda.synchronize()
-    assert tops.launch_counts()["flash_bwd"] == before + 1
+    assert tops.launch_counts()["flash_bwd"] == before + routed
+    assert tflash_bwd.design_launches[source] == by_source[source] + routed
     assert [x.dtype for x in grads] == [dtype] * 3
-    tref.check_attention_bwd(grads, q, k, v, out, lse, g, **kw)
-    # no floating-point atomics: a second call gives the same bits
-    again = tops.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    tref.check_attention_bwd(grads, q, k, v, out, lse, g, **kw, what=source)
+    blind = torch.isinf(lse).transpose(1, 2)          # (B, Sq, H)
+    assert (grads[0][blind] == 0).all()
+    again = call()
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_shape,kv_shape,kw", BWD_SM90_CASES,
+                         ids=[f"{q}-{kv}-{kw}" for q, kv, kw in
+                              BWD_SM90_CASES])
+def test_flash_bwd_sm90_matches_the_first_design(cuda, q_shape, kv_shape,
+                                                 kw):
+    """The Hopper design against the first bf16 design
+    (``csrc/flash_bwd.cu``, the mma.sync kernels) within
+    ``FLASH_BWD_RTOL`` of |first| + the terms' magnitudes: the sums run
+    in another order, so the bits differ."""
+    q, k, v, g = _bwd_inputs(q_shape, kv_shape, torch.bfloat16, cuda, 3)
+    out, lse = tops.flash_attention_fwd(q, k, v, **kw)
+    got = tflash_bwd.launch("flash_bwd_sm90", q, k, v, out, lse, g, **kw)
+    want = tflash_bwd.launch("flash_bwd", q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    mags = tref.attention_bwd_magnitude(q, k, v, out, lse, g, **kw)
+    tref.check_bwd_close(got, want, mags, torch.bfloat16,
+                         what="flash_bwd_sm90 against flash_bwd")
+
+
+@pytest.mark.cuda
+def test_flash_bwd_routes_by_dtype_and_head_width(cuda):
+    """bf16 at hd 64 and 128 launches flash_bwd_sm90; fp32 at hd 64 and
+    bf16 at hd 32 launch flash_bwd.cu's kernels; ``launches`` is the
+    sum."""
+    tops.reset_launch_counts()
+    for dtype, hd, want in ((torch.bfloat16, 128, "flash_bwd_sm90"),
+                            (torch.bfloat16, 64, "flash_bwd_sm90"),
+                            (torch.float32, 64, "flash_bwd"),
+                            (torch.bfloat16, 32, "flash_bwd")):
+        q, k, v, g = _bwd_inputs((1, 40, 4, hd), (1, 40, 2, hd), dtype,
+                                 cuda, hd)
+        out, lse = tops.flash_attention_fwd(q, k, v, causal=True)
+        before = dict(tflash_bwd.design_launches)
+        tops.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+        torch.cuda.synchronize()
+        assert {s: n - before[s] for s, n in
+                tflash_bwd.design_launches.items()} == \
+            {s: int(s == want) for s in before}, (dtype, hd)
+    assert tops.launch_counts()["flash_bwd"] == 4
+    assert tflash_bwd.design_launches == {"flash_bwd_sm90": 2,
+                                          "flash_bwd": 2}
 
 
 @pytest.mark.cuda
@@ -869,3 +962,24 @@ def test_flash_bwd_refuses_what_it_does_not_take(cuda):
                                   out[:, :, :3].contiguous(), lse[:, :3]
                                   .contiguous(), g[:, :, :3].contiguous(),
                                   causal=True)
+    # the Hopper route (bf16, hd 64): an operand off a 16-byte boundary
+    # or not contiguous is refused before any launch
+    q, k, v, g = _bwd_inputs((1, 8, 4, 64), (1, 8, 2, 64), torch.bfloat16,
+                             cuda, 0)
+    out, lse = tops.flash_attention_fwd(q, k, v, causal=True)
+    assert tflash_bwd.design(q.dtype, 64) == "flash_bwd_sm90"
+    before = dict(tflash_bwd.design_launches)
+    shifted = torch.empty(q.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash_bwd.flash_bwd_cuda(shifted, k, v, out, lse, g, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash_bwd.flash_bwd_cuda(q, k.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), v, out, lse, g,
+                                  causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash_bwd.flash_bwd_cuda(q, k, v, out, lse,
+                                  g.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), causal=True)
+    assert tflash_bwd.design_launches == before
