@@ -114,7 +114,23 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     state (bitwise), n_micro=2's gradients against n_micro=1's, a
     profiled step, ``generate`` on the trained model against its
     cast-once bf16 copy (bitwise), and a 12-step run restarted after a
-    lost device at step 10 against the uninterrupted run (bitwise).
+    lost device at step 10 against the uninterrupted run (bitwise);
+17. deepseek: holds ``flash.cu``'s kernels at two widths (q and k 192
+    wide, v 128: MLA's prefill) against their plain version in bf16 and
+    fp32, out and lse, at DeepSeek-V2-Lite's prefill shape (4 x 4,096,
+    16 heads) and at ragged shapes (Sq and Sk off the 64-row tiles,
+    H > KVH, offsets, a window), prints their ptxas lines (a spill of
+    the 192/128 kernel fails), and times the kernel, SDPA at the same
+    widths (or its refusal) and the plain version in turns; then runs
+    the lm phase's path on DeepSeek-V2-Lite at full width and depth (27
+    layers, d 2,048, MLA, 64 routed experts top-6 + 2 shared, the dense
+    prologue layer; 31.4 GB of random bf16 weights drawn on the card):
+    every flash launch on ``flash.cu`` (27 a forward), the MoE aux loss
+    finite, decode's agreement with forward printed at the published
+    capacity and at one where no group drops a token; then the same
+    model in fp32 (62.8 GB) at that capacity: decode's argmax a
+    maximiser of forward's logits in more than 0.99 of the prompt
+    positions (``DS_FP32_AGREE`` says why).
 
 Every failed check raises, so the exit code is not 0.  The last two
 lines are the ``kernels`` JSON and the device JSON.  Without a CUDA
@@ -123,6 +139,7 @@ device, or outside a checkout, it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import hashlib
 import json
@@ -2357,15 +2374,17 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS = 8, 512, 16
 LM_TOL = dict(rtol=0.08, atol=0.08)   # decode vs forward, test_models.py
 
 
-def flash_bound(q_shape, kv_shape):
-    """(ms, by, operations) of one causal bf16 call from position 0:
-    q, k, v read once, out written once; 4 hd operations per visible
-    (query, key) pair and head, at the tensor cores' bf16 rate."""
+def flash_bound(q_shape, kv_shape, hdv=None):
+    """(ms, by, operations) of one causal bf16 call from position 0, v
+    ``hdv`` wide (default: q and k's width hd): q, k, v read once, out
+    written once; 2 (hd + hdv) operations per visible (query, key) pair
+    and head, at the tensor cores' bf16 rate."""
     B, Sq, H, hd = q_shape
     Sk, KVH = kv_shape[1], kv_shape[2]
+    hdv = hd if hdv is None else hdv
     pairs = sum(min(Sk, s + 1) for s in range(Sq))
-    n_bytes = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * KVH * hd)
-    n_ops = 4 * B * H * hd * pairs
+    n_bytes = 2 * (B * Sq * H * (hd + hdv) + B * Sk * KVH * (hd + hdv))
+    n_ops = 2 * B * H * (hd + hdv) * pairs
     return bound(n_bytes, n_ops, PEAK_BF16_FLOPS) + (n_ops,)
 
 
@@ -2506,8 +2525,40 @@ def profile_once(fn, label, sums=None):
     return busy
 
 
-def phase_lm(seed: int, flash_entry):
-    """The LM serving path at Qwen3-4B's full width and depth."""
+def decode_agreement(dec, par, label: str) -> float:
+    """Print how decode's logits (B, S, V) follow the forward's and
+    return the share of rows where decode's argmax is a maximiser of the
+    forward's logits."""
+    diff = (dec.float() - par.float()).abs()
+    within = float((diff <= LM_TOL["atol"] + LM_TOL["rtol"]
+                    * par.float().abs()).float().mean())
+    # bf16 logits over 151,936 tokens tie exactly in a few percent of
+    # rows, where the first-index argmax is an arbitrary pick: the
+    # agreement held is that decode's choice is a maximiser of the
+    # forward's logits (the first-index agreement is printed beside it)
+    first = float((dec.argmax(-1) == par.argmax(-1)).float().mean())
+    top = par.max(-1).values
+    agree = float((par.gather(-1, dec.argmax(-1, keepdim=True))[..., 0]
+                   == top).float().mean())
+    top2 = par.float().topk(2, dim=-1).values
+    ties = float((top2[..., 0] == top2[..., 1]).float().mean())
+    print(f"{label}: decode's argmax a maximiser of forward's logits in "
+          f"{agree:.4f} of rows (first-index argmax agreement {first:.4f}; "
+          f"rows whose top two forward logits tie exactly in bf16 "
+          f"{ties:.4f}); max |diff| {diff.max().item():.4f}, median |diff| "
+          f"{diff.median().item():.5f}, share of logits within rtol/atol "
+          f"0.08 {within:.6f}; forward logits std "
+          f"{par.float().std().item():.3f}")
+    return agree
+
+
+def phase_lm(seed: int, flash_entry, arch: str = LM_ARCH,
+             source: str = "flash_sm90", agree_min=0.95):
+    """An LM's serving path at its full width and depth (Qwen3-4B by
+    default): every flash launch on ``source``, decode's argmax a
+    maximiser of forward's logits in more than ``agree_min`` of the
+    prompt positions (None: printed, not held; a MoE model's also at a
+    capacity at which no group drops a token)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2518,7 +2569,7 @@ def phase_lm(seed: int, flash_entry):
     from repro_torch.models import forward, init_model, param_count
     from repro_torch.obs import Histogram, percentile_summary
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = init_model(cfg, seed=seed, device="cuda")
@@ -2529,7 +2580,18 @@ def phase_lm(seed: int, flash_entry):
           f"{cfg.d_ff}, vocab {cfg.vocab_size}; {param_count(cfg)[0]:,} "
           f"parameters, {held / 1e9:.2f} GB held in "
           f"{cfg.dtype}; random weights from seed {seed} drawn on the card "
-          f"in {time.perf_counter() - t0:.2f} s")
+          f"in {time.perf_counter() - t0:.2f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    if cfg.n_experts:
+        print(f"  MoE: {cfg.n_experts} routed experts top-{cfg.top_k} + "
+              f"{cfg.n_shared_experts} shared, d_ff_expert "
+              f"{cfg.d_ff_expert}, groups of {cfg.router_group} tokens, "
+              f"capacity factor {cfg.capacity_factor}; MLA: kv_lora "
+              f"{cfg.kv_lora_rank}, nope {cfg.qk_nope_dim}, rope "
+              f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}; "
+              f"{len(cfg.prologue)} dense prologue layer(s); fp32 matmul "
+              f"TF32 {torch.backends.cuda.matmul.allow_tf32}, precision "
+              f"{torch.get_float32_matmul_precision()}")
     stream = TokenStream(cfg.vocab_size, seed)
 
     # forward: B x S prompts; the first call captures the first and last
@@ -2550,7 +2612,7 @@ def phase_lm(seed: int, flash_entry):
     ops.flash_attention = spy
     try:
         t0 = time.perf_counter()
-        logits, _ = forward(model, cfg, {"tokens": toks})
+        logits, aux = forward(model, cfg, {"tokens": toks})
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -2561,6 +2623,8 @@ def phase_lm(seed: int, flash_entry):
         raise AssertionError(f"forward: logits {tuple(logits.shape)} "
                              f"{logits.dtype} not finite or not of shape")
     del logits
+    if cfg.n_experts and not (torch.isfinite(aux) and float(aux) > 0):
+        raise AssertionError(f"forward: MoE aux loss {float(aux)}")
     fwd_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2570,18 +2634,19 @@ def phase_lm(seed: int, flash_entry):
         del logits
     peak = torch.cuda.max_memory_allocated()
     n_fwd = 4
+    by_source = {n: cfg.n_layers * n_fwd * (n == source)
+                 for n in kflash.design_launches}
     if ops.launch_counts()["flash"] != cfg.n_layers * n_fwd or \
-            kflash.design_launches != {"flash_sm90": cfg.n_layers * n_fwd,
-                                       "flash": 0}:
+            kflash.design_launches != by_source:
         raise AssertionError(f"forward: {ops.launch_counts()} flash launches "
                              f"({kflash.design_launches} by source) in "
                              f"{n_fwd} forwards, want {cfg.n_layers} each, "
-                             "all on flash_sm90")
+                             f"all on {source}")
     med = statistics.median(fwd_ms)
     print(f"forward B={B} S={S}: first {first_ms:.1f} ms, then "
           + ", ".join(f"{t:.1f}" for t in fwd_ms) + f" ms (median {med:.1f} "
-          f"ms, {B * S / med * 1e3:.0f} tokens/s); peak device memory "
-          f"{peak / 1e9:.2f} GB; flash launches "
+          f"ms, {B * S / med * 1e3:.0f} tokens/s); aux {float(aux):.6f}; "
+          f"peak device memory {peak / 1e9:.2f} GB; flash launches "
           f"{ops.launch_counts()['flash']} in {n_fwd} forwards, by source "
           f"{kflash.design_launches}")
 
@@ -2618,31 +2683,33 @@ def phase_lm(seed: int, flash_entry):
           f"(decode; p90 {np.percentile(decode, 90):.2f}), "
           f"{nb / statistics.median(decode) * 1e3:.0f} tokens/s")
     par, _ = forward(model, cfg, {"tokens": prompts})
-    dec = torch.stack(dec, 1)
-    diff = (dec.float() - par.float()).abs()
-    within = float((diff <= LM_TOL["atol"] + LM_TOL["rtol"]
-                    * par.float().abs()).float().mean())
-    # bf16 logits over 151,936 tokens tie exactly in a few percent of
-    # rows, where the first-index argmax is an arbitrary pick: the
-    # agreement held is that decode's choice is a maximiser of the
-    # forward's logits (the first-index agreement is printed beside it)
-    first = float((dec.argmax(-1) == par.argmax(-1)).float().mean())
-    top = par.max(-1).values
-    agree = float((par.gather(-1, dec.argmax(-1, keepdim=True))[..., 0]
-                   == top).float().mean())
-    top2 = par.float().topk(2, dim=-1).values
-    ties = float((top2[..., 0] == top2[..., 1]).float().mean())
-    print(f"decode vs forward at all {nb} x {s0} prompt positions: decode's "
-          f"argmax a maximiser of forward's logits in {agree:.4f} of rows "
-          f"(first-index argmax agreement {first:.4f}; rows whose top two "
-          f"forward logits tie exactly in bf16 {ties:.4f}); max |diff| "
-          f"{diff.max().item():.4f}, median |diff| "
-          f"{diff.median().item():.5f}, share of logits within rtol/atol "
-          f"0.08 {within:.6f}; forward logits std "
-          f"{par.float().std().item():.3f}")
-    if not agree > 0.95:
-        raise AssertionError(f"decode vs forward: argmax agreement {agree}")
-    del par, dec, diff
+    agree = decode_agreement(torch.stack(dec, 1), par, f"decode vs forward "
+                             f"at all {nb} x {s0} prompt positions")
+    del par, dec
+    n_extra = 0
+    if cfg.n_experts:
+        # a MoE's forward routes groups of router_group tokens and a
+        # decode step its B tokens: at the published capacity the two
+        # drop different tokens, in the reference as in the port
+        # (tests/test_torch_moe.py); with the same weights at
+        # capacity_factor E/k no group drops a token
+        c2 = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                 / cfg.top_k)
+        par, _ = forward(model, c2, {"tokens": prompts})
+        n_extra = 1
+        caches = tserve.init_serve_cache(model, c2, nb, s0)
+        dec = []
+        for i in range(s0):
+            lg, caches = tserve.serve_step(model, c2, caches,
+                                           prompts[:, i:i + 1])
+            dec.append(lg[:, 0])
+        agree = decode_agreement(torch.stack(dec, 1), par,
+                                 f"the same at capacity_factor "
+                                 f"{c2.capacity_factor:.4f} (no drop)")
+        del par, dec, caches
+    if agree_min is not None and not agree > agree_min:
+        raise AssertionError(f"decode vs forward: argmax agreement {agree} "
+                             f"(want > {agree_min})")
 
     # BatchedServer: the same prompts admitted at once, then 16 requests
     srv = tserve.BatchedServer(cfg, model, slots=LM_SLOTS,
@@ -2680,18 +2747,20 @@ def phase_lm(seed: int, flash_entry):
     # forwards: the timed ones, generate's prefill and the one decode is
     # held against
     want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0, "topk_score": 0,
-            "flash": cfg.n_layers * (n_fwd + 2), "flash_bwd": 0}
-    if counts != want or kflash.design_launches["flash_sm90"] != want["flash"]:
+            "flash": cfg.n_layers * (n_fwd + 2 + n_extra), "flash_bwd": 0}
+    if counts != want or kflash.design_launches[source] != want["flash"]:
         raise AssertionError(f"lm: launch counts {counts} "
                              f"({kflash.design_launches} by source), want "
-                             f"{want}, all flash on flash_sm90")
+                             f"{want}, all flash on {source}")
     print(f"lm path launches {counts} ({cfg.n_layers} per forward: {n_fwd} "
           "timed forwards, generate's prefill and the forward decode is "
           "held against; decode runs no flash kernel)")
 
     # where a forward and a decode step spend the card's time
+    sums = {"flash_bf16_kernel": 0.0, "flash_sm90": 0.0}
     profile_once(lambda: forward(model, cfg, {"tokens": toks}),
-                 f"one forward B={B} S={S}")
+                 f"one forward B={B} S={S}", sums)
+    print(f"  flash kernels' device time in that forward: {sums}")
     caches = tserve.init_serve_cache(model, cfg, nb, s0 + max_new,
                                      prefilled=s0)
     step1 = prompts[:, :1]
@@ -2710,6 +2779,167 @@ def phase_lm(seed: int, flash_entry):
               f"{tuple(q.shape)}: max abs err {e:.3e}")
     flash_entry["launches"] = counts["flash"]
     return flash_entry
+
+
+DS_ARCH = "deepseek_v2_lite_16b"
+# decode vs forward in fp32 at a capacity where no group drops a token
+# (``phase_decode_fp32``): the same function up to fp32 summation order
+# (the absorbed MLA against the decompressed one, about 1e-6 relative),
+# so a row's argmax parts only where a router near-tie at that level
+# sends a token to another expert; in bf16 the two forms round at other
+# places, and ties within bf16's 2^-8 flip in some of 26 MoE layers
+# (printed, not held: PERF.md section 6)
+DS_FP32_AGREE = 0.99
+
+
+def phase_flash_mla(gen):
+    """flash.cu's kernels at two widths (q and k 192 wide, v 128: MLA's
+    prefill) against their plain version, in bf16 and fp32: at
+    DeepSeek-V2-Lite's prefill shape (4 x 4,096, 16 heads; the plain
+    scores are 4.3 GB in fp32) and at ragged shapes (Sq and Sk not
+    multiples of 64, H > KVH, an offset, a window), with the rows'
+    lse; then, in turns within this call at the prefill shape, the
+    kernel, SDPA at the same two widths (or its refusal) and the plain
+    version.  Returns the kernels-line entry without launches."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ref
+    log = ptxas_by_kernel(_build.build_log("flash"))
+    for kernel, lines in log.items():
+        print(f"  ptxas flash {kernel}: " + "; ".join(lines))
+    two = [k for k in log if "flash_bf16_kernel" in k and "Li192E" in k]
+    if len(two) != 1 or any(" 0 bytes spill stores" not in line
+                            for line in log[two[0]] if "spill" in line):
+        raise AssertionError(f"flash.cu's 192/128 bf16 kernel spills or is "
+                             f"missing: {log}")
+
+    def rand(shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    B, S = LM_PREFILL
+    H, dk, dv = 16, 192, 128
+    errs = []
+    cases = [(f"prefill b{B} s{S} h16 192/128", (B, S, H, dk), (B, S, H, dk),
+              dv, dict(causal=True)),
+             ("ragged sq130 sk257 h8/2 offset 100 window 96", (2, 130, 8, dk),
+              (2, 257, 2, dk), dv, dict(causal=True, window=96,
+                                       q_offset=100)),
+             ("ragged sq77 sk333 h16/4 offset 256", (2, 77, 16, dk),
+              (2, 333, 4, dk), dv, dict(causal=True, q_offset=256)),
+             ("noncausal sq90 sk70 h6/3", (1, 90, 6, dk), (1, 70, 3, dk), dv,
+              dict(causal=False))]
+    for label, q_shape, k_shape, hdv, kw in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k = (rand(x, dt) for x in (q_shape, k_shape))
+            v = rand(k_shape[:3] + (hdv,), dt)
+            before = dict(kflash.design_launches)
+            out, lse = kflash.flash_cuda(q, k, v, **kw, return_lse=True)
+            again = kflash.flash_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if {n: c - before[n] for n, c in kflash.design_launches.items()} \
+                    != {"flash_sm90": 0, "flash": 2}:
+                raise AssertionError(f"flash two widths {label}: launched "
+                                     f"{kflash.design_launches}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"flash two widths {label}: out differs "
+                                     "with and without lse")
+            e = ref.check_attention(out, q, k, v, **kw,
+                                    what=f"flash two widths {label}")
+            el = ref.check_lse(lse, q, k, v, **kw)
+            errs.append(e)
+            print(f"  flash two widths {label} {str(dt)[6:]}: max abs err "
+                  f"{e:.3e}, lse {el:.3e}")
+            del q, k, v, out, lse, again
+            torch.cuda.empty_cache()
+
+    q_shape, k_shape = (B, S, H, dk), (B, S, H, dk)
+    q, k = (rand(x, torch.bfloat16) for x in (q_shape, k_shape))
+    v = rand((B, S, H, dv), torch.bfloat16)
+
+    def sdpa2():
+        import torch.nn.functional as F
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+
+    fns = {"flash.cu 192/128": lambda: kflash.launch("flash", q, k, v,
+                                                     causal=True),
+           "SDPA": sdpa2,
+           "plain": lambda: ref.attention_ref(q, k, v, causal=True)}
+    refusal = None
+    try:
+        got = sdpa2()
+        torch.cuda.synchronize()
+        ref.check_attention(got, q, k, v, causal=True, what="SDPA")
+        del got
+    except RuntimeError as exc:      # the yardstick alone, not the port
+        refusal = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+        print(f"  SDPA refuses q/k 192 against v 128: {refusal}")
+        del fns["SDPA"]
+    times = {n: [] for n in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for n in order:
+            times[n].append(time_ms(fns[n], n=5 if n == "plain" else 20))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    b_ms, b_by, n_ops = flash_bound(q_shape, k_shape, dv)
+    print(f"  flash two widths at the prefill shape b{B} s{S} h{H} {dk}/{dv} "
+          f"bf16 causal, bound {b_ms:.3f} ms by {b_by} "
+          f"({n_ops / 1e9:.1f} GFLOP); two rounds in turns, mean:")
+    for n, t in times.items():
+        print(f"    {n}: {ms[n]:.3f} ms ({', '.join(f'{x:.3f}' for x in t)})"
+              f", {n_ops / ms[n] / 1e9:.1f} TFLOP/s, "
+              f"{b_ms / ms[n]:.3f} of the bound")
+    del q, k, v
+    torch.cuda.empty_cache()
+    entry = {"name": "flash_two_widths", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash.cu",
+             "replaces": "src/repro/kernels/flash.py:129",
+             "max_abs_err": max(errs), "ms": ms["flash.cu 192/128"],
+             "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": ms.get("SDPA")}
+    if refusal:
+        entry["library_note"] = f"SDPA refused: {refusal}"
+    return entry
+
+
+def phase_decode_fp32(seed: int):
+    """DeepSeek-V2-Lite at full width and depth in fp32 (62.8 GB of
+    weights from the seed), at capacity_factor E/k (no group drops a
+    token): the decode path replayed over ``LM_GEN``'s prompts, held
+    against the forward's logits (``DS_FP32_AGREE`` says why)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import forward, init_model
+    base = get_config(DS_ARCH)
+    cfg = dataclasses.replace(base, dtype="float32", capacity_factor=(
+        base.n_experts / base.top_k))
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  device memory allocated before the fp32 model "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=seed, device="cuda")
+    nb, s0, _ = LM_GEN
+    prompts = TokenStream(cfg.vocab_size, seed).batch(1, nb, s0)[:, :s0]
+    par, _ = forward(model, cfg, {"tokens": prompts})
+    caches = tserve.init_serve_cache(model, cfg, nb, s0)
+    dec = []
+    for i in range(s0):
+        lg, caches = tserve.serve_step(model, cfg, caches,
+                                       prompts[:, i:i + 1])
+        dec.append(lg[:, 0])
+    torch.cuda.synchronize()
+    agree = decode_agreement(torch.stack(dec, 1), par,
+                             f"fp32, capacity_factor "
+                             f"{cfg.capacity_factor:.4f}, {nb} x {s0} "
+                             "prompt positions")
+    print(f"  fp32 model {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"peak; {time.perf_counter() - t0:.1f} s")
+    if not agree > DS_FP32_AGREE:
+        raise AssertionError(f"fp32 decode vs forward: argmax agreement "
+                             f"{agree} (want > {DS_FP32_AGREE})")
 
 
 TRAIN_ARCH = "smollm_135m"
@@ -3367,6 +3597,15 @@ def main(argv=None) -> int:
     flash["note"] = ("on the training path both designs also write each "
                      "row's log-sum-exp for flash_bwd; launches count the "
                      "lm phase, train_launches the train phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("== deepseek: the two-width flash, DeepSeek-V2-Lite forward, "
+          "generate, BatchedServer")
+    flash_mla = phase_lm(args.seed, phase_flash_mla(gen), arch=DS_ARCH,
+                         source="flash", agree_min=None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_decode_fp32(args.seed)
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]
@@ -3378,7 +3617,7 @@ def main(argv=None) -> int:
             run: c[name] for run, c in dist_launches.items()}
     print(json.dumps({"kernels": [entries["gram"], entries["sddmm"],
                                   entries["sddmm_gathered"], topk,
-                                  flash, bwd]}))
+                                  flash, bwd, flash_mla]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,8 +28,11 @@ from .core.blocks import DenseBlock
 from .core.gibbs import MFData, MFState, with_side_grams
 from .core.sparse import PaddedRows, SparseMatrix
 from .models import layers as L
-from .models.config import ModelConfig
-from .models.transformer import Layer, Transformer, check_supported
+from .models.config import LayerSpec, ModelConfig
+from .models.mla import MLA
+from .models.moe import MoE
+from .models.transformer import (Layer, Transformer, check_supported,
+                                 check_trainable)
 from .optim import OptState
 
 
@@ -118,26 +121,48 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
     reference casts them inside every apply; the cast is elementwise,
     so the bits are the same), or with ``train`` held as the
     reference's fp32 masters with ``requires_grad=True``; norm scales
-    stay fp32.  Raises for the families the port does not run yet."""
+    and MoE routers (read in fp32 by the reference) stay fp32.  An MLA
+    layer's ``attn`` leaves (``wq``, ``kv_a``, ``kv_norm``, ``kv_b``,
+    ``wo``) make an ``MLA``, a ``moe`` subtree (``router``,
+    ``experts_*``, ``shared_*``) a ``MoE``.  Raises for the families the
+    port does not run yet, and with ``train`` for MLA."""
     check_supported(cfg)
+    if train:
+        check_trainable(cfg)
     dev = resolve_device(device)
     dt = L.held_dtype(cfg, train)
 
     def w(x, dtype=dt):
         return _t(np.asarray(x, np.float32), dev).to(dtype)
 
-    def dense(p):
-        return L.Dense(w(p["w"]), w(p["bias"]) if "bias" in p else None)
+    def dense(p, dtype=dt):
+        return L.Dense(w(p["w"], dtype),
+                       w(p["bias"], dtype) if "bias" in p else None)
 
     def norm(p):
         return L.RMSNorm(w(p["scale"], torch.float32))
 
-    def layer(p):
-        a = p["attn"]
+    def mixer(a, spec: LayerSpec):
+        if spec.mixer == "mla":
+            return MLA(dense(a["wq"]), dense(a["kv_a"]), norm(a["kv_norm"]),
+                       dense(a["kv_b"]), dense(a["wo"]))
         attn = L.Attention(dense(a["wq"]), dense(a["wk"]), dense(a["wv"]),
                            dense(a["wo"]))
         if "q_norm" in a:
             attn.q_norm, attn.k_norm = norm(a["q_norm"]), norm(a["k_norm"])
+        return attn
+
+    def layer(p, spec: LayerSpec):
+        attn = mixer(p["attn"], spec)
+        if spec.mlp == "moe":
+            m = p["moe"]
+            shared = [dense(m[k]) if k in m else None
+                      for k in ("shared_gate", "shared_in", "shared_down")]
+            return Layer(norm(p["norm1"]), attn, norm(p["norm2"]),
+                         moe=MoE(dense(m["router"], torch.float32),
+                                 dense(m["experts_gate"]),
+                                 dense(m["experts_in"]),
+                                 dense(m["experts_down"]), *shared))
         m = p["mlp"]
         return Layer(norm(p["norm1"]), attn, norm(p["norm2"]),
                      L.MLP(dense(m["wi"]), dense(m["wdown"]),
@@ -151,9 +176,10 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
     tok = params["tok"]
     emb = L.Embed(dense(tok["embed"]),
                   dense(tok["unembed"]) if "unembed" in tok else None)
-    pro = [layer(params[f"pro{i}"]) for i in range(len(cfg.prologue))]
-    stack = [layer(repeat(params["stack"][f"l{i}"], r))
-             for r in range(cfg.repeats) for i in range(len(cfg.pattern))]
+    pro = [layer(params[f"pro{i}"], spec)
+           for i, spec in enumerate(cfg.prologue)]
+    stack = [layer(repeat(params["stack"][f"l{i}"], r), spec)
+             for r in range(cfg.repeats) for i, spec in enumerate(cfg.pattern)]
     model = Transformer(cfg, emb, pro, stack, norm(params["final_norm"]))
     return model.requires_grad_(train)
 

@@ -49,11 +49,12 @@ _SIGNATURES = {
     "topk_score": {"topk_score_f32": [ctypes.c_void_p] * 7
                    + [ctypes.c_int64] * 9
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
-    # the flash entries take lse's address as an int64 after q_offset
-    "flash": {"flash_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 20
+    # the flash entries take v's width after hd, and lse's address as an
+    # int64 after q_offset
+    "flash": {"flash_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 21
               + [ctypes.c_void_p]},
     "flash_sm90": {"flash_sm90_fwd": [ctypes.c_void_p] * 4
-                   + [ctypes.c_int64] * 19 + [ctypes.c_void_p]},
+                   + [ctypes.c_int64] * 20 + [ctypes.c_void_p]},
     "flash_bwd": {"flash_bwd": _FLASH_BWD},
     "flash_bwd_sm90": {"flash_bwd_sm90": _FLASH_BWD},
 }

@@ -3,6 +3,8 @@
 // For every batch b, query position s and head h (kv head h / G):
 //   out[b, s, h] = sum_n p[n] v[b, n, h / G] / sum_n p[n],
 //   p[n] = exp(q[b, s, h] . k[b, n, h / G] / sqrt(hd) - max)
+// where q and k are hd wide and v is hdv wide (hd = hdv in a GQA layer;
+// MLA's prefill has hd = nope + rope = 192 against hdv = 128)
 // over the keys n the mask lets through: with qpos = q_offset + s, a
 // causal call sees n <= qpos and, with a window, n > qpos - window; a
 // call that is not causal sees every key.  A row that sees no key is 0
@@ -16,9 +18,9 @@
 // is a loop inside one block, which owns its rows' state in registers
 // from the first key tile to the single write of the output.
 //
-// Layout: q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), each read in
-// place through its strides (the last dimension contiguous); out
-// (B, Sq, H, hd) contiguous, in q's type; lse, when its pointer is not
+// Layout: q (B, Sq, H, hd), k (B, Sk, KVH, hd) and v (B, Sk, KVH, hdv),
+// each read in place through its strides (the last dimension
+// contiguous); out (B, Sq, H, hdv) contiguous, in q's type; lse, when its pointer is not
 // null, (B, H, Sq) fp32: each row's log-sum-exp m + log(l) of its
 // scaled scores, natural log, +inf for a row that sees no key (the
 // backward's exp(s - lse) is then 0).  out is the same bits with and
@@ -45,12 +47,24 @@
 // tile's products; rows are padded by 8 elements so that ldmatrix is
 // free of bank conflicts.
 //
-// Which shapes it serves: kernels/flash.py routes bf16 at hd 64 and 128
-// (every published config's head width, the LM path) to flash_sm90.cu,
-// the Hopper design with wgmma, TMA and warp specialisation.  This
-// file's bf16 kernel serves the other head widths (multiples of 8 up
-// to 128: the smoke configs' hd 16, the probes' hd 8 and 40), and its
-// fp32 kernel every fp32 call.
+// Which shapes it serves: kernels/flash.py routes bf16 at hd = hdv = 64
+// and 128 (the GQA configs' head widths, the dense LM path) to
+// flash_sm90.cu, the Hopper design with wgmma, TMA and warp
+// specialisation.  This file's bf16 kernel serves the other head widths
+// (multiples of 8, hd up to 192 and hdv up to 128: the smoke configs'
+// hd 16, the probes' hd 8 and 40) and every call of two widths (MLA's
+// prefill, hd 192 against hdv 128), and its fp32 kernel every fp32
+// call.  Each kernel is a template on the two padded widths (HDK for q
+// and k, HDV for v), instantiated at 32/32, 64/64, 128/128 and 192/128;
+// a call takes the first pair that holds both of its widths, and the
+// tiles are zero-filled past hd and hdv.
+//
+// The two-width tile: at HDK = 192, HDV = 128 the two stages of K and V
+// take 2 * 64 * (200 + 136) * 2 = 86,016 bytes of shared memory, so two
+// blocks share an SM (three at 128/128, 69,632 bytes a block), and
+// __launch_bounds__(THREADS, 2) leaves a thread 255 registers for the
+// q fragments of 12 k-steps (48), the 64-float output accumulator and
+// the 32 scores of a tile.
 //
 // fp32 inputs never touch the tensor cores (no TF32): a second kernel
 // does the same walk on the CUDA cores, four threads to a row, each
@@ -69,7 +83,8 @@ constexpr int BN = 64;          // keys a tile (bf16 kernel)
 constexpr int THREADS = 128;    // bf16 kernel: 4 warps of 16 rows
 constexpr int BN32 = 32;        // keys a tile (fp32 kernel)
 constexpr int THREADS32 = 256;  // fp32 kernel: 4 threads a row
-constexpr int HD_MAX = 128;
+constexpr int HD_MAX = 192;     // widest q and k
+constexpr int HDV_MAX = 128;    // widest v
 
 struct Args {
   const void* q;
@@ -80,7 +95,7 @@ struct Args {
   int64_t q_sb, q_ss, q_sh;  // strides in elements
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
-  int B, Sq, Sk, H, KVH, hd;
+  int B, Sq, Sk, H, KVH, hd, hdv;   // hd: q and k; hdv: v and out
   int causal, window, q_offset;
   float scale_log2;          // log2(e) / sqrt(hd)
 };
@@ -180,7 +195,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows of `n_rows` x HDP bf16 from global (16-byte chunks, zero past
+// Rows of BN x HDP bf16 from global (16-byte chunks, zero past
 // the valid rows and past hd) into shared rows of LD elements.
 template <int HDP>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
@@ -198,19 +213,24 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
   }
 }
 
-// at most 170 registers a thread, so that 3 blocks share an SM
-template <int HDP>
-__global__ void __launch_bounds__(THREADS, 3)
+// HDK: padded width of q and k, HDV: of v; MINB blocks share an SM
+// (3: at most 170 registers a thread; 2 at 192/128, where shared memory
+// holds no third)
+template <int HDK, int HDV, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
     flash_bf16_kernel(const Args a) {
-  constexpr int LD = HDP + 8;        // padded shared row, elements
-  constexpr int TILE = BN * LD;      // one K or V tile
-  constexpr int CH = HDP / 8;
-  constexpr int KS = HDP / 16;       // k-steps of q.k
+  constexpr int LDK = HDK + 8;       // padded shared rows, elements
+  constexpr int LDV = HDV + 8;
+  constexpr int TILEK = BN * LDK;    // one K tile
+  constexpr int STAGE = TILEK + BN * LDV;   // a K and a V tile
+  constexpr int CHK = HDK / 8;
+  constexpr int KS = HDK / 16;       // k-steps of q.k
   constexpr int NT = BN / 8;         // 8-key column tiles of S
-  constexpr int DT = HDP / 8;        // 8-wide column tiles of out
+  constexpr int DT = HDV / 8;        // 8-wide column tiles of out
+  static_assert(BM == BN, "the q tile passes through a K tile");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // stage s: K at sm + 2 s TILE, V at sm + (2 s + 1) TILE; the q tile
+  // stage s: K at sm + s STAGE, V at sm + s STAGE + TILEK; the q tile
   // passes through stage 1's K before the loop needs it
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -246,40 +266,40 @@ __global__ void __launch_bounds__(THREADS, 3)
   const int bpos_hi = a.q_offset + (min(R0 + BM, rows) - 1) / G;
   if (t0 < t1) {
     // the q tile, rows R0.. of this (b, kv head), into stage 1's K
-    __nv_bfloat16* sq = sm + 2 * TILE;
-    for (int i = threadIdx.x; i < BM * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH, R = R0 + r;
+    __nv_bfloat16* sq = sm + STAGE;
+    for (int i = threadIdx.x; i < BM * CHK; i += THREADS) {
+      const int r = i / CHK, c = i % CHK, R = R0 + r;
       const bool ok = R < rows && c * 8 < a.hd;
       const __nv_bfloat16* src =
           ok ? q + (int64_t)b * a.q_sb + (int64_t)(R / G) * a.q_ss +
                    (int64_t)(kvh * G + R % G) * a.q_sh + c * 8
              : q;
-      cp_async16(sq + r * LD + c * 8, src, ok ? 16 : 0);
+      cp_async16(sq + r * LDK + c * 8, src, ok ? 16 : 0);
     }
-    load_rows<HDP>(sm, kb, a.k_ss, t0 * BN, a.Sk, a.hd);
-    load_rows<HDP>(sm + TILE, vb, a.v_ss, t0 * BN, a.Sk, a.hd);
+    load_rows<HDK>(sm, kb, a.k_ss, t0 * BN, a.Sk, a.hd);
+    load_rows<HDV>(sm + TILEK, vb, a.v_ss, t0 * BN, a.Sk, a.hdv);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
     uint32_t qf[KS][4];
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      ldmatrix_x4(qf[kk], sq + (warp * 16 + lane % 16) * LD + kk * 16 +
+      ldmatrix_x4(qf[kk], sq + (warp * 16 + lane % 16) * LDK + kk * 16 +
                               (lane / 16) * 8);
     __syncthreads();
 
     for (int t = t0; t < t1; ++t) {
       const int st = (t - t0) & 1;
       if (t + 1 < t1) {
-        __nv_bfloat16* nxt = sm + 2 * (st ^ 1) * TILE;
-        load_rows<HDP>(nxt, kb, a.k_ss, (t + 1) * BN, a.Sk, a.hd);
-        load_rows<HDP>(nxt + TILE, vb, a.v_ss, (t + 1) * BN, a.Sk, a.hd);
+        __nv_bfloat16* nxt = sm + (st ^ 1) * STAGE;
+        load_rows<HDK>(nxt, kb, a.k_ss, (t + 1) * BN, a.Sk, a.hd);
+        load_rows<HDV>(nxt + TILEK, vb, a.v_ss, (t + 1) * BN, a.Sk, a.hdv);
       }
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
-      const __nv_bfloat16* sk = sm + 2 * st * TILE;
-      const __nv_bfloat16* sv = sk + TILE;
+      const __nv_bfloat16* sk = sm + st * STAGE;
+      const __nv_bfloat16* sv = sk + TILEK;
 
       // S = q k^T for this warp's 16 rows x 64 keys
       float s[NT][4];
@@ -290,7 +310,7 @@ __global__ void __launch_bounds__(THREADS, 3)
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t kf[4];
-          ldmatrix_x4(kf, sk + (np * 16 + (lane / 16) * 8 + lane % 8) * LD +
+          ldmatrix_x4(kf, sk + (np * 16 + (lane / 16) * 8 + lane % 8) * LDK +
                               kk * 16 + ((lane / 8) % 2) * 8);
           mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
           mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
@@ -362,7 +382,7 @@ __global__ void __launch_bounds__(THREADS, 3)
         for (int dp = 0; dp < DT / 2; ++dp) {
           uint32_t vf[4];
           ldmatrix_x4_trans(vf, sv + (kk * 16 + ((lane / 8) % 2) * 8 +
-                                      lane % 8) * LD +
+                                      lane % 8) * LDV +
                                     dp * 16 + (lane / 16) * 8);
           mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
           mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
@@ -389,11 +409,11 @@ __global__ void __launch_bounds__(THREADS, 3)
       write_lse(a, b, kvh, G, R, half ? m_hi : m_lo, half ? l_hi : l_lo);
     const float inv = half ? inv_hi : inv_lo;
     const int64_t row_off =
-        (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * a.hd;
+        (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * a.hdv;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
       const int d = j * 8 + cq;
-      if (d < a.hd)
+      if (d < a.hdv)
         *reinterpret_cast<__nv_bfloat162*>(out + row_off + d) =
             __floats2bfloat162_rn(o[j][2 * half] * inv,
                                   o[j][2 * half + 1] * inv);
@@ -405,18 +425,21 @@ __global__ void __launch_bounds__(THREADS, 3)
 // fp32: CUDA cores, no TF32
 // ---------------------------------------------------------------------
 
+// HDK, HDV: the widest q/k and v a call may have
+template <int HDK, int HDV>
 __global__ void __launch_bounds__(THREADS32)
     flash_f32_kernel(const Args a) {
-  __shared__ float sk[BN32][HD_MAX];
-  __shared__ float sv[BN32][HD_MAX];
-  constexpr int DQ = HD_MAX / 4;     // most dims a thread owns
+  __shared__ float sk[BN32][HDK];
+  __shared__ float sv[BN32][HDV];
+  constexpr int DQ = HDK / 4;        // most q/k dims a thread owns
+  constexpr int DV = HDV / 4;        // most v dims a thread owns
   const int G = a.H / a.KVH;
   const int b = blockIdx.y / a.KVH, kvh = blockIdx.y % a.KVH;
   const int rows = a.Sq * G;
   const int R0 = blockIdx.x * BM;
   const int R = R0 + threadIdx.x / 4;   // this thread's row
   const int t4 = threadIdx.x % 4;       // it owns dims t4 + 4 i
-  const int nd = a.hd / 4;
+  const int nd = a.hd / 4, ndv = a.hdv / 4;
   const int qpos = a.q_offset + R / G;
   const float* q = static_cast<const float*>(a.q);
   const float* kb = static_cast<const float*>(a.k) + (int64_t)b * a.k_sb +
@@ -424,14 +447,14 @@ __global__ void __launch_bounds__(THREADS32)
   const float* vb = static_cast<const float*>(a.v) + (int64_t)b * a.v_sb +
                     (int64_t)kvh * a.v_sh;
 
-  float qr[DQ], acc[DQ];
+  float qr[DQ], acc[DV];
   const float* qrow = q + (int64_t)b * a.q_sb + (int64_t)(R / G) * a.q_ss +
                       (int64_t)(kvh * G + R % G) * a.q_sh;
 #pragma unroll
-  for (int i = 0; i < DQ; ++i) {
+  for (int i = 0; i < DQ; ++i)
     qr[i] = (i < nd && R < rows) ? qrow[t4 + 4 * i] : 0.f;
-    acc[i] = 0.f;
-  }
+#pragma unroll
+  for (int i = 0; i < DV; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   int t0, t1;
@@ -439,9 +462,11 @@ __global__ void __launch_bounds__(THREADS32)
   for (int t = t0; t < t1; ++t) {
     for (int i = threadIdx.x; i < BN32 * a.hd; i += THREADS32) {
       const int r = i / a.hd, d = i % a.hd, n = t * BN32 + r;
-      const bool ok = n < a.Sk;
-      sk[r][d] = ok ? kb[(int64_t)n * a.k_ss + d] : 0.f;
-      sv[r][d] = ok ? vb[(int64_t)n * a.v_ss + d] : 0.f;
+      sk[r][d] = n < a.Sk ? kb[(int64_t)n * a.k_ss + d] : 0.f;
+    }
+    for (int i = threadIdx.x; i < BN32 * a.hdv; i += THREADS32) {
+      const int r = i / a.hdv, d = i % a.hdv, n = t * BN32 + r;
+      sv[r][d] = n < a.Sk ? vb[(int64_t)n * a.v_ss + d] : 0.f;
     }
     __syncthreads();
     float sc[BN32];
@@ -470,8 +495,8 @@ __global__ void __launch_bounds__(THREADS32)
     }
     l = l * alpha + sum;
 #pragma unroll
-    for (int i = 0; i < DQ; ++i) {
-      if (i < nd) {
+    for (int i = 0; i < DV; ++i) {
+      if (i < ndv) {
         float x = acc[i] * alpha;
 #pragma unroll
         for (int j = 0; j < BN32; ++j) x = fmaf(sc[j], sv[j][t4 + 4 * i], x);
@@ -484,41 +509,45 @@ __global__ void __launch_bounds__(THREADS32)
     if (a.lse != nullptr && t4 == 0) write_lse(a, b, kvh, G, R, m, l);
     const float inv = 1.f / (l == 0.f ? 1.f : l);
     float* out = static_cast<float*>(a.o) +
-                 (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * a.hd;
+                 (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * a.hdv;
 #pragma unroll
-    for (int i = 0; i < DQ; ++i)
-      if (i < nd) out[t4 + 4 * i] = acc[i] * inv;
+    for (int i = 0; i < DV; ++i)
+      if (i < ndv) out[t4 + 4 * i] = acc[i] * inv;
   }
 }
 
-template <int HDP>
+template <int HDK, int HDV, int MINB>
 cudaError_t launch_bf16(const Args& a, dim3 grid, cudaStream_t st) {
-  constexpr int bytes = 4 * BN * (HDP + 8) * 2;   // 2 stages of K and V
+  // 2 stages of a K and a V tile
+  constexpr int bytes = 2 * BN * (HDK + 8 + HDV + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bf16_kernel<HDK, HDV, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  flash_bf16_kernel<HDP><<<grid, THREADS, bytes, st>>>(a);
+  flash_bf16_kernel<HDK, HDV, MINB><<<grid, THREADS, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out: device pointers; strides in elements (the last
-// dimension contiguous); lse: the address of a (B, H, Sq) fp32 buffer,
-// passed as an integer like the sizes, or 0 for none; is_bf16 picks the
-// tensor-core kernel, else fp32.
-// The caller has checked shapes, hd % 8 == 0, hd <= 128, the 16-byte
-// alignment of bf16 rows, and 0 <= q_offset, 0 <= window.
+// dimension contiguous); hd: the width of q and k, hdv: of v and out;
+// lse: the address of a (B, H, Sq) fp32 buffer, passed as an integer
+// like the sizes, or 0 for none; is_bf16 picks the tensor-core kernel,
+// else fp32.
+// The caller has checked shapes, hd % 8 == hdv % 8 == 0, hd <= 192,
+// hdv <= 128, the 16-byte alignment of bf16 rows, and 0 <= q_offset,
+// 0 <= window.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, int64_t q_sb, int64_t q_ss,
                          int64_t q_sh, int64_t k_sb, int64_t k_ss,
                          int64_t k_sh, int64_t v_sb, int64_t v_ss,
                          int64_t v_sh, int64_t B, int64_t Sq, int64_t Sk,
-                         int64_t H, int64_t KVH, int64_t hd, int64_t causal,
-                         int64_t window, int64_t q_offset, int64_t lse,
-                         int64_t is_bf16, void* stream) {
+                         int64_t H, int64_t KVH, int64_t hd, int64_t hdv,
+                         int64_t causal, int64_t window, int64_t q_offset,
+                         int64_t lse, int64_t is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
+  if (hd > HD_MAX || hdv > HDV_MAX) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -540,6 +569,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   a.H = (int)H;
   a.KVH = (int)KVH;
   a.hd = (int)hd;
+  a.hdv = (int)hdv;
   a.causal = (int)causal;
   a.window = (int)window;
   a.q_offset = (int)q_offset;
@@ -548,10 +578,15 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   dim3 grid((unsigned)((rows + BM - 1) / BM), (unsigned)(B * KVH));
   cudaStream_t st = (cudaStream_t)stream;
   if (!is_bf16) {
-    flash_f32_kernel<<<grid, THREADS32, 0, st>>>(a);
+    if (hd <= 128)
+      flash_f32_kernel<128, 128><<<grid, THREADS32, 0, st>>>(a);
+    else
+      flash_f32_kernel<HD_MAX, HDV_MAX><<<grid, THREADS32, 0, st>>>(a);
     return (int)cudaGetLastError();
   }
-  if (hd <= 32) return (int)launch_bf16<32>(a, grid, st);
-  if (hd <= 64) return (int)launch_bf16<64>(a, grid, st);
-  return (int)launch_bf16<128>(a, grid, st);
+  // the first pair of padded widths that holds both
+  if (hd <= 32 && hdv <= 32) return (int)launch_bf16<32, 32, 3>(a, grid, st);
+  if (hd <= 64 && hdv <= 64) return (int)launch_bf16<64, 64, 3>(a, grid, st);
+  if (hd <= 128) return (int)launch_bf16<128, 128, 3>(a, grid, st);
+  return (int)launch_bf16<HD_MAX, HDV_MAX, 2>(a, grid, st);
 }

@@ -720,21 +720,25 @@ cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mv,
 // Error codes besides cudaError_t: 1000 + the CUresult of a tensor map
 // that did not encode, 999 when the driver has no cuTensorMapEncodeTiled.
 // q, k, v, out: device pointers; strides in elements (the last
-// dimension contiguous); lse: the address of a (B, H, Sq) fp32 buffer,
-// passed as an integer like the sizes, or 0 for none.  The caller has checked shapes, bf16, hd 64 or
-// 128, the 16-byte alignment of pointers and strides, and
-// 0 <= q_offset, 0 <= window.
+// dimension contiguous); hd, hdv: the widths of q/k and of v, which
+// must be equal here (flash.cu's entry takes the same arguments and two
+// widths); lse: the address of a (B, H, Sq) fp32 buffer, passed as an
+// integer like the sizes, or 0 for none.  The caller has checked
+// shapes, bf16, hd 64 or 128, the 16-byte alignment of pointers and
+// strides, and 0 <= q_offset, 0 <= window.
 extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
                               void* out, int64_t q_sb, int64_t q_ss,
                               int64_t q_sh, int64_t k_sb, int64_t k_ss,
                               int64_t k_sh, int64_t v_sb, int64_t v_ss,
                               int64_t v_sh, int64_t B, int64_t Sq,
                               int64_t Sk, int64_t H, int64_t KVH, int64_t hd,
-                              int64_t causal, int64_t window,
+                              int64_t hdv, int64_t causal, int64_t window,
                               int64_t q_offset, int64_t lse, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  // one width for q, k and v: calls of two widths go to flash.cu
+  if ((hd != 64 && hd != 128) || hdv != hd)
+    return (int)cudaErrorInvalidValue;
   if (Sk <= 0) {  // no key: every row is 0, every lse +inf
     cudaError_t err =
         cudaMemsetAsync(out, 0, (size_t)(B * Sq * H * hd * 2), st);

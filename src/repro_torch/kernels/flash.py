@@ -2,10 +2,12 @@
 
 Two sources replace the Pallas-TPU kernel
 ``repro/kernels/flash.py::flash_fwd_pallas``, chosen by :func:`design`
-from the dtype and the head width: ``csrc/flash_sm90.cu`` (wgmma, TMA,
-warp specialisation) takes bf16 at hd 64 and 128, the head widths of
-every published config; ``csrc/flash.cu`` (mma.sync in bf16, CUDA cores
-in fp32) takes fp32 and the other bf16 widths.  Each header says what
+from the dtype and the head widths: ``csrc/flash_sm90.cu`` (wgmma, TMA,
+warp specialisation) takes bf16 at one width of 64 or 128 for q, k and
+v, the head widths of every GQA config; ``csrc/flash.cu`` (mma.sync in
+bf16, CUDA cores in fp32) takes fp32, the other bf16 widths and every
+call whose v is narrower or wider than its q and k (MLA's prefill: q
+and k 192 wide, v 128).  Each header says what
 bounds it on the card and how the design answers that.  Their plain
 version is ``ref.attention_ref``.  ``launches`` counts the calls that
 launched a kernel, one per call, and ``design_launches`` splits that
@@ -24,14 +26,17 @@ from . import _build
 
 launches = 0
 design_launches = {"flash_sm90": 0, "flash": 0}
-HD_MAX = 128      # widest head the kernels' registers and shared memory hold
+# widest q/k and v that flash.cu's registers and shared memory hold
+HD_MAX, HDV_MAX = 192, 128
 SM90_HEAD_DIMS = (64, 128)
 
 
-def design(dtype: torch.dtype, hd: int) -> str:
-    """The source whose kernel serves a call: ``flash_sm90`` for bf16 at
-    hd 64 or 128, ``flash`` otherwise."""
-    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
+def design(dtype: torch.dtype, hd: int, hdv: int = None) -> str:
+    """The source whose kernel serves a call: ``flash_sm90`` for bf16
+    with q, k and v all hd = 64 or 128 wide (``hdv``, v's width,
+    defaults to hd), ``flash`` otherwise."""
+    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS \
+            and hdv in (None, hd):
         return "flash_sm90"
     return "flash"
 
@@ -39,16 +44,16 @@ def design(dtype: torch.dtype, hd: int) -> str:
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool, window: int = 0, q_offset: int = 0,
                return_lse: bool = False):
-    """out (B, Sq, H, hd) in q's dtype from CUDA tensors q (B, Sq, H, hd)
-    and k, v (B, Sk, KVH, hd), read in place through their strides;
-    with ``return_lse``, (out, lse (B, H, Sq) fp32): each row's
-    log-sum-exp of its scaled scores, +inf for a row that sees no key.
-    fp32 (CUDA cores, no TF32) or bf16 (tensor cores), by the kernel of
-    :func:`design`.  Raises on what the kernels do not take: another
-    dtype, mixed dtypes, a head width that is not a multiple of 8 or is
-    above 128, H not a multiple of KVH, a last dimension that is not
-    contiguous, bf16 rows that are not 16-byte aligned, or a negative
-    window or offset."""
+    """out (B, Sq, H, hdv) in q's dtype from CUDA tensors q (B, Sq, H, hd),
+    k (B, Sk, KVH, hd) and v (B, Sk, KVH, hdv), read in place through
+    their strides; with ``return_lse``, (out, lse (B, H, Sq) fp32): each
+    row's log-sum-exp of its scaled scores (scale 1/sqrt(hd)), +inf for a
+    row that sees no key.  fp32 (CUDA cores, no TF32) or bf16 (tensor
+    cores), by the kernel of :func:`design`.  Raises on what the kernels
+    do not take: another dtype, mixed dtypes, a width that is not a
+    multiple of 8, hd above 192 or hdv above 128, H not a multiple of
+    KVH, a last dimension that is not contiguous, bf16 rows that are not
+    16-byte aligned, or a negative window or offset."""
     global launches
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
@@ -68,16 +73,18 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_cuda: {name}'s last dimension is not "
                              "contiguous")
     B, Sq, H, hd = q.shape
-    Sk, KVH = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, Sk, KVH, hd) or v.shape != k.shape:
+    Sk, KVH, hdv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(k.shape) != (B, Sk, KVH, hd) or \
+            tuple(v.shape) != (B, Sk, KVH, hdv):
         raise ValueError(f"flash_cuda: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} and v {tuple(v.shape)} do not fit "
-                         "(B, Sq, H, hd), (B, Sk, KVH, hd) twice")
+                         "(B, Sq, H, hd), (B, Sk, KVH, hd), (B, Sk, KVH, hdv)")
     if KVH < 1 or H % KVH:
         raise ValueError(f"flash_cuda: H={H} is not a multiple of KVH={KVH}")
-    if hd % 8 or not 8 <= hd <= HD_MAX:
-        raise ValueError(f"flash_cuda: head width {hd} must be a multiple "
-                         f"of 8 in [8, {HD_MAX}]")
+    for what, width, top in (("q/k", hd, HD_MAX), ("v", hdv, HDV_MAX)):
+        if width % 8 or not 8 <= width <= top:
+            raise ValueError(f"flash_cuda: {what} head width {width} must "
+                             f"be a multiple of 8 in [8, {top}]")
     if window < 0 or q_offset < 0:
         raise ValueError(f"flash_cuda: window={window} and q_offset="
                          f"{q_offset} must be >= 0")
@@ -88,7 +95,7 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(
                     f"flash_cuda: {name}'s bf16 rows are not 16-byte "
                     "aligned (data pointer and strides)")
-    source = design(q.dtype, hd)
+    source = design(q.dtype, hd, hdv)
     # flash.cu's grid has B*KVH in y; flash_sm90.cu's is one-dimensional
     if source == "flash" and B * KVH > 65535:
         raise ValueError(f"flash_cuda: B*KVH = {B * KVH} exceeds the grid's "
@@ -109,7 +116,8 @@ def launch(source: str, q, k, v, *, causal: bool, window: int = 0,
     rows' log-sum-exp into ``lse`` (B, H, Sq) fp32 when it is given;
     counts nothing (``chip_smoke.py`` and the card's tests call it to
     run one design beside the other)."""
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                      device=q.device)
     (fn_name,) = _build._SIGNATURES[source]
     fn = getattr(_build.load(source), fn_name)
     with torch.cuda.device(q.device):
@@ -125,14 +133,14 @@ def launch_args(q, k, v, out, *, causal: bool, window: int,
                 q_offset: int, source: str = "flash", lse=None) -> tuple:
     """The C entry's arguments but the stream: the four data pointers,
     the (batch, sequence, head) strides of q, k and v in elements, then
-    B, Sq, Sk, H, KVH, hd, causal, window, q_offset, the address of
-    ``lse`` (0 for None) and, for ``flash.cu``'s entry alone,
-    is_bf16."""
+    B, Sq, Sk, H, KVH, hd (q and k's width), hdv (v's), causal, window,
+    q_offset, the address of ``lse`` (0 for None) and, for ``flash.cu``'s
+    entry alone, is_bf16."""
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            B, Sq, Sk, H, KVH, hd, int(bool(causal)), int(window),
+            B, Sq, Sk, H, KVH, hd, v.shape[3], int(bool(causal)), int(window),
             int(q_offset), 0 if lse is None else lse.data_ptr())
     if source == "flash":
         return args + (int(q.dtype == torch.bfloat16),)

@@ -125,10 +125,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """GQA attention forward; see kernels/flash.py.
 
-    q (B, Sq, H, hd), k/v (B, Sk, KVH, hd) -> (B, Sq, H, hd) in q's
-    dtype.  Query position ``q_offset + s``; causal ``kpos <= qpos``,
-    and with a window ``kpos > qpos - window``; softmax scale 1/sqrt(hd);
-    a row with no visible key is 0.
+    q (B, Sq, H, hd), k (B, Sk, KVH, hd), v (B, Sk, KVH, hdv) -> (B, Sq,
+    H, hdv) in q's dtype (hdv = hd but in MLA's prefill, 192 against
+    128).  Query position ``q_offset + s``; causal ``kpos <= qpos``, and
+    with a window ``kpos > qpos - window``; softmax scale 1/sqrt(hd); a
+    row with no visible key is 0.
     """
     if q.is_cuda:
         return _flash.flash_cuda(q, k, v, causal=causal, window=window,
@@ -158,7 +159,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and ``lse`` and dout; see kernels/flash_bwd.py.  On the card one
     call of the CUDA kernel on contiguous copies where an operand is not
     contiguous (autograd may hand a strided dout); on the CPU
-    ``ref.attention_bwd_ref``."""
+    ``ref.attention_bwd_ref``.  A v narrower or wider than q and k (MLA)
+    raises NotImplementedError on both devices: the two-width backward
+    is not written yet (ROADMAP B4), and no plain gradient stands in."""
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            f"flash_attention_bwd: v {v.shape[-1]} wide against q/k "
+            f"{q.shape[-1]}: the two-width flash backward is not ported "
+            "yet (ROADMAP B4, A10.3)")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.is_cuda:
         return _flash_bwd.flash_bwd_cuda(

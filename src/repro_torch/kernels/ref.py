@@ -250,7 +250,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     autograd off), so that branch serves only the tests that hold
     ``attention_bwd_ref`` against ``torch.autograd.grad`` through it.
 
-    q (B, Sq, H, hd), k/v (B, Sk, KVH, hd) -> (B, Sq, H, hd) in q's dtype;
+    q (B, Sq, H, hd), k (B, Sk, KVH, hd), v (B, Sk, KVH, hdv) -> (B, Sq,
+    H, hdv) in q's dtype, scale 1/sqrt(hd) (MLA's prefill: hd = nope +
+    rope against a narrower hdv);
     with ``return_lse`` also each row's log-sum-exp m + log(l) of the
     scaled scores, (B, H, Sq) fp32, +inf where l == 0 (the backward's
     exp(s - lse) is then 0).

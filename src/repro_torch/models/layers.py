@@ -26,10 +26,10 @@ card where the reference runs ``chunked_attention`` -- without autograd
 ``kernels.ops.flash_attention``, and under autograd ``attention_fn``,
 whose backward is the flash_bwd kernel; and a decode step against a KV
 cache, which stays plain PyTorch, as the reference's
-``decode_attention`` is outside any Pallas kernel.  Sliding windows
-(the ring-buffer decode), cross-attention, MLA, MoE and SSM blocks are
-not ported yet (ROADMAP A10): ``models.transformer.check_supported``
-refuses their configs.
+``decode_attention`` is outside any Pallas kernel.  MLA and MoE blocks
+live in ``mla.py`` and ``moe.py``.  Sliding windows (the ring-buffer
+decode), cross-attention and SSM blocks are not ported yet (ROADMAP
+A10): ``models.transformer.check_supported`` refuses their configs.
 """
 from __future__ import annotations
 

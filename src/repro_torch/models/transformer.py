@@ -1,18 +1,23 @@
-"""Transformer assembly for a dense decoder-only LM: forward, loss and
-decode.
+"""Transformer assembly for a decoder-only LM: forward, loss and decode.
 
-The counterpart of ``repro/models/transformer.py`` for ``attn`` mixers
-with ``dense`` MLPs.  The reference stacks its pattern repeats on a
-leading axis and scans them; here the layers are one module each, in
-the same order: the prologue layers, then pattern x repeats (repeat
-major).  ``init_serve_cache`` keeps the reference's
-``{"stack", "pro", "pos"}`` layout with one position counter ``pos``
-for the whole batch (a Python int), and ``caches["stack"][i]`` is layer
-i's ``{"mixer": {"k", "v"}}``.
+The counterpart of ``repro/models/transformer.py`` for ``attn`` (GQA
+with RoPE) and ``mla`` mixers with ``dense`` or ``moe`` MLPs.  The
+reference stacks its pattern repeats on a leading axis and scans them;
+here the layers are one module each, in the same order: the prologue
+layers, then pattern x repeats (repeat major).  ``init_serve_cache``
+keeps the reference's ``{"stack", "pro", "pos"}`` layout with one
+position counter ``pos`` for the whole batch (a Python int), and
+``caches["stack"][i]`` is layer i's ``{"mixer": ...}``, of its mixer's
+kind: ``{"k", "v"}`` for attention, ``{"c_kv", "k_rope"}`` for MLA.
 
-MLA, Mamba2, MoE, sliding windows (the ring-buffer decode),
-cross-attention, encoder-decoder models, modality frontends and the
-LayerNorm / sinusoidal-position variant belong to later slices
+MoE layers return the reference's aux losses; ``forward`` returns their
+sum over the layers (``lb_loss + 1e-3 z_loss`` each) and ``loss_fn``
+adds 1e-2 of it.  An MLA model serves but does not train yet: its
+gradient needs the two-width flash backward (ROADMAP A10.3, B4), so
+``init_model(train=True)``, ``loss_fn`` and the converter refuse it
+with ``NotImplementedError``.  Mamba2, sliding windows (the ring-buffer
+decode), cross-attention, encoder-decoder models, modality frontends
+and the LayerNorm / sinusoidal-position variant belong to later slices
 (ROADMAP A10) and raise ``NotImplementedError`` when a model is built;
 so does ``encode``, the encoder path.
 
@@ -36,24 +41,29 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
-from .config import ModelConfig
+from .config import LayerSpec, ModelConfig
 from .layers import (Attention, Embed, MLP, Params, RMSNorm,
                      apply_attention, apply_mlp, cdtype, embed_tokens,
                      held_dtype, init_attention, init_attn_cache, init_embed,
                      init_mlp, init_rmsnorm, rms_norm, unembed)
+from .mla import MLA, apply_mla, init_mla, init_mla_cache
+from .moe import MoE, apply_moe, init_moe
 
 A10 = "not ported yet (ROADMAP A10)"
+MLA_TRAIN = ("training an MLA model needs the two-width flash backward, "
+             "which is not ported yet (ROADMAP A10.3, B4)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming ROADMAP A10, for what the port
     does not run yet: every layer must be causal self-attention with
-    RoPE and no window, followed by a dense MLP."""
+    RoPE and no window (``attn``) or MLA, followed by a dense or MoE
+    MLP."""
     what = []
     for spec in cfg.prologue + cfg.pattern:
-        if spec.mixer != "attn":
+        if spec.mixer not in ("attn", "mla"):
             what.append(f"the {spec.mixer} mixer")
-        if spec.mlp != "dense":
+        if spec.mlp not in ("dense", "moe"):
             what.append(f"{spec.mlp} MLP layers")
         if spec.window > 0:
             what.append("sliding-window attention (ring-buffer decode)")
@@ -70,18 +80,29 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: " + ", ".join(dict.fromkeys(what)) + f" {A10}")
 
 
-class Layer(nn.Module):
-    """``norm1``, ``attn``, ``norm2``, ``mlp``."""
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError, naming ROADMAP A10.3, for a config
+    with an MLA layer."""
+    if any(s.mixer == "mla" for s in cfg.prologue + cfg.pattern):
+        raise NotImplementedError(f"{cfg.name}: {MLA_TRAIN}")
 
-    def __init__(self, norm1: RMSNorm, attn: Attention, norm2: RMSNorm,
-                 mlp: MLP):
+
+class Layer(nn.Module):
+    """``norm1``, ``attn`` (an ``Attention`` or an ``MLA``, under the
+    reference's key for both), ``norm2``, and ``mlp`` or ``moe``."""
+
+    def __init__(self, norm1: RMSNorm, attn: nn.Module, norm2: RMSNorm,
+                 mlp: Optional[MLP] = None, moe: Optional[MoE] = None):
         super().__init__()
-        self.norm1, self.attn, self.norm2, self.mlp = norm1, attn, norm2, mlp
+        if (mlp is None) == (moe is None):
+            raise ValueError("a layer holds an mlp or a moe")
+        self.norm1, self.attn, self.norm2 = norm1, attn, norm2
+        self.mlp, self.moe = mlp, moe
 
 
 class Transformer(nn.Module):
-    """The dense decoder: ``tok`` (embed / unembed), ``pro`` and
-    ``stack`` (one ``Layer`` each), ``final_norm``."""
+    """The decoder: ``tok`` (embed / unembed), ``pro`` and ``stack``
+    (one ``Layer`` each), ``final_norm``."""
 
     def __init__(self, cfg: ModelConfig, tok: Embed, pro: List[Layer],
                  stack: List[Layer], final_norm: RMSNorm):
@@ -102,11 +123,14 @@ class Transformer(nn.Module):
         return list(self.pro) + list(self.stack)
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, device,
-                dtype) -> Layer:
-    return Layer(init_rmsnorm(cfg.d_model, device),
-                 init_attention(gen, cfg, device, dtype),
-                 init_rmsnorm(cfg.d_model, device),
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+                device, dtype) -> Layer:
+    init_mixer = init_mla if spec.mixer == "mla" else init_attention
+    attn = init_mixer(gen, cfg, device, dtype)
+    norm1, norm2 = (init_rmsnorm(cfg.d_model, device) for _ in range(2))
+    if spec.mlp == "moe":
+        return Layer(norm1, attn, norm2, moe=init_moe(gen, cfg, device, dtype))
+    return Layer(norm1, attn, norm2,
                  init_mlp(gen, cfg, device=device, dtype=dtype))
 
 
@@ -119,16 +143,19 @@ def init_model(cfg: ModelConfig, seed: int = 0, *,
     1/sqrt(fan_in), norm scales 1, biases 0.  Weights are held in the
     compute dtype, frozen, or with ``train`` as fp32 masters with
     ``requires_grad=True`` (the values a serving model of the same seed
-    holds before its cast); norm scales in fp32.  Raises for the
-    families the port does not run yet, before drawing anything."""
+    holds before its cast); norm scales and MoE routers in fp32.  Raises
+    for the families the port does not run yet (and, with ``train``,
+    for MLA), before drawing anything."""
     check_supported(cfg)
+    if train:
+        check_trainable(cfg)
     dev = resolve_device(device)
     dt = held_dtype(cfg, train)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     tok = init_embed(gen, cfg, dev, dt)
-    pro = [_init_layer(gen, cfg, dev, dt) for _ in cfg.prologue]
-    stack = [_init_layer(gen, cfg, dev, dt)
-             for _ in range(cfg.repeats * len(cfg.pattern))]
+    pro = [_init_layer(gen, cfg, spec, dev, dt) for spec in cfg.prologue]
+    stack = [_init_layer(gen, cfg, spec, dev, dt)
+             for _ in range(cfg.repeats) for spec in cfg.pattern]
     model = Transformer(cfg, tok, pro, stack,
                         init_rmsnorm(cfg.d_model, dev))
     return model.requires_grad_(train)
@@ -136,12 +163,21 @@ def init_model(cfg: ModelConfig, seed: int = 0, *,
 
 def _apply_layer(lay: Layer, cfg: ModelConfig, x: torch.Tensor, *,
                  cache: Optional[Params]
-                 ) -> Tuple[torch.Tensor, Optional[Params]]:
+                 ) -> Tuple[torch.Tensor, Optional[Params],
+                            Optional[torch.Tensor]]:
+    """-> (x, the mixer's new cache, the layer's aux ``lb_loss + 1e-3
+    z_loss`` (None without a MoE))."""
     h = rms_norm(lay.norm1, x, cfg.norm_eps)
-    mix, new_cache = apply_attention(lay.attn, cfg, h, cache=cache)
+    if isinstance(lay.attn, MLA):
+        mix, new_cache = apply_mla(lay.attn, cfg, h, cache=cache)
+    else:
+        mix, new_cache = apply_attention(lay.attn, cfg, h, cache=cache)
     x = x + mix
-    x = x + apply_mlp(lay.mlp, cfg, rms_norm(lay.norm2, x, cfg.norm_eps))
-    return x, new_cache
+    h = rms_norm(lay.norm2, x, cfg.norm_eps)
+    if lay.moe is None:
+        return x + apply_mlp(lay.mlp, cfg, h), new_cache, None
+    out, aux = apply_moe(lay.moe, cfg, h)
+    return x + out, new_cache, aux["lb_loss"] + 1e-3 * aux["z_loss"]
 
 
 def _tokens(tokens, device: torch.device) -> torch.Tensor:
@@ -150,35 +186,54 @@ def _tokens(tokens, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(tokens).to(device=device, dtype=torch.int64)
 
 
+def _stack_layer(lay: Layer, cfg: ModelConfig, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer of the stack without a cache -> (x, aux, 0.0 without a
+    MoE): tensors only, for ``torch.utils.checkpoint``."""
+    x, _, aux = _apply_layer(lay, cfg, x, cache=None)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
 def _forward(params: Transformer, cfg: ModelConfig, batch: Dict[str, Any],
              remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward under autograd -> (logits (B, S, V) in the compute
-    dtype, aux 0.0).  With ``remat`` each stacked layer runs under
-    ``torch.utils.checkpoint`` (non-reentrant; the prologue's layers do
-    not, as the reference checkpoints only its scan body)."""
+    dtype, aux fp32 0-d).  aux sums the MoE layers' ``lb_loss + 1e-3
+    z_loss`` as the reference does: over the prologue, plus the stack's
+    own sum from 0.0 (0.0 without a MoE).  With ``remat`` each stacked
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant; the
+    prologue's layers do not, as the reference checkpoints only its scan
+    body)."""
     dev = params.device
     x = embed_tokens(params.tok, cfg, _tokens(batch["tokens"], dev))
+    aux_pro = torch.zeros((), dtype=torch.float32, device=dev)
     for lay in params.pro:
-        x, _ = _apply_layer(lay, cfg, x, cache=None)
+        x, _, aux = _apply_layer(lay, cfg, x, cache=None)
+        if aux is not None:
+            aux_pro = aux_pro + aux
+    aux_stack = torch.zeros((), dtype=torch.float32, device=dev)
     for lay in params.stack:
         if remat:
-            # a tensor in, a tensor out; nothing random runs inside
-            x = checkpoint(lambda h, lay=lay: _apply_layer(
-                lay, cfg, h, cache=None)[0], x, use_reentrant=False,
-                preserve_rng_state=False)
+            # tensors in and out; nothing random runs inside
+            x, aux = checkpoint(lambda h, lay=lay: _stack_layer(lay, cfg, h),
+                                x, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x, _ = _apply_layer(lay, cfg, x, cache=None)
+            x, aux = _stack_layer(lay, cfg, x)
+        aux_stack = aux_stack + aux
     x = rms_norm(params.final_norm, x, cfg.norm_eps)
     logits = unembed(params.tok, cfg, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, aux_pro + aux_stack
 
 
 @torch.no_grad()
 def forward(params: Transformer, cfg: ModelConfig,
             batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill / scoring forward -> (logits (B, S, V) in the compute
-    dtype, aux 0.0).  ``batch["tokens"]`` (B, S), a tensor or an array.
-    Attention runs through ``ops.flash_attention``."""
+    dtype, aux: the MoE layers' summed aux losses, 0.0 without MoE).
+    ``batch["tokens"]`` (B, S), a tensor or an array.  Attention (GQA
+    and MLA's prefill) runs through ``ops.flash_attention``."""
     return _forward(params, cfg, batch, remat=False)
 
 
@@ -189,7 +244,9 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: Dict[str, Any],
     fp32 logits, their logsumexp minus the gold logit, averaged over the
     tokens whose ``batch["labels"]`` are >= 0 (at least one), plus
     1e-2 aux.  Differentiable in ``params``' leaves that require grad;
-    attention's gradient is the flash_bwd kernel on the card."""
+    attention's gradient is the flash_bwd kernel on the card.  Raises
+    NotImplementedError for an MLA config (``check_trainable``)."""
+    check_trainable(cfg)
     logits, aux = _forward(params, cfg, batch, remat)
     labels = _tokens(batch["labels"], params.device)
     logits = logits.to(torch.float32)
@@ -205,13 +262,14 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: Dict[str, Any],
 @torch.no_grad()
 def for_serving(params: Transformer) -> Transformer:
     """A frozen serving copy of a training model: projection and
-    embedding weights cast to the compute dtype once, norm scales fp32.
+    embedding weights cast to the compute dtype once, norm scales and
+    MoE routers fp32.
     ``forward`` and decode give the bits they give on ``params``, whose
     applies cast the fp32 masters on every read."""
     cfg = params.cfg
     serving = copy.deepcopy(params).requires_grad_(False)
     for name, p in serving.named_parameters():
-        if not name.endswith(".scale"):
+        if not name.endswith((".scale", ".router.w")):
             p.data = p.data.to(cdtype(cfg))
     return serving
 
@@ -219,17 +277,20 @@ def for_serving(params: Transformer) -> Transformer:
 def init_serve_cache(params: Transformer, cfg: ModelConfig, batch: int,
                      max_len: int, prefilled: int = 0) -> Params:
     """Zeroed decode caches for every layer, in the compute dtype:
-    {"stack": [{"mixer": {"k", "v"}}] per stacked layer, "pro": the same
-    per prologue layer, "pos": ``prefilled``}."""
+    {"stack": [{"mixer": {"k", "v"}} for attention, {"mixer": {"c_kv",
+    "k_rope"}} for MLA] per stacked layer, "pro": the same per prologue
+    layer, "pos": ``prefilled``}."""
     dev = params.device
 
-    def one_layer() -> Params:
-        c = init_attn_cache(cfg, batch, max_len, device=dev)
+    def one_layer(lay: Layer) -> Params:
+        init = init_mla_cache if isinstance(lay.attn, MLA) \
+            else init_attn_cache
+        c = init(cfg, batch, max_len, device=dev)
         c.pop("len")        # the position lives once, in caches["pos"]
         return {"mixer": c}
 
-    return {"stack": [one_layer() for _ in params.stack],
-            "pro": [one_layer() for _ in params.pro],
+    return {"stack": [one_layer(lay) for lay in params.stack],
+            "pro": [one_layer(lay) for lay in params.pro],
             "pos": int(prefilled)}
 
 
@@ -239,9 +300,10 @@ def serve_step(params: Transformer, cfg: ModelConfig, caches: Params,
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), new caches).
 
     Every row of the batch is at position ``caches["pos"]``: one counter
-    serves all rows, as in the reference.  The K/V tensors of
-    ``caches`` are updated in place and carried into the returned dict,
-    whose ``pos`` is one more.
+    serves all rows, as in the reference, and a MoE layer routes the B
+    tokens of the step as one group.  The cache tensors of ``caches``
+    are updated in place and carried into the returned dict, whose
+    ``pos`` is one more.
     """
     dev = params.device
     x = embed_tokens(params.tok, cfg, _tokens(tokens, dev))
@@ -250,8 +312,8 @@ def serve_step(params: Transformer, cfg: ModelConfig, caches: Params,
     new = []
     for lay, c in zip(params.layers(), flat):
         sub = dict(c["mixer"], len=pos)
-        x, nc = _apply_layer(lay, cfg, x, cache=sub)
-        new.append({"mixer": {"k": nc["k"], "v": nc["v"]}})
+        x, nc, _ = _apply_layer(lay, cfg, x, cache=sub)
+        new.append({"mixer": {k: t for k, t in nc.items() if k != "len"}})
     x = rms_norm(params.final_norm, x, cfg.norm_eps)
     logits = unembed(params.tok, cfg, x)
     n_pro = len(caches["pro"])

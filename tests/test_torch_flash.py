@@ -188,6 +188,38 @@ def test_design_routes_by_dtype_and_head_width(dtype, hd, want):
     assert tflash.design(dtype, hd) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,hdv", [(192, 128), (128, 64), (64, 128),
+                                    (24, 16)])
+def test_design_sends_two_widths_to_flash_cu(hd, hdv, dtype):
+    """A v of another width than q and k (MLA's prefill) goes to
+    flash.cu, whose kernels take two widths; one width keeps its
+    route."""
+    assert tflash.design(dtype, hd, hdv) == "flash"
+    assert tflash.design(dtype, hd, hd) == tflash.design(dtype, hd)
+
+
+def test_launch_arguments_carry_v_width_after_hd():
+    """Both C entries take hdv right after hd; the wrapper passes v's
+    own width there and allocates out (B, Sq, H, hdv)."""
+    for source, entry in (("flash", "flash_fwd"),
+                          ("flash_sm90", "flash_sm90_fwd")):
+        src = (_build.CSRC / f"{source}.cu").read_text()
+        sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
+                        src).group(1)
+        params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
+        assert params[params.index("hd") + 1] == "hdv"
+        q = torch.zeros(1, 4, 2, 192, dtype=torch.bfloat16)
+        v = torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16)
+        out = torch.empty(1, 4, 2, 128, dtype=torch.bfloat16)
+        named = dict(zip(params, tflash.launch_args(
+            q, q, v, out, causal=True, window=0, q_offset=0,
+            source=source)))
+        assert (named["hd"], named["hdv"]) == (192, 128)
+        assert (named["v_sb"], named["v_ss"], named["v_sh"]) == (1024, 256,
+                                                                 128)
+
+
 def test_sm90_launch_arguments_fit_the_c_entry():
     """flash_sm90.cu's entry takes flash.cu's arguments without is_bf16:
     the wrapper's tuple for it fits its signature, in number and order."""

@@ -649,15 +649,130 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         tflash.flash_cuda(q[..., :12], k[..., :12], k[..., :12],
                           causal=True)
-    wide = torch.randn(1, 8, 2, 136, device=cuda)
+    wide = torch.randn(1, 8, 2, 200, device=cuda)
     with pytest.raises(ValueError, match="multiple of 8"):
         tflash.flash_cuda(wide, wide, wide, causal=True)
+    # v may be narrower or wider than q and k, but not above 128
+    with pytest.raises(ValueError, match="v head width 136"):
+        tflash.flash_cuda(q, k, torch.randn(1, 8, 2, 136, device=cuda),
+                          causal=True)
+    with pytest.raises(ValueError, match="do not fit"):
+        tflash.flash_cuda(q, k, torch.randn(1, 9, 2, 16, device=cuda),
+                          causal=True)
     with pytest.raises(ValueError, match="KVH"):
         tflash.flash_cuda(q[:, :, :3], k, k, causal=True)
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_cuda(q.transpose(2, 3)[..., :4, :],
                           k.transpose(2, 3)[..., :2, :],
                           k.transpose(2, 3)[..., :2, :], causal=True)
+
+
+# two widths, q/k hd against v hdv (MLA: 192 against 128): (q shape,
+# k shape, hdv, masking).  DeepSeek-V2-Lite's heads at a short prefill;
+# ragged Sq and Sk (not multiples of 64) with H > KVH, an offset and a
+# window; the smoke config's 24 / 16; a v wider than q and k; a q/k
+# width between the instantiated ones (136, padded to 192)
+TWO_WIDTH_CASES = [
+    ((1, 300, 16, 192), (1, 300, 16, 192), 128, dict(causal=True)),
+    ((2, 130, 8, 192), (2, 257, 2, 192), 128,
+     dict(causal=True, window=96, q_offset=100)),
+    ((2, 77, 4, 192), (2, 333, 4, 192), 128,
+     dict(causal=True, q_offset=256)),
+    ((1, 90, 6, 192), (1, 70, 3, 192), 128, dict(causal=False)),
+    ((2, 50, 4, 24), (2, 50, 4, 24), 16, dict(causal=True)),
+    ((1, 64, 4, 64), (1, 100, 2, 64), 128, dict(causal=True, q_offset=36)),
+    ((1, 65, 2, 136), (1, 65, 1, 136), 40, dict(causal=True)),
+]
+
+
+def _two_width(q_shape, kv_shape, hdv, device, dtype, seed):
+    rng = np.random.default_rng(seed)
+    shapes = (q_shape, kv_shape, kv_shape[:3] + (hdv,))
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(device, dtype) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("q_shape,kv_shape,hdv,kw", TWO_WIDTH_CASES,
+                         ids=[f"{q}-{kv}-v{hdv}-{kw}"
+                              for q, kv, hdv, kw in TWO_WIDTH_CASES])
+def test_flash_two_widths_match_plain(cuda, q_shape, kv_shape, hdv, kw,
+                                      dtype):
+    """A v of another width than q and k runs flash.cu's kernel (counted
+    under ``flash``), out and lse held against the plain version."""
+    q, k, v = _two_width(q_shape, kv_shape, hdv, cuda, dtype,
+                         sum(q_shape) + hdv)
+    before = dict(tflash.design_launches)
+    out, lse = tops.flash_attention_fwd(q, k, v, **kw)
+    again = tops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {s: n - before[s] for s, n in tflash.design_launches.items()} \
+        == {"flash_sm90": 0, "flash": 2}
+    assert out.dtype == dtype and out.shape == q_shape[:3] + (hdv,)
+    assert torch.equal(out, again)
+    tref.check_attention(out, q, k, v, **kw, what="flash two widths")
+    tref.check_lse(lse, q, k, v, **kw)
+
+
+@pytest.mark.cuda
+def test_flash_two_widths_read_strided_views(cuda):
+    """MLA's prefill hands v as a view into one (B, S, H, nope + v)
+    product: read in place, it gives the bits of a contiguous copy."""
+    kvd = torch.randn(2, 140, 8, 128 + 128, device=cuda,
+                      dtype=torch.bfloat16)
+    q, k = (torch.randn(2, 140, 8, 192, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    v = kvd[..., 128:]
+    out = tops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(out, tops.flash_attention(q, k, v.contiguous(),
+                                                 causal=True))
+    tref.check_attention(out, q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_two_widths_have_no_gradient_yet(cuda):
+    """On the card as on the CPU: the backward at two widths raises, and
+    an MLA model refuses to train."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    q, k = (torch.randn(1, 8, 2, 24, device=cuda) for _ in range(2))
+    v = torch.randn(1, 8, 2, 16, device=cuda)
+    out, lse = tops.flash_attention_fwd(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        tops.flash_attention_bwd(q, k, v, out, lse, out, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.3"):
+        init_model(get_smoke("deepseek_v2_lite_16b"), device=cuda,
+                   train=True)
+
+
+@pytest.mark.cuda
+def test_mla_model_runs_the_two_width_kernel(cuda):
+    """The deepseek smoke model on the card in bf16: each forward
+    launches the two-width kernel once a layer; decoding through the
+    absorbed MLA caches launches none and gives finite logits."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import (forward, init_model, init_serve_cache,
+                                    serve_step)
+    cfg = get_smoke("deepseek_v2_lite_16b")
+    model = init_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(0))
+    tops.reset_launch_counts()
+    par, aux = forward(model, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash"] == cfg.n_layers
+    assert tflash.design_launches == {"flash_sm90": 0, "flash": cfg.n_layers}
+    assert float(aux) > 0 and bool(torch.isfinite(par.float()).all())
+    caches = init_serve_cache(model, cfg, 2, 32)
+    assert set(caches["stack"][0]["mixer"]) == {"c_kv", "k_rope"}
+    for t in range(24):
+        lg, caches = serve_step(model, cfg, caches, toks[:, t:t + 1])
+        assert bool(torch.isfinite(lg.float()).all())
+    assert caches["pos"] == 24
+    assert tops.launch_counts()["flash"] == cfg.n_layers
 
 
 # bf16 cases at the Hopper design's head widths (64, 128) that cross its
