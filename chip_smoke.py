@@ -115,17 +115,21 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     profiled step, ``generate`` on the trained model against its
     cast-once bf16 copy (bitwise), and a 12-step run restarted after a
     lost device at step 10 against the uninterrupted run (bitwise);
-17. deepseek: holds ``flash.cu``'s kernels at two widths (q and k 192
-    wide, v 128: MLA's prefill) against their plain version in bf16 and
-    fp32, out and lse, at DeepSeek-V2-Lite's prefill shape (4 x 4,096,
-    16 heads) and at ragged shapes (Sq and Sk off the 64-row tiles,
-    H > KVH, offsets, a window), prints their ptxas lines (a spill of
-    the 192/128 kernel fails), and times the kernel, SDPA at the same
+17. deepseek: holds the flash kernels at two widths (q and k 192
+    wide, v 128: MLA's prefill) against their plain version, out and
+    lse, bf16 on ``flash_sm90.cu``'s 192/128 instance and fp32 on
+    ``flash.cu``, at DeepSeek-V2-Lite's prefill shape (4 x 4,096, 16
+    heads) and at ragged shapes (Sq and Sk off the tiles, H > KVH,
+    offsets, a window), prints their ptxas lines (a spill of either
+    192/128 bf16 kernel, or a wgmma serialised for want of registers
+    (C7512) in the Hopper one, fails), and times the kernel, the
+    previous design (``flash.cu``'s 192/128 kernel), SDPA at the same
     widths (or its refusal) and the plain version in turns; then runs
     the lm phase's path on DeepSeek-V2-Lite at full width and depth (27
     layers, d 2,048, MLA, 64 routed experts top-6 + 2 shared, the dense
     prologue layer; 31.4 GB of random bf16 weights drawn on the card):
-    every flash launch on ``flash.cu`` (27 a forward), the MoE aux loss
+    every flash launch on ``flash_sm90`` (27 a forward; its 192/128
+    instance's device time profiled), the MoE aux loss
     finite, decode's agreement with forward printed at the published
     capacity and at one where no group drops a token; then the same
     model in fp32 (62.8 GB) at that capacity: decode's argmax a
@@ -2756,11 +2760,17 @@ def phase_lm(seed: int, flash_entry, arch: str = LM_ARCH,
           "timed forwards, generate's prefill and the forward decode is "
           "held against; decode runs no flash kernel)")
 
-    # where a forward and a decode step spend the card's time
-    sums = {"flash_bf16_kernel": 0.0, "flash_sm90": 0.0}
+    # where a forward and a decode step spend the card's time; the
+    # Hopper design's instance of this model's widths must show there
+    q0, _, v0, _ = captured[0]
+    inst = f"flash_sm90_kernel<{q0.shape[3]}, {v0.shape[3]}>"
+    sums = {"flash_bf16_kernel": 0.0, "flash_sm90_kernel<128, 128>": 0.0,
+            "flash_sm90_kernel<192, 128>": 0.0}
     profile_once(lambda: forward(model, cfg, {"tokens": toks}),
                  f"one forward B={B} S={S}", sums)
     print(f"  flash kernels' device time in that forward: {sums}")
+    if source == "flash_sm90" and not sums.get(inst, 0.0) > 0:
+        raise AssertionError(f"lm profile: no device time of {inst}: {sums}")
     caches = tserve.init_serve_cache(model, cfg, nb, s0 + max_new,
                                      prefilled=s0)
     step1 = prompts[:, :1]
@@ -2793,14 +2803,16 @@ DS_FP32_AGREE = 0.99
 
 
 def phase_flash_mla(gen):
-    """flash.cu's kernels at two widths (q and k 192 wide, v 128: MLA's
-    prefill) against their plain version, in bf16 and fp32: at
-    DeepSeek-V2-Lite's prefill shape (4 x 4,096, 16 heads; the plain
-    scores are 4.3 GB in fp32) and at ragged shapes (Sq and Sk not
-    multiples of 64, H > KVH, an offset, a window), with the rows'
-    lse; then, in turns within this call at the prefill shape, the
-    kernel, SDPA at the same two widths (or its refusal) and the plain
-    version.  Returns the kernels-line entry without launches."""
+    """The flash kernels at two widths (q and k 192 wide, v 128: MLA's
+    prefill) against their plain version: bf16 on flash_sm90.cu's
+    192/128 instance, fp32 on flash.cu's kernel; at DeepSeek-V2-Lite's
+    prefill shape (4 x 4,096, 16 heads; the plain scores are 4.3 GB in
+    fp32) and at ragged shapes (Sq and Sk not multiples of 64, H > KVH,
+    an offset, a window), with the rows' lse; then, in turns within
+    this call at the prefill shape, the kernel, the previous design
+    (flash.cu's 192/128 bf16 kernel, launched by name), SDPA at the same
+    two widths (or its refusal) and the plain version.  Returns the
+    kernels-line entry without launches."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash as kflash
@@ -2813,6 +2825,23 @@ def phase_flash_mla(gen):
                             for line in log[two[0]] if "spill" in line):
         raise AssertionError(f"flash.cu's 192/128 bf16 kernel spills or is "
                              f"missing: {log}")
+    # the Hopper design's instances; the 192/128 one neither spills nor
+    # has its wgmma serialised for want of registers (ptxas's C7512)
+    sm90_log = _build.build_log("flash_sm90")
+    sm90 = ptxas_by_kernel(sm90_log)
+    for kernel, lines in sm90.items():
+        print(f"  ptxas flash_sm90 {kernel}: " + "; ".join(lines))
+    mla = [k for k in sm90 if "flash_sm90_kernelILi192ELi128E" in k]
+    serial = [line.strip() for line in sm90_log.splitlines()
+              if "C7512" in line]
+    for line in serial:
+        print(f"  ptxas flash_sm90: {line}")
+    if len(mla) != 1 or any(" 0 bytes spill stores" not in line
+                            for line in sm90[mla[0]] if "spill" in line) \
+            or any("Li192ELi128E" in line for line in serial):
+        raise AssertionError(f"flash_sm90.cu's 192/128 kernel spills, is "
+                             f"serialised (C7512) or is missing: {sm90}, "
+                             f"{serial}")
 
     def rand(shape, dtype):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
@@ -2837,10 +2866,13 @@ def phase_flash_mla(gen):
             out, lse = kflash.flash_cuda(q, k, v, **kw, return_lse=True)
             again = kflash.flash_cuda(q, k, v, **kw)
             torch.cuda.synchronize()
+            # bf16 on the Hopper design, fp32 on flash.cu
+            src = "flash_sm90" if dt == torch.bfloat16 else "flash"
             if {n: c - before[n] for n, c in kflash.design_launches.items()} \
-                    != {"flash_sm90": 0, "flash": 2}:
+                    != {n: 2 * (n == src) for n in before}:
                 raise AssertionError(f"flash two widths {label}: launched "
-                                     f"{kflash.design_launches}")
+                                     f"{kflash.design_launches}, want two "
+                                     f"on {src}")
             if not torch.equal(out, again):
                 raise AssertionError(f"flash two widths {label}: out differs "
                                      "with and without lse")
@@ -2848,8 +2880,8 @@ def phase_flash_mla(gen):
                                     what=f"flash two widths {label}")
             el = ref.check_lse(lse, q, k, v, **kw)
             errs.append(e)
-            print(f"  flash two widths {label} {str(dt)[6:]}: max abs err "
-                  f"{e:.3e}, lse {el:.3e}")
+            print(f"  flash two widths {label} {str(dt)[6:]} on {src}: max "
+                  f"abs err {e:.3e}, lse {el:.3e}")
             del q, k, v, out, lse, again
             torch.cuda.empty_cache()
 
@@ -2863,7 +2895,9 @@ def phase_flash_mla(gen):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True).transpose(1, 2)
 
-    fns = {"flash.cu 192/128": lambda: kflash.launch("flash", q, k, v,
+    fns = {"flash_sm90 192/128": lambda: kflash.launch("flash_sm90", q, k,
+                                                       v, causal=True),
+           "flash.cu 192/128": lambda: kflash.launch("flash", q, k, v,
                                                      causal=True),
            "SDPA": sdpa2,
            "plain": lambda: ref.attention_ref(q, k, v, causal=True)}
@@ -2890,14 +2924,23 @@ def phase_flash_mla(gen):
         print(f"    {n}: {ms[n]:.3f} ms ({', '.join(f'{x:.3f}' for x in t)})"
               f", {n_ops / ms[n] / 1e9:.1f} TFLOP/s, "
               f"{b_ms / ms[n]:.3f} of the bound")
+    print(f"  flash_sm90 / flash.cu at 192/128 "
+          f"{ms['flash_sm90 192/128'] / ms['flash.cu 192/128']:.3f}"
+          + (f", flash_sm90 / SDPA "
+             f"{ms['flash_sm90 192/128'] / ms['SDPA']:.3f}"
+             if "SDPA" in ms else ""))
     del q, k, v
     torch.cuda.empty_cache()
     entry = {"name": "flash_two_widths", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash.cu",
+             "source": "src/repro_torch/kernels/csrc/flash_sm90.cu",
              "replaces": "src/repro/kernels/flash.py:129",
-             "max_abs_err": max(errs), "ms": ms["flash.cu 192/128"],
+             "max_abs_err": max(errs), "ms": ms["flash_sm90 192/128"],
              "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": ms.get("SDPA")}
+             "library_ms": ms.get("SDPA"),
+             "previous_ms": ms["flash.cu 192/128"],
+             "previous_source": "src/repro_torch/kernels/csrc/flash.cu",
+             "note": "bf16 on flash_sm90.cu's 192/128 instance; fp32 at "
+                     "two widths (the fp32 decode check) on flash.cu"}
     if refusal:
         entry["library_note"] = f"SDPA refused: {refusal}"
     return entry
@@ -3602,7 +3645,7 @@ def main(argv=None) -> int:
     print("== deepseek: the two-width flash, DeepSeek-V2-Lite forward, "
           "generate, BatchedServer")
     flash_mla = phase_lm(args.seed, phase_flash_mla(gen), arch=DS_ARCH,
-                         source="flash", agree_min=None)
+                         agree_min=None)
     gc.collect()
     torch.cuda.empty_cache()
     phase_decode_fp32(args.seed)

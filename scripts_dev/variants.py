@@ -21,7 +21,8 @@ for _p in (ROOT / "src", ROOT, ROOT / "scripts_dev"):
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
-PTXAS_WORDS = ("registers", "spill", "error", "C75")
+PTXAS_WORDS = ("Function properties", "registers", "spill", "error",
+               "C75")
 
 
 def parse(argv):

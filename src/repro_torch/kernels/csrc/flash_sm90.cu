@@ -1,24 +1,28 @@
-// Flash-attention forward, GQA, bf16, head width 64 or 128, for Hopper
-// (sm_90a): wgmma, TMA and warp specialisation.
+// Flash-attention forward, GQA, bf16, for Hopper (sm_90a): wgmma, TMA
+// and warp specialisation.  Head widths (q/k, v): 64/64, 128/128 (every
+// GQA config) and 192/128 (MLA's prefill: q and k carry 128 "nope" and
+// 64 RoPE columns, v 128).
 //
 // For every batch b, query position s and head h (kv head h / G):
 //   out[b, s, h] = sum_n p[n] v[b, n, h / G] / sum_n p[n],
 //   p[n] = exp(q[b, s, h] . k[b, n, h / G] / sqrt(hd) - max)
-// over the keys n the mask lets through: with qpos = q_offset + s, a
-// causal call sees n <= qpos and, with a window, n > qpos - window; a
-// call that is not causal sees every key.  A row that sees no key is 0
-// (the l == 0 guard).  The softmax state (m, l, acc) is fp32 and the
-// output bf16: the function of flash.cu and of ref.attention_ref.
+// with hd q and k's width (not v's), over the keys n the mask lets
+// through: with qpos = q_offset + s, a causal call sees n <= qpos and,
+// with a window, n > qpos - window; a call that is not causal sees every
+// key.  A row that sees no key is 0 (the l == 0 guard).  The softmax
+// state (m, l, acc) is fp32 and the output bf16: the function of flash.cu
+// and of ref.attention_ref.
 //
 // Replaces the Pallas-TPU kernel src/repro/kernels/flash.py
 // (flash_fwd_pallas / _flash_kernel, pallas_call at line 129) for bf16
-// at hd 64 and 128, the head widths of every published config; fp32
-// and the other bf16 widths stay on flash.cu.
+// at those three pairs of widths; fp32 and the other bf16 widths stay on
+// flash.cu.
 //
 // What bounds it on an H100: the tensor cores.  At the LM path's shape
 // (B = 4, S = 4,096, 32/8 heads of 128, causal) a call does 550 GFLOP
 // (the visible half of the causal products) on 335 MB, about 1,600
-// operations a byte, far above the card's ridge of about 295 in bf16.
+// operations a byte, far above the card's ridge of about 295 in bf16;
+// at MLA's (16 heads, 192/128) 344 GFLOP on 235 MB.
 // Beside the products, every 64 x 128 tile of scores costs each of its
 // threads 64 exponentials on the special-function unit (16 a cycle on
 // an SM against 4,096 tensor-core operations) and a row max, sums and
@@ -27,22 +31,26 @@
 // keep the tensor cores fed and the softmax off their critical path:
 //
 // * wgmma.  S = Q K^T is wgmma.mma_async m64n128k16 with both operands
-//   in shared memory; O += P V is m64n{hd}k16 with P taken from
-//   registers (S's fp32 accumulator fragment rounded to bf16 is the
-//   A-operand fragment as it stands) and V as the MN-major B operand
-//   (transpose bit set; at hd 128 its two 64-wide chunks lie one
-//   leading-byte offset apart).  One warpgroup issues a 64 x 128
-//   product from one copy of the K tile in shared memory, where
-//   mma.sync had every warp ldmatrix it again.
+//   in shared memory, hd / 16 steps over hd / 64 swizzled 64-wide
+//   chunks; O += P V is m64n{hdv}k16 with P taken from registers (S's
+//   fp32 accumulator fragment rounded to bf16 is the A-operand fragment
+//   as it stands) and V as the MN-major B operand (transpose bit set;
+//   at hdv 128 its two 64-wide chunks lie one leading-byte offset
+//   apart).  One warpgroup issues a 64 x 128 product from one copy of
+//   the K tile in shared memory, where mma.sync had every warp ldmatrix
+//   it again.  At 192/128 a consumer holds what it holds at 128/128 (S
+//   and O 64 x 128 fp32, P 32 registers): only S's product is longer.
 // * Warp specialisation.  A block is 384 threads: a producer
 //   warpgroup, which gives up registers (setmaxnreg.dec 24) and whose
 //   one thread keeps TMA loads in flight, and two consumer warpgroups
 //   (setmaxnreg.inc 240), which hold the S and O accumulators (64 + 64
-//   fp32 registers a thread at hd 128) without spilling.
-// * TMA.  K and V tiles of 128 keys (B, Sk, KVH, hd read through their
-//   strides as a 4-d tensor map, 128-byte swizzle, zero-filled past
-//   Sk) stream through a two-stage ring; a full barrier per tile counts
-//   the bytes in, an empty barrier counts the consumer warps out.
+//   fp32 registers a thread at hdv 128) without spilling.
+// * TMA.  K and V tiles of 128 keys (B, Sk, KVH, hd or hdv read through
+//   their strides as a 4-d tensor map, 128-byte swizzle, zero-filled
+//   past Sk) stream through a two-stage ring; a full barrier per tile
+//   counts the bytes in, an empty barrier counts the consumer warps out.
+//   At 192/128 q, the ring and the barriers take 214,080 bytes of
+//   shared memory.
 // * Rows.  Each consumer warpgroup owns 64 folded (position, head)
 //   rows, a block 128: row R of a kv head's Sq * G rows is position
 //   R / G, head kvh * G + R % G, so each K/V tile serves all G query
@@ -63,10 +71,11 @@
 // * Exponent.  ex2.approx with 1/sqrt(hd) folded into log2(e), one FMA
 //   a score.
 //
-// Layout: q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), read in place
-// through their strides (last dimension contiguous, rows and strides
-// 16-byte aligned, as TMA needs); out (B, Sq, H, hd) contiguous bf16;
-// lse, when its pointer is not null, (B, H, Sq) fp32: each row's
+// Layout: q (B, Sq, H, hd), k (B, Sk, KVH, hd) and v (B, Sk, KVH, hdv),
+// read in place through their strides (last dimension contiguous, rows
+// and strides 16-byte aligned, as TMA needs: MLA's v, a view into a
+// wider product, is read where it lies); out (B, Sq, H, hdv) contiguous
+// bf16; lse, when its pointer is not null, (B, H, Sq) fp32: each row's
 // log-sum-exp m + log(l) of its scaled scores, natural log, +inf for a
 // row that sees no key (the backward's exp(s - lse) is then 0).  out is
 // the same bits with and without it.
@@ -96,14 +105,20 @@ struct Args {
   float scale_log2;             // log2(e) / sqrt(hd)
 };
 
-template <int HD>
+template <int HDK, int HDV>
 struct Layout {
-  static constexpr int CHUNKS = HD / 64;              // 64-wide column chunks
-  static constexpr int Q_WG = WG_ROWS * HD * 2;       // one warpgroup's q
-  static constexpr int TILE = BN * HD * 2;            // one K or V tile
+  static constexpr int CHUNKS_K = HDK / 64;           // 64-wide column chunks
+  static constexpr int CHUNKS_V = HDV / 64;
+  static constexpr int Q_WG = WG_ROWS * HDK * 2;      // one warpgroup's q
+  static constexpr int TILE_K = BN * HDK * 2;         // one K tile
+  static constexpr int TILE_V = BN * HDV * 2;         // one V tile
+  static constexpr int STAGE = TILE_K + TILE_V;       // a stage: K, then V
   static constexpr int KV = 2 * Q_WG;                 // ring after q
-  static constexpr int BAR = KV + STAGES * 2 * TILE;  // mbarriers last
+  static constexpr int BAR = KV + STAGES * STAGE;     // mbarriers last
   static constexpr int SMEM = BAR + 4 * STAGES * 8 + 1024;  // + alignment
+  static_assert(HDK % 64 == 0 && (HDV == 64 || HDV == 128),
+                "q/k in 64-wide chunks; P V is m64n64 or m64n128");
+  static_assert(SMEM <= 232448, "more shared memory than a block may use");
 };
 
 // The key tiles [*t0, *t1) that some row of rows [R0, R0 + BM) can see.
@@ -330,13 +345,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ---- the kernel ------------------------------------------------------
 
-template <int HD>
+template <int HDK, int HDV>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_sm90_kernel(const __grid_constant__ CUtensorMap tmk,
                       const __grid_constant__ CUtensorMap tmv,
                       const Args a) {
-  using L = Layout<HD>;
-  constexpr int CHUNKS = L::CHUNKS;
+  using L = Layout<HDK, HDV>;
   extern __shared__ unsigned char smem_raw[];
   // swizzle atoms (8 lines of 128 bytes) start on 1024-byte boundaries
   const uint32_t raw = smem_addr(smem_raw);
@@ -384,17 +398,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int s = j % STAGES;
         const uint32_t ph = ((j / STAGES) & 1) ^ 1;   // first round free
         const int key = (t0 + j) * BN;
-        const uint32_t ks = base + L::KV + s * 2 * L::TILE;
+        const uint32_t ks = base + L::KV + s * L::STAGE;
         mbar_wait(EMPTY_K(s), ph);
-        mbar_expect_tx(FULL_K(s), L::TILE);
+        mbar_expect_tx(FULL_K(s), L::TILE_K);
 #pragma unroll
-        for (int c = 0; c < CHUNKS; ++c)
+        for (int c = 0; c < L::CHUNKS_K; ++c)
           tma_load(ks + c * BN * LINE, &tmk, FULL_K(s), c * 64, kvh, key, b);
         mbar_wait(EMPTY_V(s), ph);
-        mbar_expect_tx(FULL_V(s), L::TILE);
+        mbar_expect_tx(FULL_V(s), L::TILE_V);
 #pragma unroll
-        for (int c = 0; c < CHUNKS; ++c)
-          tma_load(ks + L::TILE + c * BN * LINE, &tmv, FULL_V(s), c * 64,
+        for (int c = 0; c < L::CHUNKS_V; ++c)
+          tma_load(ks + L::TILE_K + c * BN * LINE, &tmv, FULL_V(s), c * 64,
                    kvh, key, b);
       }
     }
@@ -416,9 +430,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wpos_hi = a.q_offset + max(Rw, min(Rw + WG_ROWS, rows) - 1) / G;
     const int cq = 2 * (lane % 4);   // first column of a fragment
 
-    float o[CHUNKS * 32];
+    float o[L::CHUNKS_V * 32];
 #pragma unroll
-    for (int i = 0; i < CHUNKS * 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < L::CHUNKS_V * 32; ++i) o[i] = 0.f;
     float sacc[64];
     uint32_t p[BN / 16][4];
     float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
@@ -428,7 +442,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (cw == 1) bar_arrive(1, 256);
       // q rows Rw.. into shared memory, swizzled as TMA writes a tile:
       // 16-byte piece j of line r at (j ^ r % 8)
-      constexpr int CH = HD / 8;
+      constexpr int CH = HDK / 8;
       // all loads in flight before the first store
       constexpr int PER = WG_ROWS * CH / 128;   // 16-byte pieces a thread
       uint4 qv[PER];
@@ -455,12 +469,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       float al_lo = 0.f, al_hi = 0.f;   // o's rescale before the next P V
       // S = Q K^T of tile j, issued and committed
       auto issue_s = [&](int j) {
-        const uint32_t ks = base + L::KV + (j % STAGES) * 2 * L::TILE;
+        const uint32_t ks = base + L::KV + (j % STAGES) * L::STAGE;
         mbar_wait(FULL_K(j % STAGES), (j / STAGES) & 1);
         fence_regs(sacc);
         wg_fence();
+        // 16 columns a step, four steps a 64-wide chunk of q and of K
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
+        for (int kk = 0; kk < HDK / 16; ++kk)
           wgmma_ss_n128(
               sacc,
               desc_sw128(qs + (kk / 4) * WG_ROWS * LINE + (kk % 4) * 32, 16,
@@ -472,10 +487,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       };
       // o = o * alpha + P V of tile j, issued and committed
       auto issue_pv = [&](int j) {
-        const uint32_t vs =
-            base + L::KV + (j % STAGES) * 2 * L::TILE + L::TILE;
+        const uint32_t vs = base + L::KV + (j % STAGES) * L::STAGE + L::TILE_K;
 #pragma unroll
-        for (int i = 0; i < CHUNKS * 32; i += 4) {
+        for (int i = 0; i < L::CHUNKS_V * 32; i += 4) {
           o[i] *= al_lo;
           o[i + 1] *= al_lo;
           o[i + 2] *= al_hi;
@@ -485,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         fence_regs(o);
         fence_regs(p);
         wg_fence();
-        if constexpr (HD == 128) {
+        if constexpr (HDV == 128) {
           // one m64n128k16 a 16 keys: V's two 64-wide chunks lie LBO
           // apart along N, its 8-key groups SBO apart along K
 #pragma unroll
@@ -628,9 +642,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       const float inv = half ? inv_hi : inv_lo;
       __nv_bfloat16* out =
-          a.o + (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * HD;
+          a.o + (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * HDV;
 #pragma unroll
-      for (int c = 0; c < CHUNKS; ++c)
+      for (int c = 0; c < L::CHUNKS_V; ++c)
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           *reinterpret_cast<__nv_bfloat162*>(out + c * 64 + i * 8 + cq) =
@@ -703,15 +717,15 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int HD>
+template <int HDK, int HDV>
 cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mv,
                    const Args& a, unsigned blocks, cudaStream_t st) {
-  constexpr int bytes = Layout<HD>::SMEM;
+  constexpr int bytes = Layout<HDK, HDV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_sm90_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_sm90_kernel<HDK, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  flash_sm90_kernel<HD><<<blocks, THREADS, bytes, st>>>(mk, mv, a);
+  flash_sm90_kernel<HDK, HDV><<<blocks, THREADS, bytes, st>>>(mk, mv, a);
   return cudaGetLastError();
 }
 
@@ -720,12 +734,12 @@ cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mv,
 // Error codes besides cudaError_t: 1000 + the CUresult of a tensor map
 // that did not encode, 999 when the driver has no cuTensorMapEncodeTiled.
 // q, k, v, out: device pointers; strides in elements (the last
-// dimension contiguous); hd, hdv: the widths of q/k and of v, which
-// must be equal here (flash.cu's entry takes the same arguments and two
-// widths); lse: the address of a (B, H, Sq) fp32 buffer, passed as an
-// integer like the sizes, or 0 for none.  The caller has checked
-// shapes, bf16, hd 64 or 128, the 16-byte alignment of pointers and
-// strides, and 0 <= q_offset, 0 <= window.
+// dimension contiguous); hd, hdv: the widths of q/k and of v, one of
+// the instantiated pairs 64/64, 128/128 and 192/128 (flash.cu's entry
+// takes the same arguments and other widths); lse: the address of a
+// (B, H, Sq) fp32 buffer, passed as an integer like the sizes, or 0 for
+// none.  The caller has checked shapes, bf16, the 16-byte alignment of
+// pointers and strides, and 0 <= q_offset, 0 <= window.
 extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
                               void* out, int64_t q_sb, int64_t q_ss,
                               int64_t q_sh, int64_t k_sb, int64_t k_ss,
@@ -736,12 +750,13 @@ extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
                               int64_t q_offset, int64_t lse, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
-  // one width for q, k and v: calls of two widths go to flash.cu
-  if ((hd != 64 && hd != 128) || hdv != hd)
+  // the instantiated (hd, hdv) pairs; other widths go to flash.cu
+  if (!((hd == 64 && hdv == 64) || (hd == 128 && hdv == 128) ||
+        (hd == 192 && hdv == 128)))
     return (int)cudaErrorInvalidValue;
   if (Sk <= 0) {  // no key: every row is 0, every lse +inf
     cudaError_t err =
-        cudaMemsetAsync(out, 0, (size_t)(B * Sq * H * hd * 2), st);
+        cudaMemsetAsync(out, 0, (size_t)(B * Sq * H * hdv * 2), st);
     if (err != cudaSuccess || lse == 0) return (int)err;
     fill_inf<<<256, 256, 0, st>>>(reinterpret_cast<float*>(lse),
                                   B * H * Sq);
@@ -754,7 +769,7 @@ extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
   CUtensorMap mk, mv;
   CUresult r = make_map(enc, &mk, k, k_sb, k_ss, k_sh, B, Sk, KVH, hd);
   if (r == CUDA_SUCCESS)
-    r = make_map(enc, &mv, v, v_sb, v_ss, v_sh, B, Sk, KVH, hd);
+    r = make_map(enc, &mv, v, v_sb, v_ss, v_sh, B, Sk, KVH, hdv);
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -771,7 +786,10 @@ extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
   a.causal = (int)causal;
   a.window = (int)window;
   a.q_offset = (int)q_offset;
+  // the scale is q and k's width's, whatever v's
   a.scale_log2 = (float)(1.4426950408889634 / sqrt((double)hd));
-  if (hd == 64) return (int)launch<64>(mk, mv, a, (unsigned)blocks, st);
-  return (int)launch<128>(mk, mv, a, (unsigned)blocks, st);
+  if (hd == 64) return (int)launch<64, 64>(mk, mv, a, (unsigned)blocks, st);
+  if (hd == 128)
+    return (int)launch<128, 128>(mk, mv, a, (unsigned)blocks, st);
+  return (int)launch<192, 128>(mk, mv, a, (unsigned)blocks, st);
 }

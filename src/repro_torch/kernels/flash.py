@@ -3,15 +3,14 @@
 Two sources replace the Pallas-TPU kernel
 ``repro/kernels/flash.py::flash_fwd_pallas``, chosen by :func:`design`
 from the dtype and the head widths: ``csrc/flash_sm90.cu`` (wgmma, TMA,
-warp specialisation) takes bf16 at one width of 64 or 128 for q, k and
-v, the head widths of every GQA config; ``csrc/flash.cu`` (mma.sync in
-bf16, CUDA cores in fp32) takes fp32, the other bf16 widths and every
-call whose v is narrower or wider than its q and k (MLA's prefill: q
-and k 192 wide, v 128).  Each header says what
-bounds it on the card and how the design answers that.  Their plain
-version is ``ref.attention_ref``.  ``launches`` counts the calls that
-launched a kernel, one per call, and ``design_launches`` splits that
-count by source.
+warp specialisation) takes bf16 at the (q/k, v) widths of
+``SM90_HEAD_DIMS``: 64/64 and 128/128, the head widths of every GQA
+config, and 192/128, MLA's prefill; ``csrc/flash.cu`` (mma.sync in
+bf16, CUDA cores in fp32) takes fp32 and the other bf16 widths, one or
+two.  Each header says what bounds it on the card and how the design
+answers that.  Their plain version is ``ref.attention_ref``.
+``launches`` counts the calls that launched a kernel, one per call, and
+``design_launches`` splits that count by source.
 
 With ``return_lse`` both kernels also write each row's log-sum-exp
 (B, H, Sq) fp32, which the backward (``flash_bwd.py``) reads; ``out``
@@ -28,15 +27,16 @@ launches = 0
 design_launches = {"flash_sm90": 0, "flash": 0}
 # widest q/k and v that flash.cu's registers and shared memory hold
 HD_MAX, HDV_MAX = 192, 128
-SM90_HEAD_DIMS = (64, 128)
+# (q/k, v) widths that flash_sm90.cu instantiates
+SM90_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def design(dtype: torch.dtype, hd: int, hdv: int = None) -> str:
     """The source whose kernel serves a call: ``flash_sm90`` for bf16
-    with q, k and v all hd = 64 or 128 wide (``hdv``, v's width,
-    defaults to hd), ``flash`` otherwise."""
-    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS \
-            and hdv in (None, hd):
+    whose q/k width hd and v width ``hdv`` (default hd) are a pair of
+    ``SM90_HEAD_DIMS``, ``flash`` otherwise."""
+    pair = (hd, hd if hdv is None else hdv)
+    if dtype == torch.bfloat16 and pair in SM90_HEAD_DIMS:
         return "flash_sm90"
     return "flash"
 
@@ -49,8 +49,11 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     their strides; with ``return_lse``, (out, lse (B, H, Sq) fp32): each
     row's log-sum-exp of its scaled scores (scale 1/sqrt(hd)), +inf for a
     row that sees no key.  fp32 (CUDA cores, no TF32) or bf16 (tensor
-    cores), by the kernel of :func:`design`.  Raises on what the kernels
-    do not take: another dtype, mixed dtypes, a width that is not a
+    cores), by the kernel of :func:`design`: bf16 at 64/64, 128/128 and
+    192/128 (MLA's prefill) on ``flash_sm90.cu``, the rest on
+    ``flash.cu``; a call the chosen kernel refuses raises, and never
+    goes to the other.  Raises on what the kernels do not take: another
+    dtype, mixed dtypes, a width that is not a
     multiple of 8, hd above 192 or hdv above 128, H not a multiple of
     KVH, a last dimension that is not contiguous, bf16 rows that are not
     16-byte aligned, or a negative window or offset."""

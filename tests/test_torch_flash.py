@@ -191,12 +191,37 @@ def test_design_routes_by_dtype_and_head_width(dtype, hd, want):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hd,hdv", [(192, 128), (128, 64), (64, 128),
                                     (24, 16)])
-def test_design_sends_two_widths_to_flash_cu(hd, hdv, dtype):
-    """A v of another width than q and k (MLA's prefill) goes to
-    flash.cu, whose kernels take two widths; one width keeps its
-    route."""
-    assert tflash.design(dtype, hd, hdv) == "flash"
+def test_design_sends_bf16_192_128_to_sm90_and_other_pairs_to_flash_cu(
+        hd, hdv, dtype):
+    """A v of another width than q and k: bf16 at MLA's prefill widths
+    (q/k 192, v 128) goes to the Hopper design, which instantiates that
+    pair; fp32 and every other pair go to flash.cu, whose kernels take
+    two widths.  One width keeps its route."""
+    want = "flash_sm90" if (dtype, hd, hdv) == (torch.bfloat16, 192, 128) \
+        else "flash"
+    assert tflash.design(dtype, hd, hdv) == want
     assert tflash.design(dtype, hd, hd) == tflash.design(dtype, hd)
+
+
+def test_sm90_dispatch_instantiates_exactly_the_routed_pairs():
+    """flash_sm90.cu's C entry accepts, and launches an instance for,
+    exactly the (hd, hdv) pairs that ``design`` routes to it in bf16:
+    no routed pair is refused on the card, and no instance is left
+    without a route."""
+    src = (_build.CSRC / "flash_sm90.cu").read_text()
+    body = src[src.index('extern "C" int flash_sm90_fwd('):]
+    accepted = {(int(a), int(b)) for a, b in re.findall(
+        r"hd == (\d+) && hdv == (\d+)", body)}
+    launched = {(int(a), int(b)) for a, b in re.findall(
+        r"launch<(\d+), (\d+)>\(", body)}
+    routed = set(tflash.SM90_HEAD_DIMS)
+    assert accepted == launched == routed
+    assert all(tflash.design(torch.bfloat16, *p) == "flash_sm90"
+               for p in routed)
+    assert all(tflash.design(torch.float32, *p) == "flash" for p in routed)
+    # the dispatch picks the instance by hd alone: each q/k width has
+    # one v width
+    assert len({hd for hd, _ in routed}) == len(routed)
 
 
 def test_launch_arguments_carry_v_width_after_hd():

@@ -671,7 +671,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 # k shape, hdv, masking).  DeepSeek-V2-Lite's heads at a short prefill;
 # ragged Sq and Sk (not multiples of 64) with H > KVH, an offset and a
 # window; the smoke config's 24 / 16; a v wider than q and k; a q/k
-# width between the instantiated ones (136, padded to 192)
+# width between the instantiated ones (136, padded to 192); G = 8 with
+# a window from an offset past the last key, so that the rows from
+# position 30 on see no key
 TWO_WIDTH_CASES = [
     ((1, 300, 16, 192), (1, 300, 16, 192), 128, dict(causal=True)),
     ((2, 130, 8, 192), (2, 257, 2, 192), 128,
@@ -682,7 +684,11 @@ TWO_WIDTH_CASES = [
     ((2, 50, 4, 24), (2, 50, 4, 24), 16, dict(causal=True)),
     ((1, 64, 4, 64), (1, 100, 2, 64), 128, dict(causal=True, q_offset=36)),
     ((1, 65, 2, 136), (1, 65, 1, 136), 40, dict(causal=True)),
+    ((1, 100, 16, 192), (1, 60, 2, 192), 128,
+     dict(causal=True, window=20, q_offset=50)),
 ]
+# the cases that flash_sm90.cu's 192/128 instance takes in bf16
+MLA_CASES = [c for c in TWO_WIDTH_CASES if (c[0][3], c[2]) == (192, 128)]
 
 
 def _two_width(q_shape, kv_shape, hdv, device, dtype, seed):
@@ -700,16 +706,19 @@ def _two_width(q_shape, kv_shape, hdv, device, dtype, seed):
                               for q, kv, hdv, kw in TWO_WIDTH_CASES])
 def test_flash_two_widths_match_plain(cuda, q_shape, kv_shape, hdv, kw,
                                       dtype):
-    """A v of another width than q and k runs flash.cu's kernel (counted
-    under ``flash``), out and lse held against the plain version."""
+    """A v of another width than q and k runs the kernel of its route
+    (bf16 192/128 on flash_sm90.cu, the rest on flash.cu), out and lse
+    held against the plain version."""
     q, k, v = _two_width(q_shape, kv_shape, hdv, cuda, dtype,
                          sum(q_shape) + hdv)
+    want = "flash_sm90" if (dtype, q_shape[3], hdv) == \
+        (torch.bfloat16, 192, 128) else "flash"
     before = dict(tflash.design_launches)
     out, lse = tops.flash_attention_fwd(q, k, v, **kw)
     again = tops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert {s: n - before[s] for s, n in tflash.design_launches.items()} \
-        == {"flash_sm90": 0, "flash": 2}
+        == {s: 2 * (s == want) for s in before}
     assert out.dtype == dtype and out.shape == q_shape[:3] + (hdv,)
     assert torch.equal(out, again)
     tref.check_attention(out, q, k, v, **kw, what="flash two widths")
@@ -719,15 +728,18 @@ def test_flash_two_widths_match_plain(cuda, q_shape, kv_shape, hdv, kw,
 @pytest.mark.cuda
 def test_flash_two_widths_read_strided_views(cuda):
     """MLA's prefill hands v as a view into one (B, S, H, nope + v)
-    product: read in place, it gives the bits of a contiguous copy."""
+    product: flash_sm90.cu's TMA reads it in place (256 bytes into the
+    buffer, 512-byte head stride), with the bits of a contiguous copy."""
     kvd = torch.randn(2, 140, 8, 128 + 128, device=cuda,
                       dtype=torch.bfloat16)
     q, k = (torch.randn(2, 140, 8, 192, device=cuda, dtype=torch.bfloat16)
             for _ in range(2))
     v = kvd[..., 128:]
+    before = tflash.design_launches["flash_sm90"]
     out = tops.flash_attention(q, k, v, causal=True)
     assert torch.equal(out, tops.flash_attention(q, k, v.contiguous(),
                                                  causal=True))
+    assert tflash.design_launches["flash_sm90"] == before + 2
     tref.check_attention(out, q, k, v, causal=True)
 
 
@@ -793,7 +805,8 @@ SM90_CASES = [
     ((1, 64, 8, 128), (1, 1000, 2, 128), dict(causal=False)),
     ((1, 1, 32, 128), (1, 259, 8, 128), dict(causal=True, q_offset=258)),
 ]
-WIDE_CASES = [c for c in FLASH_CASES if c[0][3] in tflash.SM90_HEAD_DIMS] \
+WIDE_CASES = [c for c in FLASH_CASES
+              if tflash.design(torch.bfloat16, c[0][3]) == "flash_sm90"] \
     + SM90_CASES
 
 
@@ -856,13 +869,19 @@ def test_flash_sm90_reads_strided_projection_views(cuda):
 
 
 @pytest.mark.cuda
-def test_flash_sm90_gives_the_same_bits_twice(cuda):
-    q, k, v = _bf16(((2, 600, 32, 128), (2, 600, 8, 128),
-                     (2, 600, 8, 128)), cuda, 7)
+@pytest.mark.parametrize("shapes", [
+    ((2, 600, 32, 128), (2, 600, 8, 128), (2, 600, 8, 128)),
+    ((2, 600, 16, 192), (2, 600, 16, 192), (2, 600, 16, 128))],
+    ids=["hd128", "192/128"])
+def test_flash_sm90_gives_the_same_bits_twice(cuda, shapes):
+    q, k, v = _bf16(shapes, cuda, 7)
+    before = tflash.design_launches["flash_sm90"]
     a = tops.flash_attention(q, k, v, causal=True)
     b = tops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    assert tflash.design_launches["flash_sm90"] == before + 2
     assert torch.equal(a, b)
+    tref.check_attention(a, q, k, v, causal=True, what="flash_sm90")
 
 
 # the backward: its probes, then head widths 8 to 128 with a window from
@@ -997,16 +1016,22 @@ def test_flash_bwd_routes_by_dtype_and_head_width(cuda):
                                           "flash_bwd": 2}
 
 
+# (q shape, k shape, v width, masking): one width at hd 64 and 128, and
+# MLA's 192/128, which both designs take in bf16
+LSE_CASES = [(q, kv, kv[3], kw) for q, kv, kw in WIDE_CASES[:6]] \
+    + MLA_CASES
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("source", ["flash_sm90", "flash"])
-@pytest.mark.parametrize("q_shape,kv_shape,kw", WIDE_CASES[:6],
-                         ids=[f"{q}-{kv}-{kw}" for q, kv, kw in
-                              WIDE_CASES[:6]])
-def test_lse_forward_keeps_the_output_bits(cuda, q_shape, kv_shape, kw,
+@pytest.mark.parametrize("q_shape,kv_shape,hdv,kw", LSE_CASES,
+                         ids=[f"{q}-{kv}-v{hdv}-{kw}" for q, kv, hdv, kw in
+                              LSE_CASES])
+def test_lse_forward_keeps_the_output_bits(cuda, q_shape, kv_shape, hdv, kw,
                                            source):
     """Both designs: out with the lse output is the bits of out without
-    it, and lse is the plain version's."""
-    q, k, v = _bf16((q_shape, kv_shape, kv_shape), cuda,
+    it, out and lse the plain version's."""
+    q, k, v = _bf16((q_shape, kv_shape, kv_shape[:3] + (hdv,)), cuda,
                     sum(q_shape) + sum(kv_shape))
     lse = torch.full((q_shape[0], q_shape[2], q_shape[1]), torch.nan,
                      device=cuda)
@@ -1014,17 +1039,24 @@ def test_lse_forward_keeps_the_output_bits(cuda, q_shape, kv_shape, kw,
     plain = tflash.launch(source, q, k, v, **kw)
     torch.cuda.synchronize()
     assert torch.equal(out, plain)
+    tref.check_attention(out, q, k, v, **kw, what=source)
     tref.check_lse(lse, q, k, v, **kw, what=source)
 
 
 @pytest.mark.cuda
-def test_lse_of_a_call_with_no_key_is_inf(cuda):
-    q = torch.randn(1, 5, 4, 64, device=cuda, dtype=torch.bfloat16)
-    k = torch.randn(1, 0, 2, 64, device=cuda, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 4, 5, device=cuda)
-    out = tflash.launch("flash_sm90", q, k, k, causal=False, lse=lse)
+@pytest.mark.parametrize("hd,hdv", [(64, 64), (192, 128)])
+def test_lse_of_a_call_with_no_key_is_inf(cuda, hd, hdv):
+    """Sk = 0 on the Hopper design: out is all zeros and v's width wide
+    (its memset sizes out by hdv), every lse +inf."""
+    q = torch.randn(1, 5, 4, hd, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 0, 2, hd, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn(1, 0, 2, hdv, device=cuda, dtype=torch.bfloat16)
+    before = tflash.design_launches["flash_sm90"]
+    out, lse = tflash.flash_cuda(q, k, v, causal=False, return_lse=True)
     torch.cuda.synchronize()
-    assert (out == 0).all() and torch.isinf(lse).all() and (lse > 0).all()
+    assert tflash.design_launches["flash_sm90"] == before + 1
+    assert out.shape == (1, 5, 4, hdv) and (out == 0).all()
+    assert torch.isinf(lse).all() and (lse > 0).all()
 
 
 @pytest.mark.cuda
