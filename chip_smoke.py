@@ -102,11 +102,17 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     their plain version at the probes, at the training path's shape (8
     x 4,096, 9/3 heads of 64) and at Qwen3-4B's prefill shape (4 x
     4,096, 32/8 of 128), each through the design ``flash_bwd.design``
-    routes it to (``flash_bwd_sm90`` for bf16 at hd 64 and 128; its
-    ptxas lines printed, a spill fails), two calls bitwise, the path
-    shapes also against the first design (``csrc/flash_bwd.cu``, which
-    still serves fp32 and the other widths) within the same tolerance, and timed beside it, SDPA's backward and
-    the plain version; ``train`` on SmolLM-135M at full width and
+    routes it to (``flash_bwd_sm90`` for bf16 at 64/64, 128/128 and
+    MLA's 192/128; its ptxas lines printed, a spill fails, and a wgmma
+    of its 192/128 kernels serialised for want of registers, C7512,
+    too), two calls bitwise, the path shapes also against the first
+    design (``csrc/flash_bwd.cu``, which still serves fp32 and the other
+    widths) within the same tolerance, and timed beside it, SDPA's
+    backward and the plain version; its one-width instances against the
+    one-width design's recorded bits (``ONE_WIDTH_SHA256``); its
+    192/128 instance at ragged shapes and at DeepSeek-V2-Lite's prefill
+    shape (4 x 4,096, 16 heads) and the MLA train phase's (2 x 4,096),
+    held and timed the same ways; ``train`` on SmolLM-135M at full width and
     depth, 30 steps of 8 x 4,096 tokens (the loss must fall; 60 flash
     and 30 flash_bwd launches a step under remat, all flash_bwd on
     ``flash_bwd_sm90``; every step's time,
@@ -134,7 +140,15 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     capacity and at one where no group drops a token; then the same
     model in fp32 (62.8 GB) at that capacity: decode's argmax a
     maximiser of forward's logits in more than 0.99 of the prompt
-    positions (``DS_FP32_AGREE`` says why).
+    positions (``DS_FP32_AGREE`` says why);
+18. train mla: DeepSeek-V2-Lite trained at full width with its depth
+    cut to 3 layers (``MLA_TRAIN_LAYERS``: the dense prologue layer and
+    two MLA+MoE layers, random fp32 masters from the seed), 10 AdamW
+    steps of 2 x 4,096 tokens, remat on: the loss finite and falling,
+    one flash_bwd launch a layer a step, all on ``flash_bwd_sm90``'s
+    192/128 instance, the flash forward's on ``flash_sm90``; step ms,
+    tokens/s, the peak; one step twice from one state bitwise; a
+    profiled step (flash_bwd's device time beside MoE routing's).
 
 Every failed check raises, so the exit code is not 0.  The last two
 lines are the ``kernels`` JSON and the device JSON.  Without a CUDA
@@ -358,7 +372,8 @@ def ptxas_by_kernel(log: str):
             t = re.search(r"sddmm_tiles_kernelILb([01])E", mangled)
             f = re.search(r"(dkdv_kernel|dq_kernel|stats_kernel|"
                           r"dkdv_bf16_kernel|dq_bf16_kernel|delta_kernel)"
-                          r"I(Li(\d+)E|f|13__nv_bfloat16)", mangled)
+                          r"I(Li(\d+)E(?:Li(\d+)E)?|f|13__nv_bfloat16)",
+                          mangled)
             name = mangled if k is None else (
                 f"{k.group(1)}<{'bf16' if 'bfloat' in k.group(2) else 'float'}"
                 + (f", {k.group(3)[-1] == '1'}" if k.group(3) else "") + ">")
@@ -366,8 +381,9 @@ def ptxas_by_kernel(log: str):
                 name = (f"sddmm_tiles_kernel<"
                         f"{'float4' if t.group(1) == '1' else 'float'}>")
             if f:
+                widths = ", ".join(w for w in f.group(3, 4) if w)
                 name = f"{f.group(1)}<" + (
-                    f.group(3) or ("float" if f.group(2) == "f" else "bf16")) \
+                    widths or ("float" if f.group(2) == "f" else "bf16")) \
                     + ">"
             out[name] = []
         elif name and ("spill" in line or "registers" in line):
@@ -2991,6 +3007,12 @@ TRAIN_STEPS = 30
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=30)
 RESUME = (12, 4, 10)        # steps, save_every, the step a device is lost
 BWD_QWEN = ((4, 4096, 32, 128), (4, 4096, 8, 128))   # Qwen3-4B prefill
+# MLA's prefill at two widths (q/k 192, v 128): DeepSeek-V2-Lite's
+# prefill shape (the two-width forward's row 4b) and the MLA train
+# phase's, 2 x 4,096 tokens a step
+MLA_V = 128
+BWD_MLA = ((4, 4096, 16, 192), (4, 4096, 16, 192))
+BWD_MLA_TRAIN = ((2, 4096, 16, 192), (2, 4096, 16, 192))
 # n_micro=2 against n_micro=1, one step from one state on one batch:
 # the loss, and each leaf's gradient as AdamW receives it, in the
 # relative Frobenius norm |g2 - g1| / |g1|.  The microbatches' bf16
@@ -3008,24 +3030,27 @@ BWD_QWEN = ((4, 4096, 32, 128), (4, 4096, 8, 128))   # Qwen3-4B prefill
 MICRO_TOL = dict(loss_rtol=1e-3, grad_rtol=2.0 ** -6)
 
 
-def flash_bwd_bound(q_shape, kv_shape):
-    """(ms, by, operations) of one causal bf16 backward from position 0:
-    q, k, v, out, dout and lse read once, dq, dk, dv written once; five
-    products of 2 hd operations per visible (query, key) pair and head
-    (S, dP, dV, dK, dQ), at the tensor cores' bf16 rate."""
+def flash_bwd_bound(q_shape, kv_shape, hdv=None):
+    """(ms, by, operations) of one causal bf16 backward from position 0,
+    v ``hdv`` wide (default q's width): q, k, v, out, dout and lse read
+    once, dq, dk, dv written once; five products per visible (query,
+    key) pair and head, S, dK and dQ of 2 hd operations and dP and dV of
+    2 hdv, at the tensor cores' bf16 rate."""
     B, Sq, H, hd = q_shape
     Sk, KVH = kv_shape[1], kv_shape[2]
+    hdv = hd if hdv is None else hdv
     pairs = sum(min(Sk, s + 1) for s in range(Sq))
-    n_bytes = 2 * (4 * B * Sq * H * hd + 4 * B * Sk * KVH * hd) \
-        + 4 * B * H * Sq
-    n_ops = 10 * B * H * hd * pairs
+    n_bytes = 2 * (2 * B * Sq * H * (hd + hdv) + 2 * B * Sk * KVH
+                   * (hd + hdv)) + 4 * B * H * Sq
+    n_ops = 2 * (3 * hd + 2 * hdv) * B * H * pairs
     return bound(n_bytes, n_ops, PEAK_BF16_FLOPS) + (n_ops,)
 
 
 def sdpa_bwd(q, k, v, dout):
     """PyTorch's fused attention backward alone on the same inputs (the
-    yardstick): a function running torch.autograd.grad of one SDPA
-    forward, kept for every call."""
+    yardstick; v and dout may be narrower than q and k): a function
+    running torch.autograd.grad of one SDPA forward, kept for every
+    call.  Raises what SDPA raises on inputs it refuses."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -3035,6 +3060,89 @@ def sdpa_bwd(q, k, v, dout):
     g = dout.transpose(1, 2)
     return lambda: torch.autograd.grad(o, (qt, kt, vt), g,
                                        retain_graph=True)
+
+
+def device_kernels(fn, top: int = 3):
+    """The names of the ``top`` kernels with the most device time in one
+    call of fn (torch.profiler): which backend served a library call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # CPU and CUDA activities, as every profile of this script takes
+    # them: after such a session, a CUDA-only one reported no kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ks.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return [e.key[:80] for e in ks[:top]]
+
+
+# the one-width check of flash_bwd_sm90 (``one_width_sha256``): the
+# flash_bwd probes it takes (bf16 at 64/64 and 128/128), ragged cases at
+# hd 128 (an offset; a window from an offset, GQA 4; not causal) and
+# the two path shapes
+ONE_WIDTH_CASES = [
+    ("causal GQA3 b2 s200 h9/3 hd64", (2, 200, 9, 64), (2, 200, 3, 64),
+     dict(causal=True)),
+    ("windowed offset GQA3 s100 vs 300 hd64", (1, 100, 6, 64),
+     (1, 300, 2, 64), dict(causal=True, window=80, q_offset=200)),
+    ("offset s77 vs 333 hd128", (1, 77, 4, 128), (1, 333, 4, 128),
+     dict(causal=True, q_offset=256)),
+    ("windowed offset GQA4 s130 vs 500 hd128", (2, 130, 8, 128),
+     (2, 500, 2, 128), dict(causal=True, window=200, q_offset=370)),
+    ("noncausal s64 vs 1000 hd128", (1, 64, 8, 128), (1, 1000, 2, 128),
+     dict(causal=False)),
+    ("train path", (8, 4096, 9, 64), (8, 4096, 3, 64), dict(causal=True)),
+    ("qwen3_4b prefill", *BWD_QWEN, dict(causal=True))]
+# sha256 of flash_bwd_sm90's (dq, dk, dv) at ONE_WIDTH_CASES as its
+# one-width design (the source before it became a template on two
+# widths) gave them on an NVIDIA H100 80GB HBM3 (700 W), torch
+# 2.11.0+cu128: ``scripts_dev/flash_bwd_variants.py`` prints each
+# variant's, the earlier source built from a copy beside the current one
+ONE_WIDTH_SHA256 = {
+    "causal GQA3 b2 s200 h9/3 hd64":
+        "880036f300caba0ae6ad1e35fae6a18099495b677933857c200aafe7b3b1e3fa",
+    "windowed offset GQA3 s100 vs 300 hd64":
+        "3f7f7d0267b1ebbd971afadda2da35b46525f658e7509d74380c7a2d26aee5c4",
+    "offset s77 vs 333 hd128":
+        "27ddb365080f4552c5fbe247cbccb69108be0646b9ae4920560f861d577d75a4",
+    "windowed offset GQA4 s130 vs 500 hd128":
+        "d2378b221563fdf40154067e8c26b89d9e4dbed29a87928776ad3befb550b2ec",
+    "noncausal s64 vs 1000 hd128":
+        "e50f1429948936f07dcc4edf0ce303deeec3d51d84f737aae9ceccbb2a3a8e91",
+    "train path":
+        "779233ac1b2f38f4d8ddcc3aa695a0cd4b7e253efaed0f9e95a755543a33a3a6",
+    "qwen3_4b prefill":
+        "511afbb23c0c80634a286c12b2349d10d9b07018d5b70ce535edeb10c7652f75"}
+
+
+def one_width_sha256(run):
+    """{case: sha256 of dq, dk and dv} of ``run(q, k, v, out, lse, g,
+    **kw)`` at ``ONE_WIDTH_CASES``, bf16 inputs from torch's CUDA
+    generator seeded with the case's index, out and lse from the flash
+    forward."""
+    import torch
+    from repro_torch.kernels import flash as kflash
+    out = {}
+    for i, (label, q_shape, kv_shape, kw) in enumerate(ONE_WIDTH_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+        q, k, v, g = (torch.randn(*s, device="cuda", generator=gen)
+                      .to(torch.bfloat16)
+                      for s in (q_shape, kv_shape, kv_shape, q_shape))
+        o, lse = kflash.flash_cuda(q, k, v, **kw, return_lse=True)
+        grads = run(q, k, v, o, lse, g, **kw)
+        h = hashlib.sha256()
+        for x in grads:
+            h.update(x.contiguous().view(torch.int16).cpu().numpy()
+                     .tobytes())
+        out[label] = h.hexdigest()
+        del q, k, v, g, o, lse, grads
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_flash_bwd(gen):
@@ -3047,9 +3155,18 @@ def phase_flash_bwd(gen):
     design (``csrc/flash_bwd.cu``, launched uncounted through
     ``flash_bwd.launch``) within the same tolerance,
     and, in turns, the routed design, the first design, SDPA's backward
-    and the plain version timed.  Returns the kernels-line entry without
-    launches, with the forward's errors under ``lse_max_abs_err`` and
-    ``flash_max_abs_err``."""
+    and the plain version timed.  The one-width instances (64/64,
+    128/128) give their one-width design's bits (``ONE_WIDTH_SHA256``).
+    Then the two-width backward (MLA's prefill, q/k 192 against v 128)
+    on ``flash_bwd_sm90``'s 192/128 instance (its ptxas lines printed: a
+    spill or a wgmma serialised for want of registers, C7512, fails) at
+    ragged probes and at both MLA path shapes (DeepSeek-V2-Lite's
+    prefill and the MLA train phase's), held the same ways and timed in
+    turns beside ``flash_bwd.cu``'s 192/128 kernel, SDPA's backward (its
+    kernels named) and the plain version.  Returns (the kernels-line
+    entry without launches, with the forward's errors under
+    ``lse_max_abs_err`` and ``flash_max_abs_err``; the two-width
+    entry without launches)."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash as kflash
@@ -3062,11 +3179,36 @@ def phase_flash_bwd(gen):
     for line in _build.build_log("flash_bwd_sm90").splitlines():
         if "C75" in line:
             print(f"  ptxas flash_bwd_sm90: {line.strip()[:160]}")
-    spills = [k for k, lines in ptxas_by_kernel(_build.build_log(
-        "flash_bwd_sm90")).items() for line in lines
-        if "spill" in line and " 0 bytes spill stores" not in line]
+    sm90 = ptxas_by_kernel(_build.build_log("flash_bwd_sm90"))
+    spills = [k for k, lines in sm90.items() for line in lines
+              if "spill" in line and " 0 bytes spill stores" not in line]
     if spills:
         raise AssertionError(f"flash_bwd_sm90 spills in {spills}")
+    # the two-width instances: both of the 192/128 kernels there, none
+    # with its wgmma serialised for want of registers
+    two = [k for k in sm90 if k.endswith("<192, 128>")]
+    serial = [line.strip() for line in _build.build_log(
+        "flash_bwd_sm90").splitlines()
+        if "C7512" in line and "Li192ELi128E" in line]
+    for k in two:
+        print(f"  ptxas flash_bwd_sm90 two widths {k}: "
+              + "; ".join(sm90[k]))
+    if sorted(two) != ["dkdv_kernel<192, 128>", "dq_kernel<192, 128>"] \
+            or serial:
+        raise AssertionError(f"flash_bwd_sm90's 192/128 kernels are "
+                             f"missing or serialised (C7512): {two}, "
+                             f"{serial}")
+    # the one-width instances give the bits of the one-width design
+    got = one_width_sha256(lambda *a, **kw: kbwd.launch(
+        "flash_bwd_sm90", *a, **kw))
+    differ = [k for k in got if got[k] != ONE_WIDTH_SHA256.get(k)]
+    for k, h in got.items():
+        print(f"  flash_bwd_sm90 one width {k}: sha256 {h[:16]}, "
+              + ("the one-width design's bits" if k not in differ
+                 else f"the one-width design's {ONE_WIDTH_SHA256.get(k)}"))
+    if differ:
+        raise AssertionError(f"flash_bwd_sm90's one-width instances differ "
+                             f"from the one-width design at {differ}")
     print(f"flash_bwd tolerance: rtol {ref.FLASH_BWD_RTOL[torch.float32]} "
           f"(fp32), {ref.FLASH_BWD_RTOL[torch.bfloat16]} (bf16) of |plain| "
           f"+ sum |terms|; lse {ref.LSE_RTOL} (1 + |lse|) (kernels/ref.py "
@@ -3108,16 +3250,31 @@ def phase_flash_bwd(gen):
                   f"abs err {lse_errs[-1]:.3e}")
         del q, k, v
     # the backward against its plain version, twice bitwise, through the
-    # design the wrapper routes to; at the path shapes the first design
-    # too, and the routed design against it
-    served = set()
-    for label, q_shape, kv_shape, dt, kw in probes + [
-            ("train path", *path, bf16, dict(causal=True)),
-            ("qwen3_4b prefill", *BWD_QWEN, bf16, dict(causal=True))]:
-        q, k, v, g = (rand(s, dt) for s in (q_shape, kv_shape, kv_shape,
-                                            q_shape))
+    # design the wrapper routes to; at the path shapes and at two widths
+    # (MLA's q/k 192 against v 128) the first design too, and the routed
+    # design against it
+    hdk, hdv = BWD_MLA[0][3], MLA_V
+    two = [("two widths ragged sq130 sk257 h8/2 offset 100 window 96",
+            (2, 130, 8, hdk), (2, 257, 2, hdk), hdv, bf16,
+            dict(causal=True, window=96, q_offset=100)),
+           ("two widths ragged sq77 sk333 h16/4 offset 256",
+            (2, 77, 16, hdk), (2, 333, 4, hdk), hdv, bf16,
+            dict(causal=True, q_offset=256)),
+           ("two widths noncausal sq90 sk70 h6/3", (1, 90, 6, hdk),
+            (1, 70, 3, hdk), hdv, bf16, dict(causal=False)),
+           ("deepseek prefill", *BWD_MLA, hdv, bf16, dict(causal=True)),
+           ("mla train", *BWD_MLA_TRAIN, hdv, bf16, dict(causal=True))]
+    served, two_errs = set(), []
+    for label, q_shape, kv_shape, w, dt, kw in [
+            (lb, q, kv, q[3], dt, kw) for lb, q, kv, dt, kw in probes + [
+                ("train path", *path, bf16, dict(causal=True)),
+                ("qwen3_4b prefill", *BWD_QWEN, bf16,
+                 dict(causal=True))]] + two:
+        q, k, g = rand(q_shape, dt), rand(kv_shape, dt), \
+            rand(q_shape[:3] + (w,), dt)
+        v = rand(kv_shape[:3] + (w,), dt)
         out, lse = kflash.flash_cuda(q, k, v, **kw, return_lse=True)
-        source = kbwd.design(dt, q_shape[3])
+        source = kbwd.design(dt, q_shape[3], w)
         before = kbwd.design_launches[source]
         grads = kbwd.flash_bwd_cuda(q, k, v, out, lse, g, **kw)
         again = kbwd.flash_bwd_cuda(q, k, v, out, lse, g, **kw)
@@ -3131,9 +3288,9 @@ def phase_flash_bwd(gen):
         mags = ref.attention_bwd_magnitude(q, k, v, out, lse, g, **kw)
         e = ref.check_bwd_close(grads, want, mags, dt,
                                 what=f"flash_bwd {label} on {source}")
-        errs.append(e)
+        (two_errs if w != q_shape[3] else errs).append(e)
         note = ""
-        if label in ("train path", "qwen3_4b prefill"):
+        if label in ("train path", "qwen3_4b prefill") or w != q_shape[3]:
             prev = kbwd.launch("flash_bwd", q, k, v, out, lse, g, **kw)
             e1 = ref.check_bwd_close(prev, want, mags, dt,
                                      what=f"first design {label}")
@@ -3144,26 +3301,38 @@ def phase_flash_bwd(gen):
                     f"{source} against it {e2:.3e}")
             del prev
         print(f"  flash_bwd {label} {tuple(q_shape)}/{kv_shape[2]} "
-              f"{str(dt)[6:]} {kw} on {source}: max abs err {e:.3e}, two "
-              f"calls bitwise{note}")
+              f"{q_shape[3]}/{w} {str(dt)[6:]} {kw} on {source}: max abs "
+              f"err {e:.3e}, two calls bitwise{note}")
         del q, k, v, g, out, lse, grads, again, want, mags
         torch.cuda.empty_cache()
     print(f"flash_bwd served by {sorted(served)}")
 
-    entry = None
-    for label, (q_shape, kv_shape) in (("train path", path),
-                                       ("qwen3_4b prefill", BWD_QWEN)):
-        q, k, v, g = (rand(s, bf16) for s in (q_shape, kv_shape, kv_shape,
-                                              q_shape))
+    entry = mla = None
+    for label, (q_shape, kv_shape), w in (
+            ("train path", path, path[0][3]),
+            ("qwen3_4b prefill", BWD_QWEN, BWD_QWEN[0][3]),
+            ("deepseek prefill", BWD_MLA, hdv),
+            ("mla train", BWD_MLA_TRAIN, hdv)):
+        q, k, g = rand(q_shape, bf16), rand(kv_shape, bf16), \
+            rand(q_shape[:3] + (w,), bf16)
+        v = rand(kv_shape[:3] + (w,), bf16)
         out, lse = kflash.flash_cuda(q, k, v, causal=True, return_lse=True)
-        source = kbwd.design(bf16, q_shape[3])
+        source = kbwd.design(bf16, q_shape[3], w)
         fns = {source: lambda: kbwd.launch(source, q, k, v, out, lse, g,
                                            causal=True),
                "first design": lambda: kbwd.launch(
                    "flash_bwd", q, k, v, out, lse, g, causal=True),
-               "SDPA backward": sdpa_bwd(q, k, v, g),
                "plain": lambda: ref.attention_bwd_ref(q, k, v, out, lse, g,
                                                       causal=True)}
+        library_note = None
+        try:                 # the yardstick alone, not the port
+            fns["SDPA backward"] = sdpa_bwd(q, k, v, g)
+            library_note = (f"SDPA backward ran "
+                            f"{device_kernels(fns['SDPA backward'], 2)}")
+        except RuntimeError as exc:
+            library_note = (f"SDPA refused: {type(exc).__name__}: "
+                            f"{str(exc).splitlines()[0][:200]}")
+            fns.pop("SDPA backward", None)
         times = {n: [] for n in fns}
         for order in (list(fns), list(fns)[::-1]):
             for n in order:
@@ -3172,39 +3341,48 @@ def phase_flash_bwd(gen):
         ms = {n: sum(t) / len(t) for n, t in times.items()}
         fwd_ms = time_ms(lambda: kflash.flash_cuda(q, k, v, causal=True,
                                                    return_lse=True))
-        b_ms, b_by, n_ops = flash_bwd_bound(q_shape, kv_shape)
-        print(f"  flash_bwd at {label} {q_shape}/{kv_shape[2]} bf16 causal, "
-              f"bound {b_ms:.3f} ms by {b_by} ({n_ops / 1e9:.1f} GFLOP); two "
-              "rounds in turns, mean:")
+        b_ms, b_by, n_ops = flash_bwd_bound(q_shape, kv_shape, w)
+        print(f"  flash_bwd at {label} {q_shape}/{kv_shape[2]} "
+              f"{q_shape[3]}/{w} bf16 causal, bound {b_ms:.3f} ms by {b_by} "
+              f"({n_ops / 1e9:.1f} GFLOP); two rounds in turns, mean:")
         for n, t in times.items():
             print(f"    {n}: {ms[n]:.3f} ms ({', '.join(f'{x:.3f}' for x in t)}"
                   f"), {n_ops / ms[n] / 1e9:.1f} TFLOP/s, "
                   f"{b_ms / ms[n]:.3f} of the bound")
-        print(f"    flash forward with lse at the same shape: {fwd_ms:.3f} "
-              f"ms; {source} / first design "
-              f"{ms[source] / ms['first design']:.3f}, {source} / SDPA "
-              f"backward {ms[source] / ms['SDPA backward']:.3f}")
-        if entry is None:
-            entry = {"name": "flash_bwd", "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{source}.cu",
-                     "replaces": "src/repro/models/layers.py:245 (jnp "
-                                 "custom_vjp; no Pallas kernel)",
-                     "max_abs_err": max(errs), "ms": ms[source],
-                     "plain_ms": ms["plain"], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": ms["SDPA backward"],
-                     "previous_ms": ms["first design"],
-                     "previous_source": PREVIOUS_FLASH_BWD,
-                     "qwen3_4b_prefill": {}}
+        print(f"    {library_note}; flash forward with lse at the same "
+              f"shape: {fwd_ms:.3f} ms; {source} / first design "
+              f"{ms[source] / ms['first design']:.3f}"
+              + (f", {source} / SDPA backward "
+                 f"{ms[source] / ms['SDPA backward']:.3f}"
+                 if "SDPA backward" in ms else ""))
+        shape = {"ms": ms[source], "plain_ms": ms["plain"],
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": ms.get("SDPA backward"),
+                 "previous_ms": ms["first design"]}
+        base = {"route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+                "replaces": "src/repro/models/layers.py:245 (jnp "
+                            "custom_vjp; no Pallas kernel)",
+                "previous_source": PREVIOUS_FLASH_BWD}
+        if label == "train path":
+            entry = {"name": "flash_bwd", **base, "max_abs_err": max(errs),
+                     **shape, "qwen3_4b_prefill": {}}
+        elif label == "qwen3_4b prefill":
+            entry["qwen3_4b_prefill"] = shape
+        elif label == "deepseek prefill":
+            mla = {"name": "flash_bwd_two_widths", **base,
+                   "max_abs_err": max(two_errs), **shape,
+                   "library_note": library_note,
+                   "note": f"bf16 q/k {hdk} against v {hdv} (MLA's "
+                           "prefill) on flash_bwd_sm90.cu's 192/128 "
+                           "instance; ms at B=4 S=4,096 H=16"}
         else:
-            entry["qwen3_4b_prefill"] = {
-                "ms": ms[source], "plain_ms": ms["plain"],
-                "bound_ms": b_ms, "library_ms": ms["SDPA backward"],
-                "previous_ms": ms["first design"]}
+            mla["mla_train_shape"] = dict(shape, library_note=library_note)
         del q, k, v, g, out, lse, fns
         torch.cuda.empty_cache()
     entry["lse_max_abs_err"] = max(lse_errs)
     entry["flash_max_abs_err"] = max(out_errs)
-    return entry
+    return entry, mla
 
 
 def _clone_state(model, opt_state):
@@ -3480,6 +3658,251 @@ def phase_train(seed: int, bwd_entry):
     return bwd_entry, counts["flash"]
 
 
+# MLA training: DeepSeek-V2-Lite at full width, its depth cut to the
+# dense prologue layer and two MLA+MoE layers (1,670,131,712 parameters,
+# 26.72 GB at 16 bytes each: fp32 master, gradient, two moments); 10
+# AdamW steps of 2 x 4,096 tokens (eight router groups of 1,024), remat
+# on.  Four layers (2,254,979,072 parameters, 36.08 GB) ran out of the
+# card's 80 GB in AdamW's update, whose foreach passes hold about six
+# more fp32 copies of the parameters (on an NVIDIA H100 80GB HBM3)
+MLA_TRAIN_LAYERS = 3
+MLA_TRAIN_STEPS = 10
+MLA_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=MLA_TRAIN_STEPS)
+
+
+def state_fingerprint(model, opt_state):
+    """Two int64 sums of the bit patterns of every parameter and moment,
+    one weighted by an odd number a position (so a changed element
+    always moves it), on the card: the same state gives the same
+    fingerprint, and a state that differs in any bit differs in it but
+    by a coincidence of sums."""
+    import torch
+    chunk = 1 << 26
+    w = torch.arange(chunk, dtype=torch.int64, device="cuda") * 2 + 1
+    s1 = torch.zeros((), dtype=torch.int64, device="cuda")
+    s2 = torch.zeros((), dtype=torch.int64, device="cuda")
+    named = dict(model.named_parameters())
+    for leaf in [named[n] for n in named] + [opt_state.m[n] for n in named] \
+            + [opt_state.v[n] for n in named]:
+        flat = leaf.detach().reshape(-1).view(torch.int32)
+        for i in range(0, flat.numel(), chunk):
+            c = flat[i:i + chunk].to(torch.int64)
+            s1 += c.sum()
+            s2 += (c * w[:c.numel()]).sum()
+    return int(s1), int(s2), int(opt_state.step)
+
+
+def phase_train_mla(seed: int, entry):
+    """MLA training (``MLA_TRAIN_*``): DeepSeek-V2-Lite at its published
+    width through ``repro_torch.launch.train.train``, random fp32 masters
+    from ``seed``: the loss finite every step and falling, flash_bwd
+    launched once a layer a step, all on ``flash_bwd_sm90`` (its 192/128
+    instance), flash once a layer and once more a stacked layer
+    (remat's recompute) a step, all on ``flash_sm90``; step ms, tokens/s,
+    the peak; one step run twice from one state (the model drawn again
+    from the seed) the same bits; a profiled step's busy time, idle
+    share and device time by kernel and by operation, flash_bwd's beside
+    MoE routing's.  Returns the two-width entry with its launches."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_lm_batch
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import flash_bwd as kbwd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import init_model, moe, param_count
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    full = get_config(DS_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_TRAIN_LAYERS)
+    (B, S), steps = BWD_MLA_TRAIN[0][:2], MLA_TRAIN_STEPS
+    opt = AdamWConfig(**MLA_TRAIN_OPT)
+    n_par, n_full = param_count(cfg)[0], param_count(full)[0]
+    print(f"model {cfg.name} at full width: d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, MLA kv_lora {cfg.kv_lora_rank}, nope "
+          f"{cfg.qk_nope_dim}, rope {cfg.qk_rope_dim}, v {cfg.v_head_dim}; "
+          f"{cfg.n_experts} routed experts top-{cfg.top_k} + "
+          f"{cfg.n_shared_experts} shared (d_ff_expert {cfg.d_ff_expert}), "
+          f"router groups of {cfg.router_group}, vocab {cfg.vocab_size}; "
+          f"depth cut from {full.n_layers} to {cfg.n_layers} layers (the "
+          f"dense prologue layer and {len(cfg.pattern) * cfg.repeats} "
+          f"MLA+MoE layers): {n_par:,} parameters, "
+          f"{16 * n_par / 1e9:.2f} GB as fp32 masters, gradients and two "
+          f"moments (16 bytes a parameter); the uncut {n_full:,} would "
+          f"need {16 * n_full / 1e9:.0f} GB, more than the card's 80; "
+          f"{steps} steps of {B} x {S} tokens, AdamW {MLA_TRAIN_OPT}, "
+          "remat on")
+    spans = []
+    orig = ttrain.make_train_step
+
+    def timed_make(*a, **kw):
+        step = orig(*a, **kw)
+
+        def timed(*x):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = step(*x)
+            torch.cuda.synchronize()
+            spans.append((t, time.perf_counter()))
+            return r
+        return timed
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ttrain.make_train_step = timed_make
+    try:
+        t0 = time.perf_counter()
+        run = ttrain.train(cfg, steps=steps, batch=B, seq=S, opt_cfg=opt,
+                           seed=seed, log_every=0)
+        wall = time.perf_counter() - t0
+    finally:
+        ttrain.make_train_step = orig
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_stack = len(run["params"].stack)
+    want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0, "topk_score": 0,
+            "flash": (cfg.n_layers + n_stack) * steps,
+            "flash_bwd": cfg.n_layers * steps}
+    if counts != want or kflash.design_launches["flash_sm90"] != \
+            want["flash"] or kbwd.design_launches["flash_bwd_sm90"] != \
+            want["flash_bwd"]:
+        raise AssertionError(f"train mla: launch counts {counts} "
+                             f"({kflash.design_launches}, "
+                             f"{kbwd.design_launches} by source), want "
+                             f"{want}, all flash on flash_sm90 and all "
+                             "flash_bwd on flash_bwd_sm90")
+    losses = run["losses"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train mla: losses {losses}")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f"train mla: loss did not fall, {first} -> "
+                             f"{last}")
+    step_ms = [(e - t) * 1e3 for t, e in spans]
+    med = statistics.median(step_ms[1:])
+    print(f"train mla: {steps} steps in {wall:.1f} s wall; step ms "
+          + " ".join(f"{i + 1}:{t:.1f}" for i, t in enumerate(step_ms))
+          + f"; median after the first {med:.1f}, {B * S / med * 1e3:.0f} "
+          f"tokens/s; peak device memory {peak / 1e9:.2f} GB")
+    print(f"train mla: loss mean of the first three {first:.4f}, of the last "
+          f"three {last:.4f}; losses " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"train mla: launches {counts} in {steps} steps: flash_bwd "
+          f"{counts['flash_bwd'] // steps} a step (one a layer, all on "
+          f"flash_bwd_sm90's 192/128 instance), flash "
+          f"{counts['flash'] // steps} a step ({cfg.n_layers} layers and "
+          f"the recompute of the {n_stack} checkpointed ones, all on "
+          "flash_sm90)")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step twice from one state: the model drawn again from the seed
+    batch = make_lm_batch(TokenStream(cfg.vocab_size, seed=seed), steps, B,
+                          S)
+    step1 = ttrain.make_train_step(cfg, opt)
+    prints = []
+    for _ in range(2):
+        model = init_model(cfg, seed, device="cuda", train=True)
+        ost = adamw_init(dict(model.named_parameters()))
+        before = state_fingerprint(model, ost)
+        model, ost, met = step1(model, ost, batch)
+        torch.cuda.synchronize()
+        prints.append((before, state_fingerprint(model, ost),
+                       float(met["loss"])))
+        if len(prints) == 1:
+            del model, ost
+            gc.collect()
+            torch.cuda.empty_cache()
+    if prints[0] != prints[1]:
+        raise AssertionError(f"train mla: one step twice from one state "
+                             f"differs: {prints}")
+    print(f"train mla: one step twice from one state (drawn again from "
+          f"the seed) gives the same bits: loss {prints[0][2]:.6f}, state "
+          f"fingerprint {prints[0][1][:2]} (params, m, v)")
+
+    # where a step spends the card's time: flash_bwd's kernels beside
+    # MoE routing's (moe.route's device time, forward and remat's
+    # recompute; apply_moe's whole, experts included)
+    saved = moe.route, transformer.apply_moe
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+
+    moe.route = ranged("moe.route", saved[0])
+    transformer.apply_moe = ranged("moe.apply_moe", saved[1])
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step1(model, ost, batch)
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe.route, transformer.apply_moe = saved
+    # the ranges' own spans on the device timeline are not kernels
+    busy = busy_ms([e for e in prof.events()
+                    if not e.name.startswith("moe.")])
+    if not 0 < busy <= pwall:
+        raise AssertionError(f"train mla profile: busy {busy} of {pwall} ms")
+    stats = prof.key_averages()
+    kernels = [e for e in stats if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("moe.")]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"  profile, one train step: {pwall:.1f} ms wall (profiler on), "
+          f"device busy {busy:.1f} ms, idle share {1 - busy / pwall:.3f} "
+          f"with the profiler on, {1 - busy / med:.3f} against the median "
+          f"unprofiled step ({med:.1f} ms); by kernel:")
+    for e in kernels[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    print("  by operation (device time of the kernels each launched; moe.* "
+          "cover the forward and the recompute, not the backward):")
+    opsl = [e for e in stats if e.device_type != DeviceType.CUDA
+            and (e.key.startswith(("aten::", "moe.", "autograd::engine")))
+            and e.device_time_total > 0]
+    opsl.sort(key=lambda e: e.device_time_total, reverse=True)
+    for e in opsl[:12]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    part = {k: sum(e.self_device_time_total for e in kernels
+                   if k in e.key) / 1e3
+            for k in ("dkdv_kernel", "dq_kernel", "stats_kernel",
+                      "flash_sm90_kernel")}
+    rng = {k: sum(e.device_time_total for e in stats if e.key == k
+                  and e.device_type != DeviceType.CUDA) / 1e3
+           for k in ("moe.route", "moe.apply_moe")}
+    bwd_ms = part["dkdv_kernel"] + part["dq_kernel"] + part["stats_kernel"]
+    print(f"train mla: flash_bwd's device time a step {bwd_ms:.1f} ms "
+          f"({bwd_ms / busy:.3f} of busy; dkdv {part['dkdv_kernel']:.1f}, dq "
+          f"{part['dq_kernel']:.1f}, stats {part['stats_kernel']:.1f}), the "
+          f"flash forward {part['flash_sm90_kernel']:.1f} ms; MoE routing "
+          f"(moe.route) {rng['moe.route']:.1f} ms "
+          f"({rng['moe.route'] / busy:.3f} of busy), the MoE layers' "
+          f"forward and recompute whole {rng['moe.apply_moe']:.1f} ms")
+    del model, ost, prof, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry["launches"] = counts["flash_bwd"]
+    entry["launches_per_step"] = counts["flash_bwd"] // steps
+    entry["train_device_ms_per_step"] = bwd_ms
+    entry["train_step_ms"] = med
+    entry["train_tokens_per_s"] = B * S / med * 1e3
+    entry["train_peak_gb"] = peak / 1e9
+    entry["train_layers"] = cfg.n_layers
+    return entry
+
+
 def busy_ms(events) -> float:
     """Time in ms that at least one device activity of ``events`` (the
     profiler's FunctionEvents) was running: the union of their
@@ -3630,8 +4053,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("== train: the LSE forward, flash_bwd, SmolLM-135M training, "
           "resume")
-    bwd, flash["train_launches"] = phase_train(args.seed,
-                                               phase_flash_bwd(gen))
+    bwd, bwd_mla = phase_flash_bwd(gen)
+    bwd, flash["train_launches"] = phase_train(args.seed, bwd)
     flash["train_launches_per_step"] = flash["train_launches"] \
         // TRAIN_STEPS
     flash["lse_max_abs_err"] = bwd.pop("lse_max_abs_err")
@@ -3649,6 +4072,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_decode_fp32(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"== train mla: DeepSeek-V2-Lite at full width, "
+          f"{MLA_TRAIN_LAYERS} layers, through the two-width flash "
+          "backward")
+    bwd_mla = phase_train_mla(args.seed, bwd_mla)
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]
@@ -3660,7 +4089,7 @@ def main(argv=None) -> int:
             run: c[name] for run, c in dist_launches.items()}
     print(json.dumps({"kernels": [entries["gram"], entries["sddmm"],
                                   entries["sddmm_gathered"], topk,
-                                  flash, bwd, flash_mla]}))
+                                  flash, bwd, flash_mla, bwd_mla]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

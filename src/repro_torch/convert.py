@@ -31,8 +31,7 @@ from .models import layers as L
 from .models.config import LayerSpec, ModelConfig
 from .models.mla import MLA
 from .models.moe import MoE
-from .models.transformer import (Layer, Transformer, check_supported,
-                                 check_trainable)
+from .models.transformer import Layer, Transformer, check_supported
 from .optim import OptState
 
 
@@ -124,11 +123,9 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
     and MoE routers (read in fp32 by the reference) stay fp32.  An MLA
     layer's ``attn`` leaves (``wq``, ``kv_a``, ``kv_norm``, ``kv_b``,
     ``wo``) make an ``MLA``, a ``moe`` subtree (``router``,
-    ``experts_*``, ``shared_*``) a ``MoE``.  Raises for the families the
-    port does not run yet, and with ``train`` for MLA."""
+    ``experts_*``, ``shared_*``) a ``MoE``, in training as in serving.
+    Raises for the families the port does not run yet."""
     check_supported(cfg)
-    if train:
-        check_trainable(cfg)
     dev = resolve_device(device)
     dt = L.held_dtype(cfg, train)
 

@@ -30,8 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# flash_bwd.cu's entry; flash_bwd_sm90.cu's takes the same arguments
-_FLASH_BWD = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+# flash_bwd.cu's entry (v's width after hd); flash_bwd_sm90.cu's takes
+# the same arguments
+_FLASH_BWD = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 11 + [ctypes.c_void_p]
 _GRAM_PRE = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
              + [ctypes.c_int, ctypes.c_void_p])
 

@@ -1,9 +1,9 @@
 // Flash-attention backward, GQA, for Hopper (sm_90a).
 //
-// From q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), the forward's output
-// out (B, Sq, H, hd), its row log-sum-exp lse (B, H, Sq; natural log,
-// +inf for a row that sees no key) and dout = dL/dout, for every batch
-// b and head h (kv head h / G):
+// From q (B, Sq, H, hd), k (B, Sk, KVH, hd), v (B, Sk, KVH, hdv), the
+// forward's output out (B, Sq, H, hdv), its row log-sum-exp lse (B, H,
+// Sq; natural log, +inf for a row that sees no key) and dout = dL/dout,
+// for every batch b and head h (kv head h / G):
 //   P[s, n]  = exp(q_s . k_n / sqrt(hd) - lse_s)   (0 where masked)
 //   D[s]     = sum_d dout[s, d] out[s, d]
 //   dS[s, n] = P[s, n] (dout_s . v_n - D[s]) / sqrt(hd)
@@ -11,7 +11,10 @@
 //   dk_n = sum over the G heads and s of dS[s, n] q_s
 //   dv_n = sum over the G heads and s of P[s, n] dout_s
 // with the forward's masks: query position qpos = q_offset + s; a causal
-// call sees n <= qpos and, with a window, n > qpos - window.
+// call sees n <= qpos and, with a window, n > qpos - window.  hd = hdv
+// in a GQA layer; MLA's prefill has q and k nope + rope wide against a
+// narrower v (192 against 128 in DeepSeek-V2-Lite), and the scale is
+// 1 / sqrt(hd), q and k's width.
 //
 // Replaces no Pallas kernel: the reference has no Pallas backward.  It
 // is the counterpart of the jnp custom_vjp
@@ -46,13 +49,23 @@
 //    forward's: q and dout stay in shared memory, K and V tiles stream
 //    through a two-stage ring, dQ += dS K accumulates in registers.
 // Tiles wholly outside every row's mask are skipped, tiles every row
-// sees whole skip the per-score test.  Ragged Sq, Sk and hd below the
-// padded width (32, 64 or 128) are zero-filled in shared memory and
-// masked.  Making it fast (wgmma, TMA) is later work.
+// sees whole skip the per-score test.  Ragged Sq, Sk and widths below
+// the padded ones are zero-filled in shared memory and masked.  The
+// bf16 kernels are templates on the two padded widths (HDK for q and k,
+// HDV for v and dout), instantiated at 32/32, 64/64, 128/128 and
+// 192/128 (multiples of 8, q/k up to 192 and v up to 128); at 192/128 a
+// thread holds dK (96 fp32) and dV (64) beside the two 16 x 64 score
+// fragments (64), so that instance runs one block an SM with up to 255
+// registers a thread.  Its Hopper design is flash_bwd_sm90.cu; this
+// file serves fp32 and the bf16 pairs that one does not instantiate
+// (the smoke configs' 24/16, say), and is the yardstick timed beside
+// it.
 //
 // fp32 inputs never touch the tensor cores (no TF32): the same three
 // passes on the CUDA cores, four threads to a key (dK, dV) or to a row
-// (dQ), each owning a quarter of the head dimension.
+// (dQ), each owning a quarter of q/k's and of v's widths; their shared
+// tiles are sized by each width's most (static shared memory holds
+// 48 KB, which two 32 x 192 fp32 tiles would fill).
 //
 // Layout: every array contiguous; dq, dk, dv in the operands' type.
 
@@ -68,21 +81,22 @@ constexpr int BN = 64;          // keys a tile
 constexpr int THREADS = 128;    // bf16 kernels: 4 warps of 16
 constexpr int T32 = 256;        // fp32 kernels: 4 threads a key or row
 constexpr int BQ32 = 32;        // rows (dkdv) or keys (dq) a fp32 tile
-constexpr int HD_MAX = 128;
+constexpr int HD_MAX = 192;     // widest q and k
+constexpr int HDV_MAX = 128;    // widest v
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const void* q;      // (B, Sq, H, hd)
   const void* k;      // (B, Sk, KVH, hd)
-  const void* v;
-  const void* o;      // (B, Sq, H, hd)
+  const void* v;      // (B, Sk, KVH, hdv)
+  const void* o;      // (B, Sq, H, hdv)
   const void* dout;
   const float* lse;   // (B, H, Sq)
   float* delta;       // (B, H, Sq), written by delta_kernel
   void* dq;
   void* dk;
   void* dv;
-  int B, Sq, Sk, H, KVH, hd;
+  int B, Sq, Sk, H, KVH, hd, hdv;   // hd: q and k; hdv: v, out, dout
   int causal, window, q_offset;
   float scale;        // 1 / sqrt(hd)
   float scale_log2;   // log2(e) / sqrt(hd)
@@ -136,16 +150,18 @@ __device__ __forceinline__ int64_t stat_index(const Args& a, int b, int kvh,
   return ((int64_t)b * a.H + kvh * G + R % G) * a.Sq + R / G;
 }
 
-// element offset of folded row R of (b, kvh) in q, out, dout, dq
+// element offset of folded row R of (b, kvh) in q and dq (width hd) or
+// out and dout (width hdv)
 __device__ __forceinline__ int64_t q_row(const Args& a, int b, int kvh,
-                                         int G, int R) {
-  return (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * a.hd;
+                                         int G, int R, int width) {
+  return (((int64_t)b * a.Sq + R / G) * a.H + kvh * G + R % G) * width;
 }
 
-// element offset of key n of (b, kvh) in k, v, dk, dv
+// element offset of key n of (b, kvh) in k and dk (width hd) or v and dv
+// (width hdv)
 __device__ __forceinline__ int64_t k_row(const Args& a, int b, int kvh,
-                                         int n) {
-  return (((int64_t)b * a.Sk + n) * a.KVH + kvh) * a.hd;
+                                         int n, int width) {
+  return (((int64_t)b * a.Sk + n) * a.KVH + kvh) * width;
 }
 
 template <typename T>
@@ -167,10 +183,11 @@ __global__ void __launch_bounds__(256) delta_kernel(const Args a) {
   const int lane = threadIdx.x % 32;
   const int64_t rows = (int64_t)a.B * a.Sq * a.H;
   if (row >= rows) return;
-  const T* o = static_cast<const T*>(a.o) + row * a.hd;
-  const T* g = static_cast<const T*>(a.dout) + row * a.hd;
+  const T* o = static_cast<const T*>(a.o) + row * a.hdv;
+  const T* g = static_cast<const T*>(a.dout) + row * a.hdv;
   float acc = 0.f;
-  for (int d = lane; d < a.hd; d += 32) acc = fmaf(to_f(g[d]), to_f(o[d]), acc);
+  for (int d = lane; d < a.hdv; d += 32)
+    acc = fmaf(to_f(g[d]), to_f(o[d]), acc);
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -354,17 +371,21 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
   }
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(THREADS, 2) dkdv_bf16_kernel(const Args a) {
-  constexpr int LD = HDP + 8;
-  constexpr int TILE = 64 * LD;
-  constexpr int DT = HDP / 8;
+// HDK: padded width of q and k, HDV: of v and dout; MINB blocks share
+// an SM
+template <int HDK, int HDV, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+    dkdv_bf16_kernel(const Args a) {
+  constexpr int TILEK = 64 * (HDK + 8);   // a tile of 64 q or k rows
+  constexpr int TILEV = 64 * (HDV + 8);   // of 64 v or dout rows
+  constexpr int DTK = HDK / 8, DTV = HDV / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + TILE;
-  __nv_bfloat16* sQ = sV + TILE;          // stage s: sQ + 2 s TILE
-  float* sL = reinterpret_cast<float*>(sK + 6 * TILE);   // [2][BM]
-  float* sD = sL + 2 * BM;                                // [2][BM]
+  __nv_bfloat16* sV = sK + TILEK;
+  // stage s: q at sQ + s (TILEK + TILEV), dout after it
+  __nv_bfloat16* sQ = sV + TILEV;
+  float* sL = reinterpret_cast<float*>(sQ + 2 * (TILEK + TILEV));  // [2][BM]
+  float* sD = sL + 2 * BM;                                          // [2][BM]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int G = a.H / a.KVH;
@@ -377,21 +398,23 @@ __global__ void __launch_bounds__(THREADS, 2) dkdv_bf16_kernel(const Args a) {
   // this thread's two keys of every fragment
   const int nk_lo = n0 + warp * 16 + lane / 4, nk_hi = nk_lo + 8;
 
-  float dk[DT][4], dv[DT][4];
+  float dk[DTK][4], dv[DTV][4];
 #pragma unroll
-  for (int j = 0; j < DT; ++j)
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = dv[j][0] = dv[j][1] =
-        dv[j][2] = dv[j][3] = 0.f;
+  for (int j = 0; j < DTK; ++j) dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < DTV; ++j) dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
 
   int t0, t1;
   row_tiles(a, G, n0, BN, BM, &t0, &t1);
   // stage a row tile's q, dout (cp.async) and lse, D (plain stores)
   auto stage = [&](int t, int st) {
     const int R0 = t * BM;
-    auto off = [&](int r) { return q_row(a, b, kvh, G, R0 + r); };
+    auto qoff = [&](int r) { return q_row(a, b, kvh, G, R0 + r, a.hd); };
+    auto goff = [&](int r) { return q_row(a, b, kvh, G, R0 + r, a.hdv); };
     auto ok = [&](int r) { return R0 + r < rows; };
-    load_tile<HDP>(sQ + 2 * st * TILE, q, a.hd, off, ok);
-    load_tile<HDP>(sQ + (2 * st + 1) * TILE, g, a.hd, off, ok);
+    __nv_bfloat16* tq = sQ + st * (TILEK + TILEV);
+    load_tile<HDK>(tq, q, a.hd, qoff, ok);
+    load_tile<HDV>(tq + TILEK, g, a.hdv, goff, ok);
     for (int r = threadIdx.x; r < BM; r += THREADS) {
       const int R = R0 + r;
       float l2 = INFINITY, d = 0.f;
@@ -405,11 +428,12 @@ __global__ void __launch_bounds__(THREADS, 2) dkdv_bf16_kernel(const Args a) {
     }
   };
   if (t0 < t1) {
-    auto koff = [&](int r) { return k_row(a, b, kvh, n0 + r); };
+    auto koff = [&](int r) { return k_row(a, b, kvh, n0 + r, a.hd); };
+    auto voff = [&](int r) { return k_row(a, b, kvh, n0 + r, a.hdv); };
     auto kok = [&](int r) { return n0 + r < a.Sk; };
-    load_tile<HDP>(sK, static_cast<const __nv_bfloat16*>(a.k), a.hd, koff,
+    load_tile<HDK>(sK, static_cast<const __nv_bfloat16*>(a.k), a.hd, koff,
                    kok);
-    load_tile<HDP>(sV, static_cast<const __nv_bfloat16*>(a.v), a.hd, koff,
+    load_tile<HDV>(sV, static_cast<const __nv_bfloat16*>(a.v), a.hdv, voff,
                    kok);
     stage(t0, 0);
     cp_async_commit();
@@ -421,8 +445,8 @@ __global__ void __launch_bounds__(THREADS, 2) dkdv_bf16_kernel(const Args a) {
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const __nv_bfloat16* tq = sQ + 2 * st * TILE;
-    const __nv_bfloat16* tg = tq + TILE;
+    const __nv_bfloat16* tq = sQ + st * (TILEK + TILEV);
+    const __nv_bfloat16* tg = tq + TILEK;
     const float* l2 = sL + st * BM;
     const float* dd = sD + st * BM;
     const int R0 = t * BM;
@@ -433,7 +457,7 @@ __global__ void __launch_bounds__(THREADS, 2) dkdv_bf16_kernel(const Args a) {
 
     // P^T (16 keys x 64 rows) = exp2(K Q^T scale_log2 - lse2), masked
     float p[8][4];
-    mma_abt<HDP>(p, sK, tq, warp * 16, lane);
+    mma_abt<HDK>(p, sK, tq, warp * 16, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -447,36 +471,42 @@ __global__ void __launch_bounds__(THREADS, 2) dkdv_bf16_kernel(const Args a) {
       }
     }
     // dV += P^T dO
-    mma_xt<HDP>(dv, p, tg, lane);
+    mma_xt<HDV>(dv, p, tg, lane);
     // dS^T = P^T (V dO^T - D) scale;  dK += dS^T Q
     float ds[8][4];
-    mma_abt<HDP>(ds, sV, tg, warp * 16, lane);
+    mma_abt<HDV>(ds, sV, tg, warp * 16, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         ds[j][e] = p[j][e] * (ds[j][e] - dd[j * 8 + cq + (e & 1)]) * a.scale;
-    mma_xt<HDP>(dk, ds, tq, lane);
+    mma_xt<HDK>(dk, ds, tq, lane);
     __syncthreads();   // before the next iteration refills this stage
   }
 
-  auto off = [&](int r) { return k_row(a, b, kvh, n0 + warp * 16 + r); };
+  auto koff = [&](int r) {
+    return k_row(a, b, kvh, n0 + warp * 16 + r, a.hd);
+  };
+  auto voff = [&](int r) {
+    return k_row(a, b, kvh, n0 + warp * 16 + r, a.hdv);
+  };
   auto ok = [&](int r) { return n0 + warp * 16 + r < a.Sk; };
-  store_rows<HDP>(static_cast<__nv_bfloat16*>(a.dk), dk, a.hd, lane, off,
+  store_rows<HDK>(static_cast<__nv_bfloat16*>(a.dk), dk, a.hd, lane, koff,
                   ok);
-  store_rows<HDP>(static_cast<__nv_bfloat16*>(a.dv), dv, a.hd, lane, off,
+  store_rows<HDV>(static_cast<__nv_bfloat16*>(a.dv), dv, a.hdv, lane, voff,
                   ok);
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(THREADS, 2) dq_bf16_kernel(const Args a) {
-  constexpr int LD = HDP + 8;
-  constexpr int TILE = 64 * LD;
-  constexpr int DT = HDP / 8;
+template <int HDK, int HDV, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB) dq_bf16_kernel(const Args a) {
+  constexpr int TILEK = 64 * (HDK + 8);
+  constexpr int TILEV = 64 * (HDV + 8);
+  constexpr int DT = HDK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sG = sQ + TILE;
-  __nv_bfloat16* sKV = sG + TILE;     // stage s: K at 2 s TILE, V after
+  __nv_bfloat16* sG = sQ + TILEK;
+  // stage s: K at s (TILEK + TILEV), V after it
+  __nv_bfloat16* sKV = sG + TILEV;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int G = a.H / a.KVH;
@@ -509,17 +539,21 @@ __global__ void __launch_bounds__(THREADS, 2) dq_bf16_kernel(const Args a) {
   int t0, t1;
   key_tiles(a, G, R0, BM, BN, &t0, &t1);
   auto stage = [&](int t, int st) {
-    auto off = [&](int r) { return k_row(a, b, kvh, t * BN + r); };
+    auto koff = [&](int r) { return k_row(a, b, kvh, t * BN + r, a.hd); };
+    auto voff = [&](int r) { return k_row(a, b, kvh, t * BN + r, a.hdv); };
     auto ok = [&](int r) { return t * BN + r < a.Sk; };
-    load_tile<HDP>(sKV + 2 * st * TILE, kb, a.hd, off, ok);
-    load_tile<HDP>(sKV + (2 * st + 1) * TILE, vb, a.hd, off, ok);
+    __nv_bfloat16* tk = sKV + st * (TILEK + TILEV);
+    load_tile<HDK>(tk, kb, a.hd, koff, ok);
+    load_tile<HDV>(tk + TILEK, vb, a.hdv, voff, ok);
   };
   if (t0 < t1) {
-    auto off = [&](int r) { return q_row(a, b, kvh, G, R0 + r); };
+    auto qoff = [&](int r) { return q_row(a, b, kvh, G, R0 + r, a.hd); };
+    auto goff = [&](int r) { return q_row(a, b, kvh, G, R0 + r, a.hdv); };
     auto ok = [&](int r) { return R0 + r < rows; };
-    load_tile<HDP>(sQ, static_cast<const __nv_bfloat16*>(a.q), a.hd, off, ok);
-    load_tile<HDP>(sG, static_cast<const __nv_bfloat16*>(a.dout), a.hd, off,
+    load_tile<HDK>(sQ, static_cast<const __nv_bfloat16*>(a.q), a.hd, qoff,
                    ok);
+    load_tile<HDV>(sG, static_cast<const __nv_bfloat16*>(a.dout), a.hdv,
+                   goff, ok);
     stage(t0, 0);
     cp_async_commit();
   }
@@ -531,15 +565,15 @@ __global__ void __launch_bounds__(THREADS, 2) dq_bf16_kernel(const Args a) {
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const __nv_bfloat16* tk = sKV + 2 * st * TILE;
-    const __nv_bfloat16* tv = tk + TILE;
+    const __nv_bfloat16* tk = sKV + st * (TILEK + TILEV);
+    const __nv_bfloat16* tv = tk + TILEK;
     const int n0 = t * BN, n1 = n0 + BN - 1;
     const bool whole = n1 < a.Sk && visible(a, n1, bpos_lo) &&
                        visible(a, n0, bpos_hi);
 
     // P (16 rows x 64 keys) = exp2(Q K^T scale_log2 - lse2), masked
     float p[8][4];
-    mma_abt<HDP>(p, sQ, tk, warp * 16, lane);
+    mma_abt<HDK>(p, sQ, tk, warp * 16, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -554,21 +588,21 @@ __global__ void __launch_bounds__(THREADS, 2) dq_bf16_kernel(const Args a) {
     }
     // dS = P (dO V^T - D) scale;  dQ += dS K
     float ds[8][4];
-    mma_abt<HDP>(ds, sG, tv, warp * 16, lane);
+    mma_abt<HDV>(ds, sG, tv, warp * 16, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         ds[j][e] = p[j][e] * (ds[j][e] - (e >= 2 ? d_hi : d_lo)) * a.scale;
-    mma_xt<HDP>(dq, ds, tk, lane);
+    mma_xt<HDK>(dq, ds, tk, lane);
     __syncthreads();   // before the next iteration refills this stage
   }
 
   auto off = [&](int r) {
-    return q_row(a, b, kvh, G, R0 + warp * 16 + r);
+    return q_row(a, b, kvh, G, R0 + warp * 16 + r, a.hd);
   };
   auto ok = [&](int r) { return R0 + warp * 16 + r < rows; };
-  store_rows<HDP>(static_cast<__nv_bfloat16*>(a.dq), dq, a.hd, lane, off, ok);
+  store_rows<HDK>(static_cast<__nv_bfloat16*>(a.dq), dq, a.hd, lane, off, ok);
 }
 
 // ---------------------------------------------------------------------
@@ -578,27 +612,34 @@ __global__ void __launch_bounds__(THREADS, 2) dq_bf16_kernel(const Args a) {
 // 4 threads a key, 64 keys a block; rows of q and dout staged 32 at a time
 __global__ void __launch_bounds__(T32) dkdv_f32_kernel(const Args a) {
   __shared__ float sq[BQ32][HD_MAX];
-  __shared__ float sg[BQ32][HD_MAX];
+  __shared__ float sg[BQ32][HDV_MAX];
   __shared__ float sl[BQ32], sd[BQ32];
-  constexpr int DQ = HD_MAX / 4;
+  constexpr int DQ = HD_MAX / 4;     // most q/k dims a thread owns
+  constexpr int DV = HDV_MAX / 4;    // most v dims a thread owns
   const int G = a.H / a.KVH;
   const int b = blockIdx.y / a.KVH, kvh = blockIdx.y % a.KVH;
   const int rows = a.Sq * G;
   const int n0 = blockIdx.x * BN;
   const int n = n0 + threadIdx.x / 4;      // this thread's key
   const int t4 = threadIdx.x % 4;          // it owns dims t4 + 4 i
-  const int nd = a.hd / 4;
+  const int nd = a.hd / 4, ndv = a.hdv / 4;
   const float* q = static_cast<const float*>(a.q);
   const float* g = static_cast<const float*>(a.dout);
 
-  float kr[DQ], vr[DQ], dk[DQ], dv[DQ];
-  const int64_t koff = k_row(a, b, kvh, min(n, a.Sk - 1));
+  float kr[DQ], vr[DV], dk[DQ], dv[DV];
+  const int64_t koff = k_row(a, b, kvh, min(n, a.Sk - 1), a.hd);
+  const int64_t voff = k_row(a, b, kvh, min(n, a.Sk - 1), a.hdv);
 #pragma unroll
   for (int i = 0; i < DQ; ++i) {
     const bool ok = i < nd && n < a.Sk;
     kr[i] = ok ? static_cast<const float*>(a.k)[koff + t4 + 4 * i] : 0.f;
-    vr[i] = ok ? static_cast<const float*>(a.v)[koff + t4 + 4 * i] : 0.f;
-    dk[i] = dv[i] = 0.f;
+    dk[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DV; ++i) {
+    const bool ok = i < ndv && n < a.Sk;
+    vr[i] = ok ? static_cast<const float*>(a.v)[voff + t4 + 4 * i] : 0.f;
+    dv[i] = 0.f;
   }
 
   int t0, t1;
@@ -608,9 +649,12 @@ __global__ void __launch_bounds__(T32) dkdv_f32_kernel(const Args a) {
     for (int i = threadIdx.x; i < BQ32 * a.hd; i += T32) {
       const int r = i / a.hd, d = i % a.hd, R = R0 + r;
       const bool ok = R < rows;
-      const int64_t o = ok ? q_row(a, b, kvh, G, R) + d : 0;
-      sq[r][d] = ok ? q[o] : 0.f;
-      sg[r][d] = ok ? g[o] : 0.f;
+      sq[r][d] = ok ? q[q_row(a, b, kvh, G, R, a.hd) + d] : 0.f;
+    }
+    for (int i = threadIdx.x; i < BQ32 * a.hdv; i += T32) {
+      const int r = i / a.hdv, d = i % a.hdv, R = R0 + r;
+      const bool ok = R < rows;
+      sg[r][d] = ok ? g[q_row(a, b, kvh, G, R, a.hdv) + d] : 0.f;
     }
     for (int r = threadIdx.x; r < BQ32; r += T32) {
       const int R = R0 + r;
@@ -624,10 +668,10 @@ __global__ void __launch_bounds__(T32) dkdv_f32_kernel(const Args a) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < DQ; ++i)
-        if (i < nd) {
-          s = fmaf(kr[i], sq[r][t4 + 4 * i], s);
-          dp = fmaf(vr[i], sg[r][t4 + 4 * i], dp);
-        }
+        if (i < nd) s = fmaf(kr[i], sq[r][t4 + 4 * i], s);
+#pragma unroll
+      for (int i = 0; i < DV; ++i)
+        if (i < ndv) dp = fmaf(vr[i], sg[r][t4 + 4 * i], dp);
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
@@ -638,50 +682,56 @@ __global__ void __launch_bounds__(T32) dkdv_f32_kernel(const Args a) {
                           : 0.f;
       const float ds = p * (dp - sd[r]) * a.scale;
 #pragma unroll
+      for (int i = 0; i < DV; ++i)
+        if (i < ndv) dv[i] = fmaf(p, sg[r][t4 + 4 * i], dv[i]);
+#pragma unroll
       for (int i = 0; i < DQ; ++i)
-        if (i < nd) {
-          dv[i] = fmaf(p, sg[r][t4 + 4 * i], dv[i]);
-          dk[i] = fmaf(ds, sq[r][t4 + 4 * i], dk[i]);
-        }
+        if (i < nd) dk[i] = fmaf(ds, sq[r][t4 + 4 * i], dk[i]);
     }
     __syncthreads();
   }
   if (n < a.Sk) {
     float* dkp = static_cast<float*>(a.dk) + koff;
-    float* dvp = static_cast<float*>(a.dv) + koff;
+    float* dvp = static_cast<float*>(a.dv) + voff;
 #pragma unroll
     for (int i = 0; i < DQ; ++i)
-      if (i < nd) {
-        dkp[t4 + 4 * i] = dk[i];
-        dvp[t4 + 4 * i] = dv[i];
-      }
+      if (i < nd) dkp[t4 + 4 * i] = dk[i];
+#pragma unroll
+    for (int i = 0; i < DV; ++i)
+      if (i < ndv) dvp[t4 + 4 * i] = dv[i];
   }
 }
 
 // 4 threads a folded row, 64 rows a block; keys staged 32 at a time
 __global__ void __launch_bounds__(T32) dq_f32_kernel(const Args a) {
   __shared__ float sk[BQ32][HD_MAX];
-  __shared__ float sv[BQ32][HD_MAX];
+  __shared__ float sv[BQ32][HDV_MAX];
   constexpr int DQ = HD_MAX / 4;
+  constexpr int DV = HDV_MAX / 4;
   const int G = a.H / a.KVH;
   const int b = blockIdx.y / a.KVH, kvh = blockIdx.y % a.KVH;
   const int rows = a.Sq * G;
   const int R0 = blockIdx.x * BM;
   const int R = R0 + threadIdx.x / 4;
   const int t4 = threadIdx.x % 4;
-  const int nd = a.hd / 4;
+  const int nd = a.hd / 4, ndv = a.hdv / 4;
   const int qpos = a.q_offset + R / G;
   const float* kb = static_cast<const float*>(a.k);
   const float* vb = static_cast<const float*>(a.v);
 
-  float qr[DQ], gr[DQ], dq[DQ];
-  const int64_t qoff = q_row(a, b, kvh, G, min(R, rows - 1));
+  float qr[DQ], gr[DV], dq[DQ];
+  const int64_t qoff = q_row(a, b, kvh, G, min(R, rows - 1), a.hd);
+  const int64_t goff = q_row(a, b, kvh, G, min(R, rows - 1), a.hdv);
 #pragma unroll
   for (int i = 0; i < DQ; ++i) {
     const bool ok = i < nd && R < rows;
     qr[i] = ok ? static_cast<const float*>(a.q)[qoff + t4 + 4 * i] : 0.f;
-    gr[i] = ok ? static_cast<const float*>(a.dout)[qoff + t4 + 4 * i] : 0.f;
     dq[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DV; ++i) {
+    const bool ok = i < ndv && R < rows;
+    gr[i] = ok ? static_cast<const float*>(a.dout)[goff + t4 + 4 * i] : 0.f;
   }
   float l2 = INFINITY, dd = 0.f;
   if (R < rows) {
@@ -695,20 +745,21 @@ __global__ void __launch_bounds__(T32) dq_f32_kernel(const Args a) {
   for (int t = t0; t < t1; ++t) {
     for (int i = threadIdx.x; i < BQ32 * a.hd; i += T32) {
       const int r = i / a.hd, d = i % a.hd, n = t * BQ32 + r;
-      const bool ok = n < a.Sk;
-      const int64_t o = ok ? k_row(a, b, kvh, n) + d : 0;
-      sk[r][d] = ok ? kb[o] : 0.f;
-      sv[r][d] = ok ? vb[o] : 0.f;
+      sk[r][d] = n < a.Sk ? kb[k_row(a, b, kvh, n, a.hd) + d] : 0.f;
+    }
+    for (int i = threadIdx.x; i < BQ32 * a.hdv; i += T32) {
+      const int r = i / a.hdv, d = i % a.hdv, n = t * BQ32 + r;
+      sv[r][d] = n < a.Sk ? vb[k_row(a, b, kvh, n, a.hdv) + d] : 0.f;
     }
     __syncthreads();
     for (int j = 0; j < BQ32; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < DQ; ++i)
-        if (i < nd) {
-          s = fmaf(qr[i], sk[j][t4 + 4 * i], s);
-          dp = fmaf(gr[i], sv[j][t4 + 4 * i], dp);
-        }
+        if (i < nd) s = fmaf(qr[i], sk[j][t4 + 4 * i], s);
+#pragma unroll
+      for (int i = 0; i < DV; ++i)
+        if (i < ndv) dp = fmaf(gr[i], sv[j][t4 + 4 * i], dp);
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
@@ -731,42 +782,46 @@ __global__ void __launch_bounds__(T32) dq_f32_kernel(const Args a) {
   }
 }
 
-template <int HDP>
+// HDK, HDV: the padded widths of q/k and of v; MINB blocks share an SM
+template <int HDK, int HDV, int MINB>
 cudaError_t launch_bf16(const Args& a, dim3 gk, dim3 gq, cudaStream_t st) {
-  constexpr int TILE_BYTES = 64 * (HDP + 8) * 2;
-  constexpr int kv_bytes = 6 * TILE_BYTES + 4 * BM * 4;   // + lse, D x 2
-  constexpr int q_bytes = 6 * TILE_BYTES;
+  constexpr int pair_bytes = 64 * (HDK + 8 + HDV + 8) * 2;   // q|k + v|dout
+  constexpr int kv_bytes = 3 * pair_bytes + 4 * BM * 4;       // + lse, D x 2
+  constexpr int q_bytes = 3 * pair_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_bf16_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kv_bytes);
+      dkdv_bf16_kernel<HDK, HDV, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_bf16_kernel<HDP>,
+  err = cudaFuncSetAttribute(dq_bf16_kernel<HDK, HDV, MINB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              q_bytes);
   if (err != cudaSuccess) return err;
-  if (gk.x > 0) dkdv_bf16_kernel<HDP><<<gk, THREADS, kv_bytes, st>>>(a);
+  if (gk.x > 0)
+    dkdv_bf16_kernel<HDK, HDV, MINB><<<gk, THREADS, kv_bytes, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (gq.x > 0) dq_bf16_kernel<HDP><<<gq, THREADS, q_bytes, st>>>(a);
+  if (gq.x > 0) dq_bf16_kernel<HDK, HDV, MINB><<<gq, THREADS, q_bytes, st>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out, dout, dq (B, Sq, H, hd); k, v, dk, dv (B, Sk, KVH, hd); lse and
-// delta (B, H, Sq) fp32, delta a scratch buffer this call writes; all
-// contiguous device pointers.  is_bf16 picks the tensor-core kernels,
-// else fp32.  The caller has checked shapes, hd % 8 == 0, hd <= 128, the
-// 16-byte alignment of bf16 pointers, B * KVH <= 65535, and
-// 0 <= q_offset, 0 <= window.
+// q, dq (B, Sq, H, hd); out, dout (B, Sq, H, hdv); k, dk (B, Sk, KVH,
+// hd); v, dv (B, Sk, KVH, hdv); lse and delta (B, H, Sq) fp32, delta a
+// scratch buffer this call writes; all contiguous device pointers.
+// is_bf16 picks the tensor-core kernels, else fp32.  A width above 192
+// (q, k) or 128 (v) is refused.  The caller has checked shapes, hd % 8
+// == hdv % 8 == 0, the 16-byte alignment of bf16 pointers, B * KVH <=
+// 65535, and 0 <= q_offset, 0 <= window.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* out, const void* dout, const void* lse,
                          void* delta, void* dq, void* dk, void* dv,
                          int64_t B, int64_t Sq, int64_t Sk, int64_t H,
-                         int64_t KVH, int64_t hd, int64_t causal,
-                         int64_t window, int64_t q_offset, int64_t is_bf16,
-                         void* stream) {
+                         int64_t KVH, int64_t hd, int64_t hdv,
+                         int64_t causal, int64_t window, int64_t q_offset,
+                         int64_t is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd > HD_MAX || hdv > HDV_MAX) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
   Args a;
   a.q = q;
@@ -785,6 +840,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   a.H = (int)H;
   a.KVH = (int)KVH;
   a.hd = (int)hd;
+  a.hdv = (int)hdv;
   a.causal = (int)causal;
   a.window = (int)window;
   a.q_offset = (int)q_offset;
@@ -814,7 +870,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
     if (gq.x > 0) dq_f32_kernel<<<gq, T32, 0, st>>>(a);
     return (int)cudaGetLastError();
   }
-  if (hd <= 32) return (int)launch_bf16<32>(a, gk, gq, st);
-  if (hd <= 64) return (int)launch_bf16<64>(a, gk, gq, st);
-  return (int)launch_bf16<128>(a, gk, gq, st);
+  if (hd <= 32 && hdv <= 32) return (int)launch_bf16<32, 32, 2>(a, gk, gq, st);
+  if (hd <= 64 && hdv <= 64) return (int)launch_bf16<64, 64, 2>(a, gk, gq, st);
+  if (hd <= 128 && hdv <= 128)
+    return (int)launch_bf16<128, 128, 2>(a, gk, gq, st);
+  return (int)launch_bf16<HD_MAX, HDV_MAX, 1>(a, gk, gq, st);
 }

@@ -1,13 +1,16 @@
-// Flash-attention backward, GQA, bf16, head width 64 or 128, for Hopper
-// (sm_90a): wgmma, TMA and warp specialisation.
+// Flash-attention backward, GQA, bf16, for Hopper (sm_90a): wgmma, TMA
+// and warp specialisation.  A template on the widths of q/k (HDK) and of
+// v (HDV), instantiated at 64/64 and 128/128 (the head widths of every
+// GQA config) and 192/128 (MLA's prefill: q/k nope + rope against
+// v_head_dim, DeepSeek-V2-Lite's 128 + 64 and 128).
 //
 // The function of flash_bwd.cu (and of ref.attention_bwd_ref): from q
-// (B, Sq, H, hd), k and v (B, Sk, KVH, hd), the forward's output out
-// (B, Sq, H, hd), its row log-sum-exp lse (B, H, Sq; natural log, +inf
-// for a row that sees no key) and dout = dL/dout, for every batch b and
-// head h (kv head h / G):
+// (B, Sq, H, hd), k (B, Sk, KVH, hd), v (B, Sk, KVH, hdv), the forward's
+// output out (B, Sq, H, hdv), its row log-sum-exp lse (B, H, Sq; natural
+// log, +inf for a row that sees no key) and dout = dL/dout, for every
+// batch b and head h (kv head h / G):
 //   P[s, n]  = exp(q_s . k_n / sqrt(hd) - lse_s)   (0 where masked)
-//   D[s]     = sum_d dout[s, d] out[s, d]          (fp32)
+//   D[s]     = sum_d dout[s, d] out[s, d]          (fp32, over hdv)
 //   dS[s, n] = P[s, n] (dout_s . v_n - D[s]) / sqrt(hd)
 //   dq_s = sum_n dS[s, n] k_n
 //   dk_n = sum over the G heads and s of dS[s, n] q_s
@@ -19,32 +22,36 @@
 //
 // Replaces no Pallas kernel: the reference has no Pallas backward.  It
 // is the counterpart of the jnp custom_vjp
-// src/repro/models/layers.py::_flash_vjp_bwd (line 245), for bf16 at hd
-// 64 and 128, the head widths of every published config; fp32 and the
-// other bf16 widths stay on flash_bwd.cu.
+// src/repro/models/layers.py::_flash_vjp_bwd (line 245), which takes a
+// v narrower than q and k as it comes, for bf16 at the three pairs
+// above; fp32 and the other bf16 widths stay on flash_bwd.cu.
 //
 // What bounds it on an H100: the tensor cores.  Each (query, visible
-// key) pair and head needs five products of 2 hd operations (S, dP, dV,
-// dK, dQ) against nine arrays of B S H hd read or written once: about
-// 2,000 operations a byte at the training path's shape, far above the
-// card's ridge of about 295 in bf16.  Beside the products, every score
-// costs an exponential on the special-function unit in each of the two
-// kernels below and a handful of FMAs.  So the design keeps the tensor
-// cores fed from shared memory written by TMA and runs the
-// exponentials of one warpgroup under the other's products:
+// key) pair and head needs five products (S, dP, dV, dK, dQ): S, dK and
+// dQ of 2 hd operations, dP and dV of 2 hdv, against nine arrays of
+// B S H hd or hdv read or written once: about 2,000 operations a byte
+// at the training path's shape, far above the card's ridge of about 295
+// in bf16.  Beside the products, every score costs an exponential on
+// the special-function unit in each of the two kernels below and a
+// handful of FMAs.  So the design keeps the tensor cores fed from
+// shared memory written by TMA and runs the exponentials of one
+// warpgroup under the other's products:
 //
 // * Determinism.  No floating-point atomics: dq, dk and dv are each
 //   summed by one thread in one fixed order, so two calls give the same
 //   bits.  The price is that S and dP are computed in both kernels:
 //   seven products where five would do, a floor of 7/5 of the bound.
 // * wgmma.  Every product is wgmma.mma_async.  S and dP are SS products
-//   (both operands in shared memory, K-major); P and dS are formed in
+//   (both operands in shared memory, K-major, 12 k16 steps over three
+//   swizzled 64-wide chunks at hd 192); P and dS are formed in
 //   registers from the fp32 accumulator fragment, which rounded to bf16
 //   is the A fragment of the next product as it stands; dV, dK and dQ
 //   are RS products whose B operand (dout, q, k) is MN-major (the
-//   transpose bit; at hd 128 its two 64-wide chunks lie one leading-byte
-//   offset apart).  One warpgroup issues a 64-row product from one copy
-//   of its operands, where mma.sync had every warp ldmatrix them again.
+//   transpose bit; its 64-wide chunks lie one leading-byte offset apart,
+//   and at 192 an n128 product over the first two chunks and an n64
+//   over the third make the m64n192 accumulator).  One warpgroup issues
+//   a 64-row product from one copy of its operands, where mma.sync had
+//   every warp ldmatrix them again.
 // * Warp specialisation.  A block is 384 threads: a producer warpgroup,
 //   which gives up registers (setmaxnreg.dec 24) and whose one thread
 //   keeps TMA loads in flight, and two consumer warpgroups
@@ -65,16 +72,25 @@
 // * Registers.  ptxas gives the consumers the 240 of setmaxnreg, but
 //   when the values live across a wgmma's flight do not fit, it
 //   serialises every wgmma (C7512) or spills.  A dK/dV warpgroup holds
-//   dK and dV (64 + 64 fp32 a thread at hd 128); S^T and dP^T of a
-//   64-position tile take 64 more and their bf16 copies 32.  Draining
-//   the dV/dK products before S^T and dP^T are issued, and issuing the
-//   first product of each chain as an overwrite ("=f", so the old S^T
-//   is dead), keeps the copies and the new S^T apart: 64-position
-//   tiles at hd 128 and 128-position tiles at hd 64 fit, where
-//   issuing both in one flight fitted 32 and 64 positions and ran
-//   slower (measured: 2.42 against 1.86 ms, 0.75 against 0.64 ms).
-//   Every descriptor is computed where its wgmma is issued (pin()),
-//   not hoisted out of the walk.
+//   dK and dV (HDK / 2 + HDV / 2 fp32 a thread: 64 + 64 at 128/128);
+//   S^T and dP^T of a BR-position tile take BR more and their bf16
+//   copies BR / 2.  Draining the dV/dK products before S^T and dP^T are
+//   issued, and issuing the first product of each chain as an overwrite
+//   ("=f", so the old S^T is dead), keeps the copies and the new S^T
+//   apart: 64-position tiles at 128/128 and 128-position tiles at 64/64
+//   fit, where issuing both in one flight fitted 32 and 64 positions
+//   and ran slower (measured: 2.42 against 1.86 ms, 0.75 against 0.64
+//   ms).  At 192/128 dK alone takes 96, so 64-position tiles would need
+//   96 + 64 + 64 + 32 = 256: the tiles there are 32 positions (S^T and
+//   dP^T m64n32k16), 96 + 64 + 32 + 16 = 208.  The dQ warpgroup fits at
+//   every pair with 64-key tiles at hd 128 and 192: 96 (dQ) + 32 + 32 +
+//   16 = 176 at 192.  Every descriptor is computed where its wgmma is
+//   issued (pin()), not hoisted out of the walk.
+// * Shared memory (KvLayout, QLayout; a static_assert holds each to the
+//   232,448 bytes a block may use): at 192/128 the dK/dV block's K and
+//   V (81,920 bytes) and three stages of a 32-position q and dout tile
+//   (61,440), the dQ block's q and dout (81,920) and three stages of a
+//   64-key K and V tile (122,880).
 //
 // Three launches:
 // 1. stats_kernel: D = rowsum(dout . out) and lse log2(e) for every
@@ -84,18 +100,18 @@
 // 2. dkdv_kernel: a block owns 128 keys of one (b, kv head), each
 //    consumer warpgroup 64 of them as the wgmma M dimension.  K and V
 //    are loaded once by TMA (the forward's 4-d map over (B, Sk, KVH,
-//    hd), 128-byte swizzle).  The producer streams, for each of the G
-//    heads of the group in turn, the tiles of q and dout (128 positions
-//    at hd 64, 64 at hd 128) that see the block's keys, with their
-//    statistics.  Each warpgroup computes S^T = K Q^T and dP^T = V dO^T
-//    (m64n128k16 or m64n64k16), then dV += P^T dO and dK += dS^T Q
-//    (m64n{hd}k16) into fp32 registers, written once at the end.
-//    Blocks run by (b, kv head), earliest keys first: those see the
-//    most rows.
+//    width), 128-byte swizzle).  The producer streams, for each of the G
+//    heads of the group in turn, the tiles of q and dout (BR positions:
+//    128 at 64/64, 64 at 128/128, 32 at 192/128) that see the block's
+//    keys, with their statistics.  Each warpgroup computes S^T = K Q^T
+//    and dP^T = V dO^T (m64n{BR}k16), then dV += P^T dO (m64n{HDV}k16)
+//    and dK += dS^T Q (m64n{HDK}k16) into fp32 registers, written once
+//    at the end.  Blocks run by (b, kv head), earliest keys first: those
+//    see the most rows.
 // 3. dq_kernel: a block owns 128 positions of one (b, head), each
 //    consumer warpgroup 64 as M; Q and dout are loaded once by TMA, K
-//    and V tiles (128 keys at hd 64, 64 at hd 128, which keeps S, dP
-//    and dQ within the registers) stream through the ring.  Products
+//    and V tiles (128 keys at hd 64, 64 at 128 and 192, which keeps S,
+//    dP and dQ within the registers) stream through the ring.  Products
 //    S = Q K^T and dP = dO V^T (SS), then dQ += dS K (RS, K as the
 //    MN-major B).  Rows are per head, not folded: a K/V tile is read
 //    once for each of the G heads, from L2, since the blocks of one
@@ -116,13 +132,14 @@
 // (the train step's profile).  At Qwen3-4B's prefill shape (B 4, S
 // 4,096, 32/8 heads of 128) 3.34 to 3.37 ms, 0.41 of the bound, a
 // third of the first design's, and 1.016 and 1.006 of SDPA's backward
-// in the same two runs.  The five-product design (dQ folded into the
-// dK/dV kernel, its partials summed in key order) is not built; it is
-// the next step (PERF.md section 7).
+// in the same two runs.  At 192/128 (B 4, S 4,096, 16 heads, causal):
+// not measured yet (PERF.md section 6, row 5b).  The five-product
+// design (dQ folded into the dK/dV kernel, its partials summed in key
+// order) is not built; it is the next step (PERF.md section 7).
 
-// Layout: q, out, dout, dq (B, Sq, H, hd); k, v, dk, dv (B, Sk, KVH,
-// hd); all contiguous bf16 (rows 16-byte aligned, as TMA needs); lse
-// (B, H, Sq) fp32.
+// Layout: q, dq (B, Sq, H, hd); out, dout (B, Sq, H, hdv); k, dk (B, Sk,
+// KVH, hd); v, dv (B, Sk, KVH, hdv); all contiguous bf16 (rows 16-byte
+// aligned, as TMA needs); lse (B, H, Sq) fp32.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -154,27 +171,43 @@ struct Args {
   float scale_log2;             // log2(e) / sqrt(hd)
 };
 
-template <int HD>
+constexpr int SMEM_MAX = 232448;   // shared memory a block may use
+
+// dkdv_kernel's shared memory at q/k width HDK and v width HDV: the
+// block's K and V, then STAGES stages of a q tile and a dout tile of BR
+// positions, their statistics, the barriers.  Every tile starts on a
+// 1,024-byte boundary (the swizzle's atom), its 64-wide column chunks
+// BR lines apart.
+template <int HDK, int HDV>
 struct KvLayout {
-  static constexpr int CHUNKS = HD / 64;              // 64-wide column chunks
-  static constexpr int BR = HD == 64 ? 128 : 64;      // positions a tile
-  static constexpr int KT = BK * HD * 2;              // K or V of the block
-  static constexpr int QT = BR * HD * 2;              // one q or dout tile
-  static constexpr int RING = 2 * KT;
-  static constexpr int STATS = RING + STAGES * 2 * QT;
+  // positions a tile: what the dK/dV registers leave room for (header)
+  static constexpr int BR = HDK == 64 ? 128 : HDK == 128 ? 64 : 32;
+  static constexpr int KT = BK * HDK * 2;             // K of the block
+  static constexpr int VT = BK * HDV * 2;             // V of the block
+  static constexpr int QT = BR * HDK * 2;             // one q tile
+  static constexpr int GT = BR * HDV * 2;             // one dout tile
+  static constexpr int STAGE = QT + GT;
+  static constexpr int RING = KT + VT;
+  static constexpr int STATS = RING + STAGES * STAGE;
   static constexpr int BAR = STATS + STAGES * 2 * BR * 4;
   static constexpr int SMEM = BAR + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(SMEM <= SMEM_MAX, "dkdv_kernel's shared memory");
 };
 
-template <int HD>
+// dq_kernel's: the block's q and dout (a warpgroup's 64 rows each), then
+// STAGES stages of a K tile and a V tile of BN keys, the barriers
+template <int HDK, int HDV>
 struct QLayout {
-  static constexpr int CHUNKS = HD / 64;
-  static constexpr int BN = HD == 64 ? 128 : 64;      // keys a tile
-  static constexpr int QW = WG_ROWS * HD * 2;         // a warpgroup's q
-  static constexpr int KT = BN * HD * 2;              // one K or V tile
-  static constexpr int RING = 4 * QW;                 // q0 q1 dout0 dout1
-  static constexpr int BAR = RING + STAGES * 2 * KT;
+  static constexpr int BN = HDK == 64 ? 128 : 64;     // keys a tile
+  static constexpr int QW = WG_ROWS * HDK * 2;        // a warpgroup's q
+  static constexpr int GW = WG_ROWS * HDV * 2;        // a warpgroup's dout
+  static constexpr int KT = BN * HDK * 2;             // one K tile
+  static constexpr int VT = BN * HDV * 2;             // one V tile
+  static constexpr int STAGE = KT + VT;
+  static constexpr int RING = 2 * QW + 2 * GW;        // q0 q1 dout0 dout1
+  static constexpr int BAR = RING + STAGES * STAGE;
   static constexpr int SMEM = BAR + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(SMEM <= SMEM_MAX, "dq_kernel's shared memory");
 };
 
 __device__ __forceinline__ bool visible(const Args& a, int n, int qpos) {
@@ -298,8 +331,8 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 
 // x, as a value the compiler cannot see through: a descriptor computed
 // from it is computed where it is used, not hoisted out of the tile loop
-// with all the others (the K and V tiles' 2 HD / 16 descriptors of 64
-// bits each would hold 32 registers for the whole walk)
+// with all the others (the K and V tiles' (HDK + HDV) / 16 descriptors
+// of 64 bits each would hold 32 registers at 128/128 for the whole walk)
 __device__ __forceinline__ uint32_t pin(uint32_t x) {
   uint32_t y;
   asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
@@ -466,6 +499,41 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 32 fp32) (+)= A (64 x 16, smem, K-major) B^T (32 x 16, smem,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32 fp32) = A (64 x 16, smem, K-major) B^T (32 x 16, smem,
+// K-major): the first product of a chain, which overwrites d, so that d's
+// old values are dead before it
+__device__ __forceinline__ void wgmma_ss_n32_first(float* d, uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15])
+      : "l"(da), "l"(db));
+}
+
 // d (64 x 64 fp32) = A (64 x 16, smem, K-major) B^T (64 x 16, smem,
 // K-major): the first product of a chain, which overwrites d, so that d's
 // old values are dead before it
@@ -526,30 +594,44 @@ __device__ __forceinline__ void wgmma_ss_n128_first(float* d, uint64_t da,
 template <int N>
 __device__ __forceinline__ void wgmma_ss_first(float* d, uint64_t da,
                                                uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss_first's N");
   if constexpr (N == 128)
     wgmma_ss_n128_first(d, da, db);
-  else
+  else if constexpr (N == 64)
     wgmma_ss_n64_first(d, da, db);
+  else
+    wgmma_ss_n32_first(d, da, db);
 }
 
 // d (64 x N) (+)= A B^T, both K-major in shared memory
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss's N");
   if constexpr (N == 128)
     wgmma_ss_n128(d, da, db, scale_d);
-  else
+  else if constexpr (N == 64)
     wgmma_ss_n64(d, da, db, scale_d);
+  else
+    wgmma_ss_n32(d, da, db, scale_d);
 }
 
-// d (64 x N) += A (registers) B (MN-major in shared memory)
+// d (64 x N) += A (registers) B, B the 16 rows of step kk of an
+// MN-major tile whose 64-wide N chunks lie `rows` lines apart
+// (desc_mn).  N = 192 is an n128 product over chunks 0 and 1 and an n64
+// over chunk 2: the accumulator fragment of m64n192 is theirs side by
+// side (8-column groups in order, four floats each).
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (N == 128)
-    wgmma_rs_n128(d, a, db);
-  else
-    wgmma_rs_n64(d, a, db);
+                                         uint32_t tile, int rows, int kk) {
+  static_assert(N == 64 || N == 128 || N == 192, "wgmma_rs's N");
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, desc_mn(tile, rows, kk));
+  } else {
+    wgmma_rs_n128(d, a, desc_mn(tile, rows, kk));
+    if constexpr (N == 192)
+      wgmma_rs_n64(d + 64, a, desc_mn(tile + 2 * rows * LINE, rows, kk));
+  }
 }
 
 // 2^x, relative error about 2^-22 (below bf16's 2^-9); 2^-inf = 0
@@ -578,9 +660,10 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[N / 16][4],
   }
 }
 
-// a warpgroup's 64 x HD fp32 accumulator as bf16 rows: this thread's
-// rows r0 (fragment rows lane / 4) and r0 + 8 at element offsets off_lo
-// and off_hi, each written when its flag is set
+// a warpgroup's 64 x HD fp32 accumulator (HD / 64 chunks of 32 floats a
+// thread) as bf16 rows: this thread's rows r0 (fragment rows lane / 4)
+// and r0 + 8 at element offsets off_lo and off_hi, each written when its
+// flag is set
 template <int HD>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
                                            const float* acc, int64_t off_lo,
@@ -602,11 +685,11 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
 
 // ---- 1. row statistics -----------------------------------------------
 
-// one group of HD / 8 threads a row (b, h, s) of the padded (B, H, Sqp):
-// 16 bytes of out and dout a thread
-template <int HD>
+// one group of HDV / 8 threads a row (b, h, s) of the padded (B, H,
+// Sqp): 16 bytes of out and dout (v's width HDV) a thread
+template <int HDV>
 __global__ void __launch_bounds__(256) stats_kernel(const Args a) {
-  constexpr int PER = HD / 8;
+  constexpr int PER = HDV / 8;
   const int64_t i = blockIdx.x * 256LL + threadIdx.x;
   const int64_t row = i / PER;
   const int piece = (int)(i % PER);
@@ -616,7 +699,7 @@ __global__ void __launch_bounds__(256) stats_kernel(const Args a) {
   float acc = 0.f, l2 = INFINITY;
   if (row < rows && s < a.Sq) {
     const int64_t b = bh / a.H, h = bh % a.H;
-    const int64_t off = ((b * a.Sq + s) * a.H + h) * HD + piece * 8;
+    const int64_t off = ((b * a.Sq + s) * a.H + h) * HDV + piece * 8;
     const uint4 o = *reinterpret_cast<const uint4*>(a.out + off);
     const uint4 g = *reinterpret_cast<const uint4*>(a.dout + off);
     const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
@@ -641,14 +724,13 @@ __global__ void __launch_bounds__(256) stats_kernel(const Args a) {
 
 // ---- 2. dK, dV ---------------------------------------------------------
 
-template <int HD>
+template <int HDK, int HDV>
 __global__ void __launch_bounds__(THREADS, 1)
     dkdv_kernel(const __grid_constant__ CUtensorMap tmk,
                 const __grid_constant__ CUtensorMap tmv,
                 const __grid_constant__ CUtensorMap tmq,
                 const __grid_constant__ CUtensorMap tmg, const Args a) {
-  using L = KvLayout<HD>;
-  constexpr int CHUNKS = L::CHUNKS;
+  using L = KvLayout<HDK, HDV>;
   constexpr int BR = L::BR;
   extern __shared__ unsigned char smem_raw[];
   // swizzle atoms (8 lines of 128 bytes) start on 1024-byte boundaries
@@ -690,28 +772,30 @@ __global__ void __launch_bounds__(THREADS, 1)
     // ---- producer: one thread keeps the ring full --------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0 && n > 0) {
-      mbar_expect_tx(KV_FULL, 2 * L::KT);
+      mbar_expect_tx(KV_FULL, L::KT + L::VT);
 #pragma unroll
-      for (int c = 0; c < CHUNKS; ++c) {
+      for (int c = 0; c < HDK / 64; ++c)
         tma_load(base + c * BK * LINE, &tmk, KV_FULL, c * 64, kvh, n0, b);
+#pragma unroll
+      for (int c = 0; c < HDV / 64; ++c)
         tma_load(base + L::KT + c * BK * LINE, &tmv, KV_FULL, c * 64, kvh,
                  n0, b);
-      }
       for (int j = 0; j < n; ++j) {
         const int s = j % STAGES;
         const uint32_t ph = ((j / STAGES) & 1) ^ 1;   // first round free
         const int h = kvh * G + j / nt;
         const int p0 = (t0 + j % nt) * BR;
-        const uint32_t qs = base + L::RING + s * 2 * L::QT;
+        const uint32_t qs = base + L::RING + s * L::STAGE;
         const float* st = a.stats + (int64_t)(b * a.H + h) * 2 * a.Sqp + p0;
         mbar_wait(EMPTY(s), ph);
-        mbar_expect_tx(FULL(s), 2 * L::QT + 2 * BR * 4);
+        mbar_expect_tx(FULL(s), L::STAGE + 2 * BR * 4);
 #pragma unroll
-        for (int c = 0; c < CHUNKS; ++c) {
+        for (int c = 0; c < HDK / 64; ++c)
           tma_load(qs + c * BR * LINE, &tmq, FULL(s), c * 64, h, p0, b);
+#pragma unroll
+        for (int c = 0; c < HDV / 64; ++c)
           tma_load(qs + L::QT + c * BR * LINE, &tmg, FULL(s), c * 64, h, p0,
                    b);
-        }
         const uint32_t ss = base + L::STATS + s * 2 * BR * 4;
         bulk_load(ss, st, BR * 4, FULL(s));
         bulk_load(ss + BR * 4, st + a.Sqp, BR * 4, FULL(s));
@@ -730,9 +814,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t ks = base + cw * WG_ROWS * LINE;   // K chunk c: + c BK LINE
     const uint32_t vs = ks + L::KT;
 
-    float dk[CHUNKS * 32], dv[CHUNKS * 32];
+    float dk[HDK / 2], dv[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < CHUNKS * 32; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < HDK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < HDV / 2; ++i) dv[i] = 0.f;
     float sacc[BR / 2], pacc[BR / 2];   // S^T and dP^T, then P^T and dS^T
     uint32_t pa[BR / 16][4], da[BR / 16][4];   // P^T, dS^T as bf16
 
@@ -743,26 +829,26 @@ __global__ void __launch_bounds__(THREADS, 1)
       // S^T = K Q^T and dP^T = V dO^T of tile j, issued and committed
       auto issue_s = [&](int j) {
         const int s = j % STAGES;
-        const uint32_t qs = base + L::RING + s * 2 * L::QT;
+        const uint32_t qs = base + L::RING + s * L::STAGE;
         mbar_wait(FULL(s), (j / STAGES) & 1);
         wg_fence();
         wgmma_ss_first<BR>(sacc, desc_k(pin(ks), BK, 0),
                            desc_k(pin(qs), BR, 0));
 #pragma unroll
-        for (int kk = 1; kk < HD / 16; ++kk)
+        for (int kk = 1; kk < HDK / 16; ++kk)
           wgmma_ss<BR>(sacc, desc_k(pin(ks), BK, kk), desc_k(pin(qs), BR, kk),
                        1);
         wgmma_ss_first<BR>(pacc, desc_k(pin(vs), BK, 0),
                            desc_k(pin(qs + L::QT), BR, 0));
 #pragma unroll
-        for (int kk = 1; kk < HD / 16; ++kk)
+        for (int kk = 1; kk < HDV / 16; ++kk)
           wgmma_ss<BR>(pacc, desc_k(pin(vs), BK, kk),
                        desc_k(pin(qs + L::QT), BR, kk), 1);
         wg_commit();
       };
       // dV += P^T dO and dK += dS^T Q of tile j, issued and committed
       auto issue_kv = [&](int j) {
-        const uint32_t qs = base + L::RING + (j % STAGES) * 2 * L::QT;
+        const uint32_t qs = base + L::RING + (j % STAGES) * L::STAGE;
         fence_regs(dk);
         fence_regs(dv);
         fence_regs(pa);
@@ -770,8 +856,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BR / 16; ++kk) {
-          wgmma_rs<HD>(dv, pa[kk], desc_mn(pin(qs + L::QT), BR, kk));
-          wgmma_rs<HD>(dk, da[kk], desc_mn(pin(qs), BR, kk));
+          wgmma_rs<HDV>(dv, pa[kk], pin(qs + L::QT), BR, kk);
+          wgmma_rs<HDK>(dk, da[kk], pin(qs), BR, kk);
         }
         wg_commit();
       };
@@ -854,12 +940,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
     // one write of each key's rows (a key seen by no row is 0)
-    const int64_t off_lo = (((int64_t)b * a.Sk + key_lo) * a.KVH + kvh) * HD;
-    const int64_t off_hi = off_lo + 8LL * a.KVH * HD;
-    store_rows<HD>(a.dk, dk, off_lo, key_lo < a.Sk, off_hi, key_hi < a.Sk,
-                   cq);
-    store_rows<HD>(a.dv, dv, off_lo, key_lo < a.Sk, off_hi, key_hi < a.Sk,
-                   cq);
+    const int64_t key = ((int64_t)b * a.Sk + key_lo) * a.KVH + kvh;
+    const int64_t step = 8LL * a.KVH;   // key_hi's row is 8 keys on
+    store_rows<HDK>(a.dk, dk, key * HDK, key_lo < a.Sk, (key + step) * HDK,
+                    key_hi < a.Sk, cq);
+    store_rows<HDV>(a.dv, dv, key * HDV, key_lo < a.Sk, (key + step) * HDV,
+                    key_hi < a.Sk, cq);
   }
 #undef FULL
 #undef EMPTY
@@ -868,14 +954,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---- 3. dQ ---------------------------------------------------------------
 
-template <int HD>
+template <int HDK, int HDV>
 __global__ void __launch_bounds__(THREADS, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tmq,
               const __grid_constant__ CUtensorMap tmg,
               const __grid_constant__ CUtensorMap tmk,
               const __grid_constant__ CUtensorMap tmv, const Args a) {
-  using L = QLayout<HD>;
-  constexpr int CHUNKS = L::CHUNKS;
+  using L = QLayout<HDK, HDV>;
   constexpr int BN = L::BN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -913,29 +998,32 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0 && n > 0) {
-      mbar_expect_tx(Q_FULL, 4 * L::QW);
+      mbar_expect_tx(Q_FULL, L::RING);
 #pragma unroll
-      for (int w = 0; w < 2; ++w)
+      for (int w = 0; w < 2; ++w) {
 #pragma unroll
-        for (int c = 0; c < CHUNKS; ++c) {
+        for (int c = 0; c < HDK / 64; ++c)
           tma_load(base + w * L::QW + c * WG_ROWS * LINE, &tmq, Q_FULL,
                    c * 64, h, s0 + w * WG_ROWS, b);
-          tma_load(base + (2 + w) * L::QW + c * WG_ROWS * LINE, &tmg, Q_FULL,
-                   c * 64, h, s0 + w * WG_ROWS, b);
-        }
+#pragma unroll
+        for (int c = 0; c < HDV / 64; ++c)
+          tma_load(base + 2 * L::QW + w * L::GW + c * WG_ROWS * LINE, &tmg,
+                   Q_FULL, c * 64, h, s0 + w * WG_ROWS, b);
+      }
       for (int j = 0; j < n; ++j) {
         const int s = j % STAGES;
         const uint32_t ph = ((j / STAGES) & 1) ^ 1;
         const int key = (t0 + j) * BN;
-        const uint32_t ks = base + L::RING + s * 2 * L::KT;
+        const uint32_t ks = base + L::RING + s * L::STAGE;
         mbar_wait(EMPTY(s), ph);
-        mbar_expect_tx(FULL(s), 2 * L::KT);
+        mbar_expect_tx(FULL(s), L::STAGE);
 #pragma unroll
-        for (int c = 0; c < CHUNKS; ++c) {
+        for (int c = 0; c < HDK / 64; ++c)
           tma_load(ks + c * BN * LINE, &tmk, FULL(s), c * 64, kvh, key, b);
+#pragma unroll
+        for (int c = 0; c < HDV / 64; ++c)
           tma_load(ks + L::KT + c * BN * LINE, &tmv, FULL(s), c * 64, kvh,
                    key, b);
-        }
       }
     }
   } else {
@@ -945,7 +1033,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int warp = tid / 32, lane = tid % 32;
     const int Rw = s0 + cw * WG_ROWS;
     const uint32_t qs = base + cw * L::QW;
-    const uint32_t gs = base + (2 + cw) * L::QW;
+    const uint32_t gs = base + 2 * L::QW + cw * L::GW;
     // this thread's two rows of every accumulator: g and g + 8
     const int r_lo = Rw + warp * 16 + lane / 4, r_hi = r_lo + 8;
     const int qpos_lo = a.q_offset + r_lo, qpos_hi = a.q_offset + r_hi;
@@ -959,9 +1047,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float l2_lo = st[r_lo], l2_hi = st[r_hi];
     const float d_lo = st[a.Sqp + r_lo], d_hi = st[a.Sqp + r_hi];
 
-    float dq[CHUNKS * 32];
+    float dq[HDK / 2];
 #pragma unroll
-    for (int i = 0; i < CHUNKS * 32; ++i) dq[i] = 0.f;
+    for (int i = 0; i < HDK / 2; ++i) dq[i] = 0.f;
     float sacc[BN / 2], pacc[BN / 2];   // S and dP, then P and dS
     uint32_t da[BN / 16][4];            // dS as bf16
 
@@ -971,30 +1059,30 @@ __global__ void __launch_bounds__(THREADS, 1)
       // S = Q K^T and dP = dO V^T of tile j, issued and committed
       auto issue_s = [&](int j) {
         const int s = j % STAGES;
-        const uint32_t ks = base + L::RING + s * 2 * L::KT;
+        const uint32_t ks = base + L::RING + s * L::STAGE;
         mbar_wait(FULL(s), (j / STAGES) & 1);
         fence_regs(sacc);
         fence_regs(pacc);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
+        for (int kk = 0; kk < HDK / 16; ++kk)
           wgmma_ss<BN>(sacc, desc_k(pin(qs), WG_ROWS, kk),
                        desc_k(pin(ks), BN, kk), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
+        for (int kk = 0; kk < HDV / 16; ++kk)
           wgmma_ss<BN>(pacc, desc_k(pin(gs), WG_ROWS, kk),
                        desc_k(pin(ks + L::KT), BN, kk), kk > 0);
         wg_commit();
       };
       // dQ += dS K of tile j, issued and committed
       auto issue_dq = [&](int j) {
-        const uint32_t ks = base + L::RING + (j % STAGES) * 2 * L::KT;
+        const uint32_t ks = base + L::RING + (j % STAGES) * L::STAGE;
         fence_regs(dq);
         fence_regs(da);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs<HD>(dq, da[kk], desc_mn(pin(ks), BN, kk));
+          wgmma_rs<HDK>(dq, da[kk], pin(ks), BN, kk);
         wg_commit();
       };
       // the mask, then P = exp2(S scale_log2 - lse2) and
@@ -1056,9 +1144,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
     // one write of each row (a row that sees no key is 0)
-    const int64_t off_lo = (((int64_t)b * a.Sq + r_lo) * a.H + h) * HD;
-    const int64_t off_hi = off_lo + 8LL * a.H * HD;
-    store_rows<HD>(a.dq, dq, off_lo, r_lo < a.Sq, off_hi, r_hi < a.Sq, cq);
+    const int64_t off_lo = (((int64_t)b * a.Sq + r_lo) * a.H + h) * HDK;
+    const int64_t off_hi = off_lo + 8LL * a.H * HDK;
+    store_rows<HDK>(a.dq, dq, off_lo, r_lo < a.Sq, off_hi, r_hi < a.Sq, cq);
   }
 #undef FULL
 #undef EMPTY
@@ -1113,73 +1201,83 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int HD>
+template <int HDK, int HDV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const Args& a, cudaStream_t st) {
+  using KL = KvLayout<HDK, HDV>;
+  using QL = QLayout<HDK, HDV>;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (cudaError_t)999;
+  // q and k at q/k's width, v and dout at v's
   CUtensorMap kk, kv, kq, kg, qq, qg, qk, qv;
-  const int bn = QLayout<HD>::BN;
-  CUresult r = make_map(enc, &kk, k, a.B, a.Sk, a.KVH, HD, BK);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &kv, v, a.B, a.Sk, a.KVH, HD, BK);
+  CUresult r = make_map(enc, &kk, k, a.B, a.Sk, a.KVH, HDK, BK);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &kv, v, a.B, a.Sk, a.KVH, HDV, BK);
   if (r == CUDA_SUCCESS)
-    r = make_map(enc, &kq, q, a.B, a.Sq, a.H, HD, KvLayout<HD>::BR);
+    r = make_map(enc, &kq, q, a.B, a.Sq, a.H, HDK, KL::BR);
   if (r == CUDA_SUCCESS)
-    r = make_map(enc, &kg, a.dout, a.B, a.Sq, a.H, HD, KvLayout<HD>::BR);
+    r = make_map(enc, &kg, a.dout, a.B, a.Sq, a.H, HDV, KL::BR);
   if (r == CUDA_SUCCESS)
-    r = make_map(enc, &qq, q, a.B, a.Sq, a.H, HD, WG_ROWS);
+    r = make_map(enc, &qq, q, a.B, a.Sq, a.H, HDK, WG_ROWS);
   if (r == CUDA_SUCCESS)
-    r = make_map(enc, &qg, a.dout, a.B, a.Sq, a.H, HD, WG_ROWS);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &qk, k, a.B, a.Sk, a.KVH, HD, bn);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &qv, v, a.B, a.Sk, a.KVH, HD, bn);
+    r = make_map(enc, &qg, a.dout, a.B, a.Sq, a.H, HDV, WG_ROWS);
+  if (r == CUDA_SUCCESS)
+    r = make_map(enc, &qk, k, a.B, a.Sk, a.KVH, HDK, QL::BN);
+  if (r == CUDA_SUCCESS)
+    r = make_map(enc, &qv, v, a.B, a.Sk, a.KVH, HDV, QL::BN);
   if (r != CUDA_SUCCESS) return (cudaError_t)(1000 + (int)r);
 
-  const int64_t stat_threads = (int64_t)a.B * a.H * a.Sqp * (HD / 8);
-  stats_kernel<HD><<<(unsigned)((stat_threads + 255) / 256), 256, 0, st>>>(a);
+  const int64_t stat_threads = (int64_t)a.B * a.H * a.Sqp * (HDV / 8);
+  stats_kernel<HDV>
+      <<<(unsigned)((stat_threads + 255) / 256), 256, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int kv_bytes = KvLayout<HD>::SMEM;
-  err = cudaFuncSetAttribute(dkdv_kernel<HD>,
+  constexpr int kv_bytes = KL::SMEM;
+  err = cudaFuncSetAttribute(dkdv_kernel<HDK, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kv_bytes);
   if (err != cudaSuccess) return err;
   const int64_t kv_blocks = (int64_t)(a.Sk + BK - 1) / BK * a.B * a.KVH;
-  dkdv_kernel<HD><<<(unsigned)kv_blocks, THREADS, kv_bytes, st>>>(kk, kv, kq,
-                                                                  kg, a);
+  dkdv_kernel<HDK, HDV><<<(unsigned)kv_blocks, THREADS, kv_bytes, st>>>(
+      kk, kv, kq, kg, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int q_bytes = QLayout<HD>::SMEM;
-  err = cudaFuncSetAttribute(
-      dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
+  constexpr int q_bytes = QL::SMEM;
+  err = cudaFuncSetAttribute(dq_kernel<HDK, HDV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             q_bytes);
   if (err != cudaSuccess) return err;
   const int64_t q_blocks = (int64_t)(a.Sq + BM - 1) / BM * a.B * a.H;
-  dq_kernel<HD><<<(unsigned)q_blocks, THREADS, q_bytes, st>>>(qq, qg, qk, qv,
-                                                              a);
+  dq_kernel<HDK, HDV><<<(unsigned)q_blocks, THREADS, q_bytes, st>>>(
+      qq, qg, qk, qv, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The arguments of flash_bwd.cu's entry.  q, out, dout, dq (B, Sq, H,
-// hd); k, v, dk, dv (B, Sk, KVH, hd); lse (B, H, Sq) fp32; all
-// contiguous bf16 device pointers but lse, 16-byte aligned.  delta is a
-// scratch buffer of 2 B H Sqp fp32 this call writes, Sqp = Sq rounded up
-// to a multiple of 128.  is_bf16 must be 1 and hd 64 or 128.  The caller
-// has checked shapes and 0 <= q_offset, 0 <= window.  Error codes
-// besides cudaError_t: 1000 + the CUresult of a tensor map that did not
-// encode, 999 when the driver has no cuTensorMapEncodeTiled.
+// The arguments of flash_bwd.cu's entry.  q, dq (B, Sq, H, hd); out,
+// dout (B, Sq, H, hdv); k, dk (B, Sk, KVH, hd); v, dv (B, Sk, KVH, hdv);
+// lse (B, H, Sq) fp32; all contiguous bf16 device pointers but lse,
+// 16-byte aligned.  delta is a scratch buffer of 2 B H Sqp fp32 this
+// call writes, Sqp = Sq rounded up to a multiple of 128.  is_bf16 must
+// be 1 and (hd, hdv) one of (64, 64), (128, 128) and (192, 128); the
+// scale is 1 / sqrt(hd).  The caller has checked shapes and 0 <=
+// q_offset, 0 <= window.  Error codes besides cudaError_t: 1000 + the
+// CUresult of a tensor map that did not encode, 999 when the driver has
+// no cuTensorMapEncodeTiled.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
                               const void* lse, void* delta, void* dq,
                               void* dk, void* dv, int64_t B, int64_t Sq,
                               int64_t Sk, int64_t H, int64_t KVH, int64_t hd,
-                              int64_t causal, int64_t window,
+                              int64_t hdv, int64_t causal, int64_t window,
                               int64_t q_offset, int64_t is_bf16,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!is_bf16 || (hd != 64 && hd != 128)) return (int)cudaErrorInvalidValue;
+  const bool pair = (hd == 64 && hdv == 64) || (hd == 128 && hdv == 128) ||
+                    (hd == 192 && hdv == 128);
+  if (!is_bf16 || !pair) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
   // a call with no key has dq 0, one with no query dk and dv 0
   if (Sk <= 0 || Sq <= 0) {
@@ -1188,7 +1286,7 @@ extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
     if (Sk > 0 && err == cudaSuccess)
       err = cudaMemsetAsync(dk, 0, (size_t)(B * Sk * KVH * hd * 2), st);
     if (Sk > 0 && err == cudaSuccess)
-      err = cudaMemsetAsync(dv, 0, (size_t)(B * Sk * KVH * hd * 2), st);
+      err = cudaMemsetAsync(dv, 0, (size_t)(B * Sk * KVH * hdv * 2), st);
     return (int)err;
   }
   const int64_t Sqp = (Sq + BM - 1) / BM * BM;
@@ -1214,6 +1312,7 @@ extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
   a.q_offset = (int)q_offset;
   a.scale = (float)(1.0 / sqrt((double)hd));
   a.scale_log2 = (float)(1.4426950408889634 / sqrt((double)hd));
-  if (hd == 64) return (int)launch<64>(q, k, v, a, st);
-  return (int)launch<128>(q, k, v, a, st);
+  if (hd == 64) return (int)launch<64, 64>(q, k, v, a, st);
+  if (hd == 128) return (int)launch<128, 128>(q, k, v, a, st);
+  return (int)launch<192, 128>(q, k, v, a, st);
 }

@@ -156,17 +156,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool, window: int = 0,
                         q_offset: int = 0):
     """(dq, dk, dv) of attention from its inputs, the forward's ``out``
-    and ``lse`` and dout; see kernels/flash_bwd.py.  On the card one
-    call of the CUDA kernel on contiguous copies where an operand is not
-    contiguous (autograd may hand a strided dout); on the CPU
-    ``ref.attention_bwd_ref``.  A v narrower or wider than q and k (MLA)
-    raises NotImplementedError on both devices: the two-width backward
-    is not written yet (ROADMAP B4), and no plain gradient stands in."""
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            f"flash_attention_bwd: v {v.shape[-1]} wide against q/k "
-            f"{q.shape[-1]}: the two-width flash backward is not ported "
-            "yet (ROADMAP B4, A10.3)")
+    and ``lse`` and dout; see kernels/flash_bwd.py.  q (B, Sq, H, hd), k
+    (B, Sk, KVH, hd), v (B, Sk, KVH, hdv), out and dout (B, Sq, H, hdv):
+    v may be narrower than q and k (MLA's prefill, 192 against 128).  On
+    the card one call of the CUDA kernels on contiguous copies where an
+    operand is not contiguous (autograd may hand a strided dout, and
+    MLA's v is a view); a call the kernels do not take raises.  On the
+    CPU ``ref.attention_bwd_ref``."""
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.is_cuda:
         return _flash_bwd.flash_bwd_cuda(

@@ -325,7 +325,7 @@ def _attention_bwd(q, k, v, out, lse, dout, causal, window, q_offset,
     |q|, |k|, |v|, |out|, |dout| in, and dS = P (dP + D) / sqrt(hd), so
     that each output is the sum of |terms| of the true one."""
     B, Sq, H, hd = q.shape
-    KVH = k.shape[2]
+    KVH, hdv = k.shape[2], v.shape[-1]
     G = H // KVH
     f32 = [x.to(torch.float32) for x in (q, k, v, out, dout)]
     if magnitude:
@@ -346,7 +346,7 @@ def _attention_bwd(q, k, v, out, lse, dout, causal, window, q_offset,
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
     Sk = k.shape[1]
     dk = dk.reshape(B, Sk, KVH, G, hd).sum(3)
-    dv = dv.reshape(B, Sk, KVH, G, hd).sum(3)
+    dv = dv.reshape(B, Sk, KVH, G, hdv).sum(3)
     return dq, dk, dv
 
 
@@ -365,9 +365,11 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and dv over each kv head's G query heads.  Two (H, Sq, Sk) fp32
     buffers a batch row are the peak.
 
-    q, out, dout (B, Sq, H, hd), k/v (B, Sk, KVH, hd), lse (B, H, Sq)
-    fp32 (``attention_ref(..., return_lse=True)``'s) -> (dq, dk, dv) in
-    the dtypes of q, k and v.
+    q (B, Sq, H, hd), k (B, Sk, KVH, hd), v (B, Sk, KVH, hdv), out and
+    dout (B, Sq, H, hdv), lse (B, H, Sq) fp32 (``attention_ref(...,
+    return_lse=True)``'s) -> (dq, dk, dv) in the dtypes and shapes of q,
+    k and v.  hdv = hd but in MLA's prefill (q/k 192 against v 128); the
+    scale is 1/sqrt(hd), q and k's width.
     """
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     parts = [_attention_bwd(*(x[b:b + 1] for x in (q, k, v, out, lse,

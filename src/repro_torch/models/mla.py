@@ -11,9 +11,12 @@ Two forms, as in the reference:
 * prefill (no cache) decompresses: k_nope and v from the latents
   through ``kv_b``, the shared RoPE key broadcast over the heads, then
   attention over q and k of width nope + rope (192) against a v of
-  width ``v_head_dim`` (128) -- the hand-written two-width flash kernel
-  of ``csrc/flash.cu`` on the card (through ``layers.attention_fn``),
-  where the reference runs ``chunked_attention``;
+  width ``v_head_dim`` (128) -- the hand-written two-width flash
+  kernels on the card (``csrc/flash_sm90.cu`` in bf16 at 192/128,
+  through ``layers.attention_fn``), where the reference runs
+  ``chunked_attention``; under autograd its gradient is the two-width
+  flash backward (``csrc/flash_bwd_sm90.cu``), and dv flows back
+  through the strided view of v into the ``kv_b`` product;
 * decode (a cache) runs the absorbed form in plain PyTorch, as the
   reference does outside any Pallas kernel: q_nope mapped through W_UK
   into latent space, fp32 scores against the cached latents and RoPE
@@ -28,8 +31,7 @@ after its -1e30 mask); here they are cut off, the same function, so
 that a step's arithmetic does not depend on the cache's length and a
 server and ``generate`` with other cache sizes give the same bits.
 
-Training an MLA model needs the two-width flash backward, which is not
-written yet: ``models.transformer`` refuses it (ROADMAP A10.3).
+The absorbed decode serves only and is never differentiated.
 """
 from __future__ import annotations
 

@@ -12,10 +12,9 @@ kind: ``{"k", "v"}`` for attention, ``{"c_kv", "k_rope"}`` for MLA.
 
 MoE layers return the reference's aux losses; ``forward`` returns their
 sum over the layers (``lb_loss + 1e-3 z_loss`` each) and ``loss_fn``
-adds 1e-2 of it.  An MLA model serves but does not train yet: its
-gradient needs the two-width flash backward (ROADMAP A10.3, B4), so
-``init_model(train=True)``, ``loss_fn`` and the converter refuse it
-with ``NotImplementedError``.  Mamba2, sliding windows (the ring-buffer
+adds 1e-2 of it.  MLA and MoE models train as the dense ones do: MLA's
+prefill attention takes its gradient from the two-width flash backward
+(q/k nope + rope wide, v ``v_head_dim``).  Mamba2, sliding windows (the ring-buffer
 decode), cross-attention, encoder-decoder models, modality frontends
 and the LayerNorm / sinusoidal-position variant belong to later slices
 (ROADMAP A10) and raise ``NotImplementedError`` when a model is built;
@@ -50,8 +49,6 @@ from .mla import MLA, apply_mla, init_mla, init_mla_cache
 from .moe import MoE, apply_moe, init_moe
 
 A10 = "not ported yet (ROADMAP A10)"
-MLA_TRAIN = ("training an MLA model needs the two-width flash backward, "
-             "which is not ported yet (ROADMAP A10.3, B4)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -78,13 +75,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if what:
         raise NotImplementedError(
             f"{cfg.name}: " + ", ".join(dict.fromkeys(what)) + f" {A10}")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming ROADMAP A10.3, for a config
-    with an MLA layer."""
-    if any(s.mixer == "mla" for s in cfg.prologue + cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: {MLA_TRAIN}")
 
 
 class Layer(nn.Module):
@@ -144,11 +134,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, *,
     compute dtype, frozen, or with ``train`` as fp32 masters with
     ``requires_grad=True`` (the values a serving model of the same seed
     holds before its cast); norm scales and MoE routers in fp32.  Raises
-    for the families the port does not run yet (and, with ``train``,
-    for MLA), before drawing anything."""
+    for the families the port does not run yet, before drawing
+    anything."""
     check_supported(cfg)
-    if train:
-        check_trainable(cfg)
     dev = resolve_device(device)
     dt = held_dtype(cfg, train)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -244,9 +232,8 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: Dict[str, Any],
     fp32 logits, their logsumexp minus the gold logit, averaged over the
     tokens whose ``batch["labels"]`` are >= 0 (at least one), plus
     1e-2 aux.  Differentiable in ``params``' leaves that require grad;
-    attention's gradient is the flash_bwd kernel on the card.  Raises
-    NotImplementedError for an MLA config (``check_trainable``)."""
-    check_trainable(cfg)
+    attention's gradient (GQA's, and MLA's prefill at two widths) is the
+    flash_bwd kernel on the card."""
     logits, aux = _forward(params, cfg, batch, remat)
     labels = _tokens(batch["labels"], params.device)
     logits = logits.to(torch.float32)

@@ -743,20 +743,131 @@ def test_flash_two_widths_read_strided_views(cuda):
     tref.check_attention(out, q, k, v, causal=True)
 
 
+def _bwd_two_width_params():
+    """(case, dtype, source) of the two-width backward for every design
+    that takes the case: flash_bwd.cu always, flash_bwd_sm90.cu for bf16
+    at 192/128 (MLA's prefill)."""
+    out = []
+    for q_shape, kv_shape, hdv, kw in TWO_WIDTH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            sources = ["flash_bwd"]
+            if tflash_bwd.design(dtype, q_shape[3], hdv) == "flash_bwd_sm90":
+                sources.insert(0, "flash_bwd_sm90")
+            out += [pytest.param(q_shape, kv_shape, hdv, kw, dtype, src,
+                                 id=f"{q_shape}-{kv_shape}-v{hdv}-{kw}-"
+                                 f"{str(dtype)[6:]}-{src}")
+                    for src in sources]
+    return out
+
+
 @pytest.mark.cuda
-def test_two_widths_have_no_gradient_yet(cuda):
-    """On the card as on the CPU: the backward at two widths raises, and
-    an MLA model refuses to train."""
-    from repro_torch.configs import get_smoke
-    from repro_torch.models import init_model
-    q, k = (torch.randn(1, 8, 2, 24, device=cuda) for _ in range(2))
-    v = torch.randn(1, 8, 2, 16, device=cuda)
+@pytest.mark.parametrize("q_shape,kv_shape,hdv,kw,dtype,source",
+                         _bwd_two_width_params())
+def test_flash_bwd_two_widths_match_plain(cuda, q_shape, kv_shape, hdv, kw,
+                                          dtype, source):
+    """The backward with v and dout narrower (or wider) than q and k:
+    each design that takes the case within the stated tolerance of the
+    plain version, the routed one through ``ops.flash_attention_bwd``
+    (counted), two calls the same bits, dv v's width; the Hopper design
+    also against flash_bwd.cu at the same call."""
+    q, k, v = _two_width(q_shape, kv_shape, hdv, cuda, dtype,
+                         sum(q_shape) + hdv)
+    g = torch.randn(q_shape[:3] + (hdv,), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(
+                        sum(kv_shape))).to(dtype)
+    out, lse = tops.flash_attention_fwd(q, k, v, **kw)
+    routed = tflash_bwd.design(dtype, q_shape[3], hdv) == source
+    before = tops.launch_counts()["flash_bwd"]
+    by_source = dict(tflash_bwd.design_launches)
+
+    def call():
+        if routed:
+            return tops.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+        return tflash_bwd.launch(source, q, k, v, out, lse, g, **kw)
+    grads = call()
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_bwd"] == before + routed
+    assert tflash_bwd.design_launches[source] == by_source[source] + routed
+    assert [tuple(x.shape) for x in grads] == [q_shape, kv_shape,
+                                               kv_shape[:3] + (hdv,)]
+    assert [x.dtype for x in grads] == [dtype] * 3
+    tref.check_attention_bwd(grads, q, k, v, out, lse, g, **kw, what=source)
+    blind = torch.isinf(lse).transpose(1, 2)          # (B, Sq, H)
+    assert (grads[0][blind] == 0).all()
+    again = call()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    if source == "flash_bwd_sm90":
+        first = tflash_bwd.launch("flash_bwd", q, k, v, out, lse, g, **kw)
+        mags = tref.attention_bwd_magnitude(q, k, v, out, lse, g, **kw)
+        tref.check_bwd_close(grads, first, mags, dtype,
+                             what="flash_bwd_sm90 against flash_bwd")
+
+
+@pytest.mark.cuda
+def test_flash_bwd_two_widths_take_mla_views(cuda):
+    """MLA's prefill hands v as a view into the ``kv_b`` product: the
+    backward takes contiguous copies, the bits of a contiguous v, dv v's
+    width."""
+    kvd = torch.randn(2, 140, 8, 128 + 128, device=cuda,
+                      dtype=torch.bfloat16)
+    q, k = (torch.randn(2, 140, 8, 192, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    v = kvd[..., 128:]
+    g = torch.randn(2, 140, 8, 128, device=cuda, dtype=torch.bfloat16)
     out, lse = tops.flash_attention_fwd(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+    before = tflash_bwd.design_launches["flash_bwd_sm90"]
+    got = tops.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    want = tops.flash_attention_bwd(q, k, v.contiguous(), out, lse, g,
+                                    causal=True)
+    torch.cuda.synchronize()
+    assert tflash_bwd.design_launches["flash_bwd_sm90"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tref.check_attention_bwd(got, q, k, v, out, lse, g, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hd,hdv", [(192, 200), (192, 136), (200, 128),
+                                    (192, 20)])
+def test_flash_bwd_refuses_widths_it_does_not_take(cuda, hd, hdv, dtype):
+    """q/k above 192 or v above 128 (or not a multiple of 8) raises before
+    any launch: no other design or plain gradient stands in."""
+    q, k = (torch.randn(1, 16, 2, hd, device=cuda, dtype=dtype)
+            for _ in range(2))
+    v = torch.randn(1, 16, 2, hdv, device=cuda, dtype=dtype)
+    out = torch.randn(1, 16, 2, hdv, device=cuda, dtype=dtype)
+    lse = torch.zeros(1, 2, 16, device=cuda)
+    before = dict(tflash_bwd.design_launches)
+    with pytest.raises(ValueError, match="width"):
         tops.flash_attention_bwd(q, k, v, out, lse, out, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.3"):
-        init_model(get_smoke("deepseek_v2_lite_16b"), device=cuda,
-                   train=True)
+    assert tflash_bwd.design_launches == before
+
+
+@pytest.mark.cuda
+def test_mla_model_trains_through_the_two_width_backward(cuda):
+    """The deepseek smoke model (24/16 heads: flash_bwd.cu in bf16)
+    trains on the card: ``loss_fn``'s backward launches the two-width
+    backward once a layer, the forward once a layer plus once a stacked
+    layer's recompute (remat); every gradient leaf is finite."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model, loss_fn
+    cfg = get_smoke("deepseek_v2_lite_16b")
+    model = init_model(cfg, seed=0, device=cuda, train=True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(0))
+    tops.reset_launch_counts()
+    loss, _ = loss_fn(model, cfg, {"tokens": toks, "labels": toks})
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    n_stack = len(model.stack)
+    assert tops.launch_counts()["flash_bwd"] == cfg.n_layers
+    assert tflash_bwd.design_launches == {"flash_bwd_sm90": 0,
+                                          "flash_bwd": cfg.n_layers}
+    assert tops.launch_counts()["flash"] == cfg.n_layers + n_stack
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.cuda

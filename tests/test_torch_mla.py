@@ -1,12 +1,14 @@
-"""The port's MLA layer, its two-width attention and the deepseek smoke
-model's caches against the JAX package's, on the CPU.
+"""The port's MLA layer, its two-width attention, the deepseek smoke
+model's caches and its training against the JAX package's, on the CPU.
 
 Both packages run the reference's ``init_model(PRNGKey(0), cfg)``
-weights, carried over by ``convert.lm_params_from_reference``; inputs
-come from numpy with a seed.  On the CPU MLA's prefill attention runs
-the flash kernel's plain version ``ref.attention_ref`` at two widths
-(q and k nope + rope wide, v ``v_head_dim``), where the reference runs
-``chunked_attention``.
+weights, carried over by ``convert.lm_params_from_reference`` (with
+``train=True``, fp32 masters with gradients); inputs come from numpy
+with a seed.  On the CPU MLA's prefill attention runs the flash
+kernel's plain version ``ref.attention_ref`` at two widths (q and k
+nope + rope wide, v ``v_head_dim``), and its gradient the two-width
+backward's plain version ``ref.attention_bwd_ref``, where the reference
+runs ``chunked_attention`` under ``jax.grad``.
 
 Tolerances:
 * ``apply_mla``, prefill and absorbed decode: ``test_torch_lm.py``'s
@@ -18,10 +20,15 @@ Tolerances:
   bf16 against ``ref.attention_ref``: one bf16 ulp, as
   ``test_torch_flash.py`` holds one width (both keep the softmax in
   fp32 and round the output once);
-* an MLA model asked to train raises ``NotImplementedError`` naming
-  ROADMAP, and so does the attention gradient at two widths: nothing
-  falls back to a plain gradient.
+* training: the prefill's vjp in fp32 at ``FP32_TOL``; the smoke
+  model's ``loss_fn`` and every gradient leaf at
+  ``test_torch_train.py``'s tolerances (fp32 ``FP32_TOL``; bf16 the loss
+  at ``BF16_LOSS_RTOL`` and each leaf at a relative Frobenius error of
+  2^-4, but the leaves of a MoE layer whose bf16 routing flips at a
+  router near-tie, held in fp32 only); remat on and off the same bits.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,17 +37,19 @@ import torch
 
 import test_torch_flash as fl
 import test_torch_lm as lm
+import test_torch_moe as moe
+import test_torch_train as train
 from repro.kernels import ref as jref
-from repro.models import init_serve_cache as jcache, serve_step as jstep
+from repro.models import init_serve_cache as jcache, loss_fn as jloss_fn
+from repro.models import serve_step as jstep
 from repro.models import mla as jmla
 from repro.models.layers import chunked_attention
-from repro_torch.convert import lm_params_from_reference
+from repro_torch.convert import reference_leaf
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.models import (init_model, init_serve_cache, loss_fn,
-                                serve_step)
+from repro_torch.models import init_serve_cache, loss_fn, serve_step
 from repro_torch.models import mla as tmla
-from repro_torch.models.layers import attention_fn, cdtype
+from repro_torch.models.layers import cdtype
 
 ARCH = "deepseek_v2_lite_16b"
 DTYPES = lm.DTYPES
@@ -170,25 +179,143 @@ def test_serve_caches_match_reference(dtype):
             lm._close(c["mixer"][name], jl["mixer"][name], dtype)
 
 
-def test_mla_training_raises_naming_roadmap():
-    """On the CPU as on the card (the check runs before any device
-    work): building, converting or taking the loss of an MLA model to
-    train raises; the attention gradient at two widths raises too."""
-    jc, tc, params, model = lm._models(ARCH, "float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.3"):
-        init_model(tc, device="cpu", train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.3"):
-        lm_params_from_reference(jax.tree.map(np.asarray, params), tc,
-                                 device="cpu", train=True)
-    toks = np.zeros((1, 8), np.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.3"):
-        loss_fn(model, tc, {"tokens": toks, "labels": toks})
-    q, k, v = (torch.randn(1, 8, 2, w, requires_grad=True)
-               for w in (24, 24, 16))
-    out = attention_fn(q, k, v, causal=True)
-    assert out.shape == (1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        out.sum().backward()
-    lse = torch.zeros(1, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        tops.flash_attention_bwd(q, k, v, out, lse, out, causal=True)
+@functools.lru_cache(maxsize=None)
+def _reference_loss_and_grads(dtype):
+    """The reference's (loss, aux, grads as numpy) of the deepseek smoke
+    model on ``test_torch_moe._batch`` (2 x 32 tokens: one group of the
+    smoke config's ``router_group`` of 64), with its remat."""
+    jc, tc = lm._cfgs(ARCH, dtype)
+    params = train._reference_params(ARCH, dtype)
+    jb = {k: jnp.asarray(v.numpy().astype(np.int32))
+          for k, v in moe._batch(tc.vocab_size).items()}
+    with jax.threefry_partitionable(False):
+        (loss, met), grads = jax.jit(jax.value_and_grad(
+            lambda p: jloss_fn(p, jc, jb, remat=True), has_aux=True))(params)
+    return float(loss), float(met["aux"]), jax.tree.map(np.asarray, grads)
+
+
+def _port_loss_and_grads(dtype, remat):
+    model = train._port_model(ARCH, dtype)
+    loss, met = loss_fn(model, model.cfg, moe._batch(model.cfg.vocab_size),
+                        remat=remat)
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return model, loss.detach(), {k: x.detach() for k, x in met.items()}, \
+        dict(zip(named, grads))
+
+
+def _flipped_layers(dtype):
+    """The port's names (``stack.{j}``) of the MoE layers whose routing
+    in the loss's forward differs between the packages, each flip held
+    to its explanation (``test_torch_moe._flips``: a near-tie of the
+    router's fp32 logits, or a later token of a group in which one
+    flipped)."""
+    jc, tc = lm._cfgs(ARCH, dtype)
+    jb = {k: jnp.asarray(v.numpy().astype(np.int32))
+          for k, v in moe._batch(tc.vocab_size).items()}
+    with jax.threefry_partitionable(False), moe.reference_routing() as ref:
+        jloss_fn(train._reference_params(ARCH, dtype), jc, jb, remat=False)
+    model = train._port_model(ARCH, dtype)
+    with moe.port_routing() as got, torch.no_grad():
+        loss_fn(model, tc, moe._batch(tc.vocab_size), remat=False)
+    n_pro = len(tc.prologue)
+    assert len(got) == len(ref["dispatch"]) == tc.n_layers - n_pro
+    flipped = []
+    for j, (jd, r) in enumerate(zip(ref["dispatch"], got)):
+        r = {k: x.detach() if torch.is_tensor(x) else x for k, x in r.items()}
+        f, tie, cascade = moe._flips(jd, r, tc.top_k)
+        assert (tie | cascade)[f].all(), (j, np.nonzero(f))
+        if f.any():
+            flipped.append(f"stack.{j}")
+    return flipped
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deepseek_loss_and_gradients_match_reference(dtype):
+    """The deepseek smoke model (a dense MLA prologue layer, two MLA+MoE
+    layers) trains: its loss and every gradient leaf against
+    ``jax.value_and_grad`` of the reference's ``loss_fn``.  fp32: the
+    loss, the aux and every leaf at ``test_torch_train.py``'s
+    ``FP32_TOL``; bf16: the loss at ``BF16_LOSS_RTOL`` and each leaf at a
+    relative Frobenius error of 2^-4 (``test_torch_train.py`` says why),
+    but in a MoE layer whose routing flips between the packages.  In
+    bf16 the two packages' attention rounds at other places, and on this
+    batch three tokens of the last MoE layer (``stack.1``) sit at
+    near-ties of the router and go to other experts (or, after such a
+    token, to other capacity slots); those experts then take the
+    gradient of other tokens, a step of the function itself.  So that
+    layer's routed leaves (the router, the routed experts and ``norm2``,
+    whose gradient sums over them) are held in fp32 only, where the
+    routing is the same bits; ``_flipped_layers`` finds the flips and
+    holds each to its explanation."""
+    model, loss, met, grads = _port_loss_and_grads(dtype, remat=True)
+    want_loss, want_aux, want_grads = _reference_loss_and_grads(dtype)
+    assert float(met["tokens"]) == 2 * 32 - 1 and float(met["aux"]) > 0.0
+    names = {n for n, _ in model.named_parameters()}
+    assert set(grads) == names
+    for part in ("attn.wq.w", "attn.kv_a.w", "attn.kv_norm.scale",
+                 "attn.kv_b.w", "attn.wo.w", "moe.router.w",
+                 "moe.experts_in.w", "moe.shared_down.w"):
+        assert f"stack.0.{part}" in names, part
+    if dtype == "float32":
+        np.testing.assert_allclose(float(loss), want_loss, **train.FP32_TOL)
+        np.testing.assert_allclose(float(met["aux"]), want_aux,
+                                   rtol=moe.AUX_RTOL)
+        held = names
+    else:
+        np.testing.assert_allclose(float(loss), want_loss,
+                                   rtol=train.BF16_LOSS_RTOL)
+        flipped = _flipped_layers(dtype)
+        assert flipped == ["stack.1"], flipped
+        routed = ("moe.router.", "moe.experts_", "norm2.")
+        held = {n for n in names if not any(
+            n.startswith(tuple(f"{lay}.{r}" for r in routed))
+            for lay in flipped)}
+        assert len(held) == len(names) - 5
+    for name, g in grads.items():
+        want = reference_leaf(want_grads, name, model.cfg).astype(np.float32)
+        got = g.to(torch.float32).numpy()
+        assert got.shape == want.shape and np.isfinite(got).all(), name
+        if name not in held:
+            continue
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, **train.FP32_TOL,
+                                       err_msg=name)
+        else:
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel <= train.BF16_GRAD_REL, (name, rel)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deepseek_remat_gives_the_same_gradient_bits(dtype):
+    _, loss_a, _, ga = _port_loss_and_grads(dtype, remat=True)
+    _, loss_b, _, gb = _port_loss_and_grads(dtype, remat=False)
+    assert torch.equal(loss_a, loss_b)
+    assert all(torch.equal(ga[n], gb[n]) for n in ga)
+
+
+def test_apply_mla_prefill_vjp_matches_reference():
+    """The gradient of the decompressed prefill, in fp32, with respect to
+    the input and each of the layer's leaves, against ``jax.vjp`` of the
+    reference's ``apply_mla`` (which runs ``chunked_attention``): the
+    port's goes through the two-width flash backward's plain version,
+    q and k as ``torch.cat``s, v a strided view into the ``kv_b``
+    product.  ``FP32_TOL``: the same function summed in another order."""
+    jc, tc, jp, tp = _mla("float32")
+    jx, tx = lm._x((2, 37, jc.d_model), "float32", seed=34)
+    g = np.random.default_rng(35).normal(
+        size=(2, 37, jc.d_model)).astype(np.float32)
+    with jax.threefry_partitionable(False):
+        _, vjp = jax.vjp(lambda p, x: jmla.apply_mla(p, jc, x)[0], jp, jx)
+        want_p, want_x = vjp(jnp.asarray(g))
+    named = dict(tp.named_parameters())
+    leaves = [p.requires_grad_() for p in named.values()]
+    x = tx.clone().requires_grad_()
+    y, _ = tmla.apply_mla(tp, tc, x)
+    got = torch.autograd.grad(y, [x] + leaves, torch.from_numpy(g))
+    assert set(named) == {"wq.w", "kv_a.w", "kv_norm.scale", "kv_b.w",
+                          "wo.w"}
+    lm._close(got[0], want_x, "float32")
+    for (name, _), gl in zip(named.items(), got[1:]):
+        a, b = name.split(".")
+        lm._close(gl, want_p[a][b], "float32")

@@ -29,7 +29,9 @@ Tolerances:
   parameters rtol 1e-4, atol 1e-5; bf16, losses rtol 1e-3 and
   parameters atol 2 lr x steps: Adam's normalised update moves a leaf
   by about lr a step, and a leaf whose bf16 gradient is near 0 can move
-  either way in the two packages;
+  either way in the two packages; the deepseek smoke model (MLA, MoE)
+  in fp32, where an element whose first gradient cancels to fp32's
+  rounding level is held as in bf16 (the test says why);
 * ``make_lm_batch`` and ``lm_batches``: bitwise;
 * ``train``: its loss falls by the reference's test's margin; a run
   resumed from a checkpoint, and a run restarted after ``FailureSim``,
@@ -247,12 +249,52 @@ def test_adamw_init_and_opt_state_carry_over():
             jax.tree.map(np.asarray, jst.v), name, model.cfg))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n_micro", [1, 2])
-def test_three_train_steps_match_reference(n_micro, dtype):
-    jc, tc = _cfgs("smollm_135m", dtype)
-    params = _reference_params("smollm_135m", dtype)
-    model = _port_model("smollm_135m", dtype)
+# (arch, n_micro, dtype): SmolLM-135M's smoke config keeps its ids; the
+# deepseek smoke model (MLA, MoE with router groups of 64: a step's
+# 4 x 16 tokens are one group, each microbatch's of n_micro=2 32 tokens
+# a group) in fp32 only: in bf16 the two packages' attention rounds at
+# other places and its router sends one to four tokens a step to other
+# experts at near-ties (``test_torch_mla.py`` holds such flips to their
+# explanation), which moves the loss by up to 2e-3, a step of the
+# function itself, not the train step's
+THREE_STEPS = [("smollm_135m", n, dt) for n in (1, 2) for dt in DTYPES] \
+    + [("deepseek_v2_lite_16b", n, "float32") for n in (1, 2)]
+# fp32's a-priori error bound of a gradient element that sums 2^8 terms
+# (a microbatch's tokens times a layer's fan), relative to its leaf's
+# largest element: n u = 2^8 2^-24
+CANCELLED = 2.0 ** -16
+
+
+def _first_gradients(jc, params, batch, n_micro):
+    """The reference's gradient as its first AdamW update receives it:
+    the mean over the microbatches of ``jax.grad`` of ``loss_fn``."""
+    B = batch["tokens"].shape[0]
+    with jax.threefry_partitionable(False):
+        grads = [jax.grad(lambda p, mb=mb: jloss_fn(p, jc, mb,
+                                                    remat=True)[0])(params)
+                 for mb in (jax.tree.map(lambda x, i=i: x[i * B // n_micro:
+                                                          (i + 1) * B
+                                                          // n_micro], batch)
+                            for i in range(n_micro))]
+    return jax.tree.map(lambda *g: np.asarray(sum(g) / n_micro), *grads)
+
+
+@pytest.mark.parametrize(
+    "arch,n_micro,dtype", THREE_STEPS,
+    ids=[f"{n}-{dt}" if arch == "smollm_135m" else f"deepseek-{n}-{dt}"
+         for arch, n, dt in THREE_STEPS])
+def test_three_train_steps_match_reference(arch, n_micro, dtype):
+    """Three steps of ``make_train_step`` from the same weights on the
+    same batches.  The deepseek model's first AdamW update moves an
+    element by lr g / (|g| + eps): where its fp32 gradient cancels to
+    below ``CANCELLED`` of its leaf's largest, g is rounding noise in
+    both packages and the update's size and sign with it, so such an
+    element is held as the bf16 case holds every one, to 2 lr x steps
+    (one element of 270,880 at n_micro=2: 9.2e-8 in a leaf whose largest
+    is 5.8e-2); every other element at ``FP32_TOL``."""
+    jc, tc = _cfgs(arch, dtype)
+    params = _reference_params(arch, dtype)
+    model = _port_model(arch, dtype)
     ost = adamw_init(dict(model.named_parameters()))
     with jax.threefry_partitionable(False):
         jopt = jadamw_init(params)
@@ -261,10 +303,13 @@ def test_three_train_steps_match_reference(n_micro, dtype):
     step = make_train_step(tc, AdamWConfig(**OPT), n_micro=n_micro)
     js, ts = JStream(jc.vocab_size, seed=2), TokenStream(tc.vocab_size,
                                                          seed=2)
+    first = None
     for i in range(3):
+        jb = jmake_lm_batch(js, i, 4, 16)
+        if i == 0 and arch != "smollm_135m":
+            first = _first_gradients(jc, params, jb, n_micro)
         with jax.threefry_partitionable(False):
-            params, jopt, jm = jstep(params, jopt,
-                                     jmake_lm_batch(js, i, 4, 16))
+            params, jopt, jm = jstep(params, jopt, jb)
         model, ost, tm = step(model, ost,
                               make_lm_batch(ts, i, 4, 16, device="cpu"))
         rtol = 1e-5 if dtype == "float32" else BF16_LOSS_RTOL
@@ -274,12 +319,18 @@ def test_three_train_steps_match_reference(n_micro, dtype):
     tree = jax.tree.map(np.asarray, params)
     for name, p in model.named_parameters():
         want = reference_leaf(tree, name, tc)
-        if dtype == "float32":
-            np.testing.assert_allclose(p.detach().numpy(), want, **FP32_TOL,
-                                       err_msg=name)
-        else:
-            assert np.abs(p.detach().numpy() - want).max() \
+        got = p.detach().numpy()
+        if dtype == "float32" and first is None:
+            np.testing.assert_allclose(got, want, **FP32_TOL, err_msg=name)
+        elif dtype == "float32":
+            g0 = np.abs(reference_leaf(first, name, tc))
+            cancelled = g0 <= CANCELLED * g0.max()
+            close = np.isclose(got, want, **FP32_TOL)
+            assert (close | cancelled).all(), name
+            assert np.abs(got - want)[cancelled].max(initial=0.0) \
                 <= 2 * OPT["lr"] * 3, name
+        else:
+            assert np.abs(got - want).max() <= 2 * OPT["lr"] * 3, name
 
 
 @pytest.mark.parametrize("extra", [{}, dict(frontend_tokens=3, d_model=8,
@@ -301,9 +352,12 @@ def test_lm_batches_are_the_reference_bits(extra):
                    for k in b)
 
 
-def test_train_loss_decreases():
-    """The reference's ``test_train_loss_decreases``, on the port."""
-    cfg = tcfg.get_smoke("smollm_135m")
+@pytest.mark.parametrize("arch", ["smollm_135m", "deepseek_v2_lite_16b"])
+def test_train_loss_decreases(arch):
+    """The reference's ``test_train_loss_decreases``, on the port: a
+    dense model and the deepseek smoke model (MLA and MoE; 4 x 64 tokens
+    a step, four router groups)."""
+    cfg = tcfg.get_smoke(arch)
     out = train(cfg, steps=30, batch=4, seq=64, log_every=0,
                 opt_cfg=AdamWConfig(lr=3e-3, warmup_steps=5,
                                     total_steps=30), device="cpu")
