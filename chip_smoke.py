@@ -33,6 +33,19 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    idle share and device time by kernel;
 6. witness: the same data at K = 16, the planted rank, for 30 sweeps;
    the test RMSE must fall below twice the planted noise;
+6b. bf16_gather: the bf16 branches the reference's ``bf16_gather``
+   sweep reaches (``gram_gathered_bf16``, ``sddmm_bf16``,
+   ``sddmm_gathered_bf16``, ``sddmm_padded_mixed`` for probit,
+   ``sddmm_padded_bf16`` for the distributed residuals) against their
+   plain versions at the probes in bf16 and at the slice's shapes, each
+   fused entry bitwise the pipeline it replaces, timed beside the plain
+   version, the pipeline and the fp32 entry; ``ModelBuilder(num_latent=
+   128, bf16_gather=True)`` on the slice for 2 + 4 sweeps (median sweep
+   and peak beside the fp32 slice's, the launches by entry: the bf16
+   entries on the path, the fp32 gathered ones at 0, one profiled
+   sweep); the K = 16 witness in bf16 (test RMSE within 10% of fp32's);
+   probit at 16,384 compounds through the mixed padded entry; the ptxas
+   lines of every bf16 instance (a spill of one the path runs fails);
 7. serving: trains a 32-sample store of the slice (``save_freq=1``),
    reloads it with ``PredictSession`` (predictions must reproduce the
    in-session posterior mean), serves 64 requests in each direction of
@@ -48,7 +61,10 @@ From the root of a checkout, on a machine with one NVIDIA H100:
    K = 128 (2,048 compounds x 8,192 proteins) with the port's
    checkpoint code and serves ``PredictSession.recommend_rows`` from it
    at k = 100 and k = 2,048, held bitwise against B = 1 calls and
-   against the plain version;
+   against the plain version; ``topk_score_bf16`` at both serving
+   shapes on bf16 copies of the stored stacks (against its plain
+   version, bitwise the fp32 kernel on the widened copies and B = 1
+   calls, timed);
 8. macau (``macau_chembl``): the slice's compounds and widths with
    2,048-bit side information (about 50 bits a compound, a planted
    link) through ``add_entity(side_info=)``; a save_freq store, its
@@ -80,9 +96,11 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     the fourth within 2e-4), probit at 16,384 compounds under eager,
     every sweep's collectives held against ``contract_for``, and
     ``TrainSession(mesh=...)`` 1 + 1 sweeps into a store that
-    ``PredictSession`` reads; then probes whether gloo takes CUDA
-    tensors and, if it does, runs two ranks on the one card through
-    gloo (eager, each rank's half of the rows at its offset);
+    ``PredictSession`` reads, the slice with ``bf16_gather`` under eager
+    and ring (the wire bf16 at ``contract_wire_bytes``); then probes
+    whether gloo takes CUDA tensors (and bf16 ones) and, if it does,
+    runs two ranks on the one card through gloo (eager, each rank's half
+    of the rows at its offset; then bf16 under eager and ring);
 15. lm: holds the ``flash`` kernels against their plain version at the
    reference's probes, ragged cases, GQA groups of 3 and 1 at hd 64
    and the prefill shape, each through the design ``flash.design``
@@ -169,6 +187,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+T0 = time.perf_counter()   # the script's start
 GOLDEN = ROOT / "results" / "golden_chains.json"
 
 # H100 SXM data sheet: fp32 outside the tensor cores, bf16 dense in the
@@ -342,18 +361,37 @@ def phase_card():
         raise AssertionError(f"gram's main-path kernel spills or is "
                              f"missing: {spills}")
     # sddmm's kernels; the gathered entries' tiled kernel has one
-    # instance a step width: none spills, and the main path's (float4)
-    # is there
+    # instance a step width and operand kind (fp32, bf16, fp32 u against
+    # bf16 rows): none spills, and the main paths' (4 a step: fp32, and
+    # the bf16 sweep's bf16 and mixed) are there
     sddmm = ptxas_by_kernel(_build.build_log("sddmm"))
     for kernel, lines in sddmm.items():
         print(f"  ptxas sddmm {kernel}: " + "; ".join(lines))
     tiles = {k: v for k, v in sddmm.items()
              if k.startswith("sddmm_tiles_kernel")}
-    if "sddmm_tiles_kernel<float4>" not in tiles or any(
+    want = {f"sddmm_tiles_kernel<float4, {kind}>"
+            for kind in ("f32", "bf16", "f32 x bf16")}
+    if not want <= set(tiles) or any(
             " 0 bytes spill stores" not in line
             for lines in tiles.values() for line in lines if "spill" in line):
         raise AssertionError(f"sddmm's tiled kernel spills or is missing: "
                              f"{tiles}")
+    # the bf16 branches' other instances: gram's rows kernel (the bf16
+    # sweep's, K <= 128; its tiled kernels above K = 128 are printed
+    # with the others above) and topk_score's scoring kernels in bf16;
+    # none of these spills
+    bf16 = {"gram gram_rows_kernel<bf16>": spills.get(
+        "gram_rows_kernel<bf16>")}
+    bf16.update({f"topk_score {k}": v for k, v in ptxas_by_kernel(
+        _build.build_log("topk_score")).items() if "bf16" in k})
+    for kernel, lines in bf16.items():
+        print(f"  ptxas {kernel}: " + "; ".join(lines or []))
+    if not bf16["gram gram_rows_kernel<bf16>"] or sum(
+            k.startswith("topk_score score_kernel") for k in bf16) != 8 or any(
+            " 0 bytes spill stores" not in line
+            for lines in bf16.values() for line in lines if "spill" in line):
+        raise AssertionError(f"a bf16 instance spills or is missing: "
+                             f"{bf16}")
     return smi
 
 
@@ -369,7 +407,10 @@ def ptxas_by_kernel(log: str):
             mangled = m.group(1)
             k = re.search(r"(gram_rows_kernel|gram_tiled_kernel)I"
                           r"(13__nv_bfloat16|f)(Lb[01])?", mangled)
-            t = re.search(r"sddmm_tiles_kernelILb([01])E", mangled)
+            t = re.search(r"sddmm_tiles_kernelILb([01])ELi([012])E",
+                          mangled)
+            sc = re.search(r"score_kernelILi(\d+)ELb([01])E"
+                           r"(f|13__nv_bfloat16)", mangled)
             f = re.search(r"(dkdv_kernel|dq_kernel|stats_kernel|"
                           r"dkdv_bf16_kernel|dq_bf16_kernel|delta_kernel)"
                           r"I(Li(\d+)E(?:Li(\d+)E)?|f|13__nv_bfloat16)",
@@ -379,7 +420,12 @@ def ptxas_by_kernel(log: str):
                 + (f", {k.group(3)[-1] == '1'}" if k.group(3) else "") + ">")
             if t:
                 name = (f"sddmm_tiles_kernel<"
-                        f"{'float4' if t.group(1) == '1' else 'float'}>")
+                        f"{'float4' if t.group(1) == '1' else 'float'}, "
+                        f"{('f32', 'bf16', 'f32 x bf16')[int(t.group(2))]}>")
+            if sc:
+                name = (f"score_kernel<{sc.group(1)}, "
+                        f"{'TMA' if sc.group(2) == '1' else 'plain'}, "
+                        f"{'f32' if sc.group(3) == 'f' else 'bf16'}>")
             if f:
                 widths = ", ".join(w for w in f.group(3, 4) if w)
                 name = f"{f.group(1)}<" + (
@@ -778,6 +824,299 @@ def gram_main_path(train, U, V, gen, errs):
             "previous_source": PREVIOUS_GRAM}
 
 
+# bf16_gather: the bf16 branches of gram's gathered entry, sddmm and
+# topk_score against their plain versions.  Every product of two bf16
+# values is exact in fp32, so the kernels differ from the plain versions
+# only by the order of fp32 sums, as in fp32: the same tolerances
+BF16_REASON = ("bf16 operands widened exactly on both sides, products "
+               "exact in fp32, fp32 sums in another order: GRAM_TOL and "
+               "SDDMM_TOL of the sum of the terms' magnitudes")
+BF16_LIBRARY = {
+    "gram_gathered_bf16": "none: no PyTorch call rounds val * mask to bf16 "
+                          "and takes the Gram of bf16 rows in fp32 (torch.bmm "
+                          "on bf16 returns bf16)",
+    "sddmm_bf16": "none: torch.linalg.vecdot and einsum on bf16 return bf16 "
+                  "(the kernel's sums are fp32)",
+    "sddmm_gathered_bf16": "none: as sddmm_bf16, and "
+                           "torch.sparse.sampled_addmm returns bf16 values "
+                           "on bf16 factors",
+    "topk_score_bf16": "none: einsum over bf16 stacks returns bf16 scores"}
+
+
+def bf16_pipeline_gram(fixed, idx, val, mask, alpha, lam, acc=None):
+    """The pipeline the bf16 gathered entry replaces: ``index_select`` of
+    the bf16 rows, ``gram_bf16`` on the slab, then ``mul_`` by alpha,
+    ``add_`` into acc and ``add_`` of Lambda_p, each rounded apart."""
+    from repro_torch.kernels import gram as kgram
+    R, T = idx.shape
+    vg = fixed.index_select(0, idx.reshape(-1)).reshape(R, T, -1)
+    g, r = kgram.gram_cuda(vg, val, mask)
+    del vg
+    g.mul_(alpha)
+    r.mul_(alpha)
+    if acc is not None:
+        g = acc[0].add_(g)
+        r = acc[1].add_(r)
+    return g.add_(lam), r
+
+
+def bf16_kernels_main_path(train, gen):
+    """The bf16 entries of the bf16_gather sweep (``gram_gathered_bf16``,
+    ``sddmm_bf16``, ``sddmm_gathered_bf16`` and the padded entries:
+    ``sddmm_padded_mixed`` for probit, ``sddmm_padded_bf16`` for the
+    distributed residuals) at the reference's probes in bf16 and at the
+    sweep's shapes: held against their plain versions (GRAM_TOL,
+    SDDMM_TOL), each fused entry bitwise the pipeline it replaces
+    (``index_select`` + the pre-gathered bf16 entry, for sddmm as the
+    ROADMAP's Watch asks) and the padded entries bitwise the fp32 entry
+    on the widened rows; timed beside the plain version, the pipeline
+    and the fp32 entry at the same shape.  Returns the kernels-line
+    entries (without launches)."""
+    import torch
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sddmm as ksddmm
+    dev, K = train.device, 128
+    bf = torch.bfloat16
+    print(f"bf16 tolerance: {BF16_REASON}")
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    errs = dict.fromkeys(("gram", "sddmm", "gathered", "mixed"), 0.0)
+    for label, (E, k) in ops.KERNELS["sddmm_bf16"].items():
+        u, v = rand(E, k).to(bf), rand(E, k).to(bf)
+        p = ksddmm.sddmm_cuda(u, v)
+        e = max_err(p, ref.sddmm_ref(u, v), ref.sddmm_ref(u.abs(), v.abs()),
+                    SDDMM_TOL, f"sddmm bf16 {label}")
+        errs["sddmm"] = max(errs["sddmm"], e)
+        print(f"  sddmm_bf16 {label}: max abs err {e:.3e}")
+    for label, probe in ops.KERNELS["sddmm_gathered"].items():
+        U_, V_, i, j = ops.gathered_sddmm_probe(*probe, dev)
+        U_, V_ = U_.to(bf), V_.to(bf)
+        p = ksddmm.sddmm_gathered_cuda(U_, V_, i, j)
+        e = max_err(p, ref.gathered_sddmm_ref(U_, V_, i, j),
+                    ref.gathered_sddmm_ref(U_.abs(), V_.abs(), i, j),
+                    SDDMM_TOL, f"gathered sddmm bf16 {label}")
+        if not bits(p, ksddmm.sddmm_cuda(U_.index_select(0, i),
+                                         V_.index_select(0, j))):
+            raise AssertionError(f"gathered sddmm bf16 {label}: not the bits "
+                                 "of index_select x 2 + sddmm_bf16")
+        errs["gathered"] = max(errs["gathered"], e)
+        print(f"  sddmm_gathered_bf16 {label}: max abs err {e:.3e}; bitwise "
+              "index_select x 2 + sddmm_bf16")
+
+    # gram's gathered bf16 entry at the reference's bf16 probe shape
+    (R, T, k), _ = ops.KERNELS["gram"]["bf16 gathered operands"]
+    fixed16 = rand(4 * R, k).to(bf)
+    idx = torch.randint(0, 4 * R, (R, T), device=dev, generator=gen,
+                        dtype=torch.int32)
+    val, alpha = rand(R, T), torch.tensor(0.7, device=dev)
+    mask = (torch.rand(R, T, device=dev, generator=gen) > 0.2).float()
+    lam = rand(k, k)
+    got = kgram.gathered_gram_cuda(fixed16, idx, val, mask, alpha, lam=lam)
+    want = ref.gathered_gram_ref(fixed16, idx, val, mask, alpha, lam=lam)
+    scale = ref.gathered_gram_ref(fixed16.abs(), idx, val.abs(), mask, alpha,
+                                  lam=lam.abs())
+    e = max(max_err(got[0], want[0], scale[0], GRAM_TOL, "gram bf16 probe"),
+            max_err(got[1], want[1], scale[1], GRAM_TOL, "rhs bf16 probe"))
+    if not all(bits(a, b) for a, b in zip(got, bf16_pipeline_gram(
+            fixed16, idx, val, mask, alpha, lam))):
+        raise AssertionError("gram_gathered_bf16 at the bf16 probe: not the "
+                             "bits of index_select + gram_bf16 + mul_ + add_")
+    errs["gram"] = e
+    print(f"  gram_gathered_bf16 bf16 gathered operands r{R} t{T} K{k}: max "
+          f"abs err {e:.3e}; bitwise index_select + gram_bf16 + mul_ + add_")
+
+    U, V = rand(train.n_rows, K), rand(train.n_cols, K)
+    U16, V16 = U.to(bf), V.to(bf)
+    out = {}
+
+    # gram's gathered entry at both half-sweeps, alpha and a Lambda_p
+    # that is not symmetric, once with acc
+    alpha = torch.tensor(1.0 / NOISE ** 2, device=dev)
+    W = rand(K, K)
+    lam = W @ W.mT / K + 1e-3 * rand(K, K)
+    t = dict.fromkeys(("ms", "plain_ms", "pipeline_ms", "f32_ms",
+                       "bound_ms"), 0.0)
+    by = {"bytes": 0.0, "operations": 0.0}
+    for name, padded, fixed, fixed16 in (("rows", train.rows, V, V16),
+                                         ("cols", train.cols, U, U16)):
+        idx, val, mask = padded.idx, padded.val, padded.mask
+        R, T = idx.shape
+        label = f"{name} R={R} T={T} K={K}"
+        for with_acc in (False, True):
+            acc = (rand(R, K, K), rand(R, K)) if with_acc else None
+            copy = (lambda: None) if acc is None else \
+                (lambda: tuple(a.clone() for a in acc))
+            got = kgram.gathered_gram_cuda(fixed16, idx, val, mask, alpha,
+                                           lam=lam, acc=copy())
+            torch.cuda.synchronize()
+            want = ref.gathered_gram_ref(fixed16, idx, val, mask, alpha,
+                                         lam=lam, acc=copy())
+            scale = ref.gathered_gram_ref(
+                fixed16.abs(), idx, val.abs(), mask, alpha, lam=lam.abs(),
+                acc=None if acc is None else tuple(a.abs() for a in acc))
+            e = max(max_err(got[0], want[0], scale[0], GRAM_TOL,
+                            f"gathered gram bf16 {label}"),
+                    max_err(got[1], want[1], scale[1], GRAM_TOL,
+                            f"gathered rhs bf16 {label}"))
+            del want, scale
+            pipe = bf16_pipeline_gram(fixed16, idx, val, mask, alpha, lam,
+                                      acc=copy())
+            if not all(bits(a, b) for a, b in zip(got, pipe)):
+                raise AssertionError(f"gathered gram bf16 {label}: not the "
+                                     "bits of index_select + gram_bf16 + "
+                                     "mul_ + add_")
+            errs["gram"] = max(errs["gram"], e)
+            print(f"  gram_gathered_bf16 {label}"
+                  f"{', acc' if with_acc else ''}: max abs err {e:.3e}; "
+                  "bitwise index_select + gram_bf16 + mul_ + add_")
+            del got, pipe, acc
+            torch.cuda.empty_cache()
+        nnz = float(mask.sum())
+        n_bytes = 2 * fixed16.numel() + 4 * (3 * R * T + R * K * K + R * K)
+        n_ops = nnz * K * (K + 1) + 2 * nnz * K
+        # bf16 x bf16 products summed in fp32: the tensor cores' bf16 rate
+        b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
+        ms = time_ms(lambda: kgram.gathered_gram_cuda(fixed16, idx, val,
+                                                      mask, alpha, lam=lam))
+        f32 = time_ms(lambda: kgram.gathered_gram_cuda(fixed, idx, val, mask,
+                                                       alpha, lam=lam))
+        pipe = time_ms(lambda: bf16_pipeline_gram(fixed16, idx, val, mask,
+                                                  alpha, lam), n=5)
+        plain = time_ms(lambda: ref.gathered_gram_ref(
+            fixed16, idx, val, mask, alpha, lam=lam), n=5)
+        torch.cuda.empty_cache()
+        print(f"  gram_gathered_bf16 {label}: {ms:.3f} ms (fp32 entry "
+              f"{f32:.3f} ms), bound {b_ms:.3f} ms by {b_by} "
+              f"({n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP; "
+              f"{b_ms / ms:.3f} of it); pipeline {pipe:.3f} ms; plain "
+              f"{plain:.3f} ms")
+        for key, val_ in (("ms", ms), ("plain_ms", plain),
+                          ("pipeline_ms", pipe), ("f32_ms", f32),
+                          ("bound_ms", b_ms)):
+            t[key] += val_
+        by[b_by] += b_ms
+    print(f"  gram_gathered_bf16, both half-sweeps: {t['ms']:.3f} ms (fp32 "
+          f"entry {t['f32_ms']:.3f}), bound {t['bound_ms']:.3f} ms")
+    out["gram_gathered_bf16"] = {
+        "name": "gram_gathered_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gram.cu",
+        "replaces": "src/repro/kernels/gram.py:83", "max_abs_err":
+        errs["gram"], **t, "bound_by": max(by, key=by.get),
+        "library_ms": None, "library_note": BF16_LIBRARY["gram_gathered_bf16"]}
+
+    # sddmm: the pre-gathered entry and the observed entries
+    i, j = train.coo_i, train.coo_j
+    E = i.shape[0]
+    ug, vg = U16.index_select(0, i), V16.index_select(0, j)
+    p = ksddmm.sddmm_cuda(ug, vg)
+    e = max_err(p, ref.sddmm_ref(ug, vg), ref.sddmm_ref(ug.abs(), vg.abs()),
+                SDDMM_TOL, f"sddmm bf16 main path E={E}")
+    errs["sddmm"] = max(errs["sddmm"], e)
+    ms = time_ms(lambda: ksddmm.sddmm_cuda(ug, vg))
+    f32 = time_ms(lambda: ksddmm.sddmm_cuda(ug.float(), vg.float()))
+    plain = time_ms(lambda: ref.sddmm_ref(ug, vg))
+    b_ms, b_by = bound(2 * 2 * E * K + 4 * E, 2 * E * K, PEAK_BF16_FLOPS)
+    print(f"  sddmm_bf16 E={E} K={K}: {ms:.3f} ms, max abs err {e:.3e}; "
+          f"plain {plain:.3f} ms; fp32 entry on widened copies (with the "
+          f"copies) {f32:.3f} ms; bound {b_ms:.3f} ms by {b_by}")
+    out["sddmm_bf16"] = {
+        "name": "sddmm_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sddmm.cu",
+        "replaces": "src/repro/kernels/sddmm.py:53", "max_abs_err":
+        errs["sddmm"], "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+        "library_note": BF16_LIBRARY["sddmm_bf16"]}
+    got = ksddmm.sddmm_gathered_cuda(U16, V16, i, j)
+    e = max_err(got, ref.sddmm_ref(ug, vg), ref.sddmm_ref(ug.abs(),
+                                                          vg.abs()),
+                SDDMM_TOL, f"gathered sddmm bf16 observed entries E={E}")
+    if not bits(got, p):
+        raise AssertionError("gathered sddmm bf16, observed entries: not the "
+                             "bits of index_select x 2 + sddmm_bf16")
+    errs["gathered"] = max(errs["gathered"], e)
+    del ug, vg, p, got
+    ms = time_ms(lambda: ksddmm.sddmm_gathered_cuda(U16, V16, i, j))
+    f32 = time_ms(lambda: ksddmm.sddmm_gathered_cuda(U, V, i, j))
+    pipe = time_ms(lambda: ksddmm.sddmm_cuda(U16.index_select(0, i),
+                                             V16.index_select(0, j)))
+    plain = time_ms(lambda: ref.gathered_sddmm_ref(U16, V16, i, j))
+    b_ms, b_by = bound(2 * (U16.numel() + V16.numel()) + 4 * 3 * E,
+                       2 * E * K, PEAK_BF16_FLOPS)
+    print(f"  sddmm_gathered_bf16 observed entries E={E} K={K}: {ms:.3f} ms "
+          f"(fp32 entry {f32:.3f} ms), max abs err {e:.3e}, bitwise "
+          f"index_select x 2 + sddmm_bf16; pipeline {pipe:.3f} ms; plain "
+          f"{plain:.3f} ms; bound {b_ms:.3f} ms by {b_by}")
+    out["sddmm_gathered_bf16"] = {
+        "name": "sddmm_gathered_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sddmm.cu",
+        "replaces": "src/repro/kernels/sddmm.py:53",
+        "max_abs_err": errs["gathered"], "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "pipeline_ms": pipe,
+        "f32_ms": f32, "library_ms": None,
+        "library_note": BF16_LIBRARY["sddmm_gathered_bf16"]}
+
+    # the padded entries: probit's fp32 u against bf16 rows, both sides,
+    # and the distributed residuals' bf16 x bf16
+    mixed = dict.fromkeys(("ms", "plain_ms", "f32_ms", "bound_ms"), 0.0)
+    mby = {"bytes": 0.0, "operations": 0.0}
+    for name, u, fixed16, idx in (("rows", U, V16, train.rows.idx),
+                                  ("cols", V, U16, train.cols.idx)):
+        R, T = idx.shape
+        label = f"probit {name} side {R} x {T} slots K={K}"
+        got = ksddmm.sddmm_padded_cuda(u, fixed16, idx)
+        wide = fixed16.float()
+        if not bits(got, ksddmm.sddmm_padded_cuda(u, wide, idx)):
+            raise AssertionError(f"sddmm_padded_mixed {label}: not the bits "
+                                 "of the fp32 entry on the widened rows")
+        want = ref.gathered_sddmm_padded_ref(u, fixed16, idx)
+        e = max_err(got, want, ref.gathered_sddmm_padded_ref(
+            u.abs(), fixed16.abs(), idx), SDDMM_TOL, f"mixed {label}")
+        errs["mixed"] = max(errs["mixed"], e)
+        del got, want
+        ms = time_ms(lambda: ksddmm.sddmm_padded_cuda(u, fixed16, idx))
+        f32 = time_ms(lambda: ksddmm.sddmm_padded_cuda(u, wide, idx))
+        plain = time_ms(lambda: ref.gathered_sddmm_padded_ref(u, fixed16,
+                                                              idx))
+        del wide
+        b_ms, b_by = bound(4 * u.numel() + 2 * fixed16.numel()
+                           + 4 * 2 * R * T, 2 * R * T * K)
+        print(f"  sddmm_padded_mixed {label}: {ms:.3f} ms (fp32 entry "
+              f"{f32:.3f} ms), max abs err {e:.3e}, bitwise the fp32 entry "
+              f"on the widened rows; plain {plain:.3f} ms; bound "
+              f"{b_ms:.3f} ms by {b_by}")
+        for key, val_ in (("ms", ms), ("plain_ms", plain), ("f32_ms", f32),
+                          ("bound_ms", b_ms)):
+            mixed[key] += val_
+        mby[b_by] += b_ms
+        u16 = u.to(bf)
+        got = ksddmm.sddmm_padded_cuda(u16, fixed16, idx)
+        if not bits(got, ksddmm.sddmm_padded_cuda(u16.float(),
+                                                  fixed16.float(), idx)):
+            raise AssertionError(f"sddmm_padded_bf16 {name}: not the bits of "
+                                 "the fp32 entry on the widened operands")
+        print(f"  sddmm_padded_bf16 {name} side (the distributed "
+              "residuals): bitwise the fp32 entry on the widened operands")
+        del got, u16
+    torch.cuda.empty_cache()
+    out["sddmm_padded_mixed"] = {
+        "name": "sddmm_padded_mixed", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sddmm.cu",
+        "replaces": "src/repro/kernels/sddmm.py:53",
+        "max_abs_err": errs["mixed"], **mixed,
+        "bound_by": max(mby, key=mby.get), "library_ms": None,
+        "library_note": BF16_LIBRARY["sddmm_gathered_bf16"]}
+    del U, V, U16, V16
+    torch.cuda.empty_cache()
+    return out
+
+
 def golden_views(seed: int):
     """The golden ``gfa`` chain's two dense views (48 x 16 and 48 x 12),
     a planted K = 4 product plus 0.1 noise, from numpy."""
@@ -973,14 +1312,15 @@ def phase_slice(train, test, burnin: int, nsamples: int, seed: int):
     return sess, res, counts, sweep_ms
 
 
-def phase_witness(train, test, seed: int):
+def phase_witness(train, test, seed: int, bf16_gather: bool = False):
     """The slice's data at K = 16, the planted rank, run to convergence:
     on the card, the test-set predictions (``PredictAccumulator`` and the
     test-set sddmm) must come near the planted noise.  At K = 128 with
-    64 observations per compound six sweeps cannot show that."""
+    64 observations per compound six sweeps cannot show that.  Returns
+    the test RMSE."""
     import torch
     from repro_torch.core import AdaptiveGaussian, ModelBuilder
-    b = ModelBuilder(num_latent=16)
+    b = ModelBuilder(num_latent=16, bf16_gather=bf16_gather)
     b.add_entity("compound", train.n_rows)
     b.add_entity("protein", train.n_cols)
     b.add_block("compound", "protein", train, test=test,
@@ -988,13 +1328,110 @@ def phase_witness(train, test, seed: int):
     res = b.session(burnin=WITNESS_SWEEPS[0], nsamples=WITNESS_SWEEPS[1],
                     seed=seed).run()
     zero = float(torch.as_tensor(test[2]).square().mean().sqrt())
-    print(f"witness K=16, {sum(WITNESS_SWEEPS)} sweeps: rmse_train "
+    print(f"witness K=16{', bf16_gather' if bf16_gather else ''}, "
+          f"{sum(WITNESS_SWEEPS)} sweeps: rmse_train "
           f"{res.rmse_train_trace[0]:.4f} -> {res.rmse_train_trace[-1]:.4f}"
           f", rmse_test {res.rmse_test:.4f} (planted noise {NOISE}, "
           f"predicting 0 gives {zero:.4f}), runtime_s {res.runtime_s:.3f}")
     if not res.rmse_test < 2 * NOISE:
         raise AssertionError(f"witness: rmse_test {res.rmse_test} is not "
                              f"below twice the planted noise {NOISE}")
+    return res.rmse_test
+
+
+BF16_SWEEPS = (2, 4)       # burn-in, posterior samples of the bf16 slice
+BF16_PROBIT = 16384        # compounds of the bf16 probit run
+BF16_PROBIT_SWEEPS = (2, 1)
+
+
+def phase_bf16(train, test, seed: int, gen, fp32):
+    """``ModelBuilder(bf16_gather=True)`` (the reference's production
+    variant, ``mf_dryrun --variant bf16gather``) at the slice's full
+    width: the bf16 entries against their plain versions
+    (``bf16_kernels_main_path``); 2 + 4 sweeps of the slice, the median
+    sweep and the peak beside the fp32 slice's (``fp32``: its median ms,
+    peak bytes and test RMSE), the train RMSE trace, the launches by
+    entry (the bf16 entries on the path, the fp32 gathered entries not
+    at all); one profiled sweep; the K = 16 witness in bf16 beside
+    fp32's; probit at 16,384 compounds through the mixed padded entry.
+    Returns (kernels-line entries, the launches of the slice's run and
+    of the probit run)."""
+    import math
+    import torch
+    from repro_torch.core import AdaptiveGaussian, ModelBuilder, ProbitNoise
+    from repro_torch.kernels import ops
+    entries = bf16_kernels_main_path(train, gen)
+    torch.cuda.empty_cache()
+
+    burnin, nsamples = BF16_SWEEPS
+    sweeps = burnin + nsamples
+    b = ModelBuilder(num_latent=128, bf16_gather=True)
+    b.add_entity("compound", train.n_rows)
+    b.add_entity("protein", train.n_cols)
+    b.add_block("compound", "protein", train, test=test,
+                noise=AdaptiveGaussian())
+    sess = b.session(burnin=burnin, nsamples=nsamples, seed=seed)
+    ops.reset_launch_counts()
+    res, ms, peak = run_timed(sess)
+    counts = ops.launch_counts()
+    check_finite("bf16 slice", res)
+    if not math.isfinite(res.rmse_test):
+        raise AssertionError(f"bf16 slice: rmse_test {res.rmse_test}")
+    first, later = res.rmse_train_trace[0], res.rmse_train_trace[1:]
+    if not min(later) < first:
+        raise AssertionError(f"bf16 slice: rmse_train never fell below the "
+                             f"first sweep's: {res.rmse_train_trace}")
+    # the bf16 entries carry the path: gram's a half-sweep, the gathered
+    # sddmm's a sweep (the residuals); the test set's sddmm is fp32 (the
+    # posterior samples are the fp32 factors), one a sample; the fp32
+    # gathered entries are not launched
+    check_launches("bf16 slice", counts,
+                   {"gram_gathered_bf16": 2 * sweeps,
+                    "sddmm_gathered_bf16": sweeps, "sddmm": nsamples})
+    trace = [round(v, 6) for v in res.rmse_train_trace]
+    med = sweep_summary(
+        "bf16 slice", ms, peak,
+        f"; fp32 slice median {fp32['ms']:.1f} ms, peak "
+        f"{fp32['peak'] / 1e9:.2f} GB; rmse_train {trace}; rmse_test "
+        f"{res.rmse_test:.6f} (fp32 slice {fp32['rmse_test']:.6f}); launches "
+        f"{counts}")
+    profile_sweep(sess.model, sess.data, res.state, med, "bf16 slice "
+                  "profile", top=8)
+    del sess, res
+    torch.cuda.empty_cache()
+
+    rmse16 = phase_witness(train, test, seed, bf16_gather=True)
+    print(f"witness: test RMSE bf16_gather {rmse16:.4f}, fp32 "
+          f"{fp32['witness']:.4f}")
+    if not abs(rmse16 - fp32["witness"]) < 0.1 * fp32["witness"]:
+        raise AssertionError(f"witness: bf16 test RMSE {rmse16} is not "
+                             f"within 10% of fp32's {fp32['witness']}")
+
+    small, stest = slice_data(BF16_PROBIT, seed, "cuda")
+    mat = with_values(small, (small.coo_v > 0).float())
+    test_b = (stest[0], stest[1], (stest[2] > 0).astype("float32"))
+    burnin, nsamples = BF16_PROBIT_SWEEPS
+    sweeps = burnin + nsamples
+    b = ModelBuilder(num_latent=128, bf16_gather=True)
+    b.add_entity("compound", small.n_rows)
+    b.add_entity("protein", small.n_cols)
+    b.add_block("compound", "protein", mat, test=test_b, noise=ProbitNoise())
+    sess = b.session(burnin=burnin, nsamples=nsamples, seed=seed)
+    ops.reset_launch_counts()
+    res, ms, peak = run_timed(sess)
+    pcounts = ops.launch_counts()
+    check_finite("bf16 probit", res)
+    # the latents around the mixed entry's predictions, one a half-sweep
+    check_launches("bf16 probit", pcounts,
+                   {"gram_gathered_bf16": 2 * sweeps,
+                    "sddmm_padded_mixed": 2 * sweeps,
+                    "sddmm_gathered_bf16": sweeps, "sddmm": nsamples})
+    sweep_summary(f"bf16 probit ({BF16_PROBIT} compounds)", ms, peak,
+                  f"; rmse_train {[round(v, 6) for v in res.rmse_train_trace]}"
+                  f"; test AUC {res.auc_test:.4f}; launches {pcounts}")
+    del sess, res, mat, small
+    torch.cuda.empty_cache()
+    return entries, {"slice": counts, "probit": pcounts}
 
 
 def observed_items(padded, users):
@@ -1048,19 +1485,26 @@ def step_breakdown(sess, path):
     from repro_torch.launch.serve import RecommendServer
     users = [int(u) for u in path["users"][:SERVE_SLOTS]]
     excl = path["excl"][:SERVE_SLOTS]
-    srv = RecommendServer(sess, slots=SERVE_SLOTS, k=SERVE_K,
-                          block=path["block"])
-    for u, e in zip(users, excl):
-        srv.submit(user=u, exclude=e)
-    srv._admit()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        srv.step()
+    # a profile of this one short step has come back without its device
+    # events once in many runs: a second step is profiled then, and said
+    for attempt in range(2):
+        srv = RecommendServer(sess, slots=SERVE_SLOTS, k=SERVE_K,
+                              block=path["block"])
+        for u, e in zip(users, excl):
+            srv.submit(user=u, exclude=e)
+        srv._admit()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = busy_ms(prof.events())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            srv.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = busy_ms(prof.events())
+        if busy > 0:
+            break
+        print(f"  one step, {path['label']}: the profile holds no device "
+              f"event (try {attempt + 1}); profiling another step")
     if not 0 < busy <= wall:
         raise AssertionError(f"serving profile: busy {busy} of {wall} ms")
     _, ie = sess._block_entities(path["block"])
@@ -1135,6 +1579,69 @@ def time_topk(us, v, k, excl, label):
           f"scoring block, {plan.route} route, {plan.lists} lists, "
           f"{plan.merges} merge rounds")
     return {"ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def topk_bf16(shapes, check, launches: int):
+    """``topk_score_bf16`` at both serving shapes, on bf16 copies of the
+    stored stacks and user rows: held against the plain version's bf16
+    branch (``check``), bitwise the fp32 kernel on the widened copies
+    (the same float program) and a batched call bitwise B single-user
+    calls; timed beside the plain version and the fp32 kernel.
+    ``launches`` is its count in the serving path's run: no path of the
+    reference reaches this branch (its serving scores fp32 stores).
+    Returns the kernels-line entry."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import topk_score as ktopk
+    entry = {"name": "topk_score_bf16", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/topk_score.cu",
+             "replaces": "src/repro/kernels/topk_score.py:139",
+             "launches": launches, "launches_note": "the serving path's "
+             "count; no path of the reference reaches the bf16 branch; "
+             "held and timed here",
+             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "f32_ms": 0.0,
+             "library_ms": None, "library_note": BF16_LIBRARY[
+                 "topk_score_bf16"]}
+    by = {"bytes": 0.0, "operations": 0.0}
+    errs = []
+    for label, us, v, excl in shapes:
+        S, N, K = v.shape
+        label = f"{label} bf16 B={SERVE_SLOTS} S={S} N={N} K={K}"
+        us16, v16 = us.to(torch.bfloat16), v.to(torch.bfloat16)
+        before = ktopk.launches["topk_score_bf16"]
+        got = check(us16, v16, SERVE_K, excl, label)
+        if ktopk.launches["topk_score_bf16"] != before + 1:
+            raise AssertionError(f"topk_score {label}: not one bf16 launch")
+        wide = ops.topk_score(us16.float(), v16.float(), SERVE_K,
+                              exclude=excl)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, wide)):
+            raise AssertionError(f"topk_score {label}: not the bits of the "
+                                 "fp32 kernel on the widened copies")
+        same_as_single_calls(us16, v16, SERVE_K, excl, label)
+        errs.append(ref.check_topk_score(
+            got, plain_topk(us16, v16, SERVE_K, excl), us16.float(),
+            v16.float(), f"topk_score {label}")[0])
+        ms = time_ms(lambda: ktopk.topk_score_cuda(us16, v16, excl,
+                                                   SERVE_K))
+        f32 = time_ms(lambda: ktopk.topk_score_cuda(us, v, excl, SERVE_K))
+        plain = time_ms(lambda: ref.topk_score_ref(us16, v16, excl,
+                                                   SERVE_K))
+        B = us.shape[0]
+        n_bytes = 2 * (B * S * K + S * N * K) + 4 * B * N + 12 * B * SERVE_K
+        b_ms, b_by = bound(n_bytes, 2 * B * S * N * K + 3 * B * S * N,
+                           PEAK_BF16_FLOPS)
+        print(f"  topk_score {label}: {ms:.3f} ms (fp32 kernel {f32:.3f} "
+              f"ms), bitwise the fp32 kernel on the widened copies and "
+              f"{SERVE_SLOTS} calls with B=1; plain {plain:.3f} ms; bound "
+              f"{b_ms:.3f} ms by {b_by}")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("f32_ms", f32),
+                         ("bound_ms", b_ms)):
+            entry[key] += val
+        by[b_by] += b_ms
+    entry["bound_by"] = max(by, key=by.get)
+    entry["max_abs_err"] = max(errs)
+    return entry
 
 
 def _n_sm() -> int:
@@ -1212,8 +1719,7 @@ def serve_store512(seed: int):
                 for k in (SERVE_K, STORE512_K)}
         wall = (time.perf_counter() - t0) * 1e3
         counts = ops.launch_counts()
-        want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0,
-                "topk_score": 2, "flash": 0, "flash_bwd": 0}
+        want = {**dict.fromkeys(counts, 0), "topk_score": 2}
         if counts != want:
             raise AssertionError(f"store512: launch counts {counts}, want "
                                  f"{want}")
@@ -1254,7 +1760,8 @@ def phase_serving(train, test, seed: int, gen):
     """The serving path: a store trained at the slice's width, reloaded
     by ``PredictSession`` and served through ``RecommendServer`` in both
     directions of the block; then the kernel against its plain version.
-    Returns the ``topk_score`` entry of the kernels line."""
+    Returns the ``topk_score`` and ``topk_score_bf16`` entries of the
+    kernels line."""
     import shutil
     import tempfile
     import numpy as np
@@ -1484,10 +1991,11 @@ def phase_serving(train, test, seed: int, gen):
         print(f"  topk_score, one call at each path shape: "
               f"{entry['ms']:.3f} ms (first design {entry['previous_ms']:.3f}"
               f"), bound {entry['bound_ms']:.3f} ms")
+        entry16 = topk_bf16(shapes, check, counts["topk_score_bf16"])
         del sess, cache, shapes, us, v, excl
         torch.cuda.empty_cache()
         serve_store512(seed)
-        return entry
+        return entry, entry16
     finally:
         shutil.rmtree(store, ignore_errors=True)
 
@@ -2073,9 +2581,9 @@ DIST_GLOO_SWEEPS = 2
 DIST_TOL = dict(rtol=2e-4, atol=2e-4)   # the reference's distributed tol
 
 
-def _dist_model(train, device, noise):
+def _dist_model(train, device, noise, bf16_gather: bool = False):
     from repro_torch.core import ModelBuilder
-    b = ModelBuilder(num_latent=128, device=device)
+    b = ModelBuilder(num_latent=128, device=device, bf16_gather=bf16_gather)
     b.add_entity("compound", train.n_rows)
     b.add_entity("protein", train.n_cols)
     b.add_block("compound", "protein", train, noise=noise)
@@ -2087,10 +2595,42 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def wire_bytes(census, contract) -> int:
+    """The bytes a rank received in a sweep, from its census: the
+    exchange's elements sent (an all-gather receives S - 1 times what it
+    sends, a ring hop what it sends) at the contract's item size, plus
+    ``contract_wire_bytes``' estimate of the all-reduces."""
+    S = contract.n_shards
+    if S <= 1:
+        return 0
+    item = 2 if contract.wire_dtype == "bf16" else 4
+    recv = census["wire_elems"] * item * (
+        S - 1 if contract.pipeline == "eager" else 1)
+    reduces = contract.all_reduces * contract.max_reduce_elems * 4 * (
+        (S - 1) / S)
+    return int(recv + reduces)
+
+
+def check_wire(label, model, census, contract):
+    """The exchange in the contract's dtype, at ``contract_wire_bytes``."""
+    from repro_torch.analysis.contract import contract_wire_bytes
+    moved = contract.all_gathers + contract.collective_permutes
+    if moved and census["wire_dtypes"] != [contract.wire_dtype]:
+        raise AssertionError(f"{label}: wire {census['wire_dtypes']}, "
+                             f"contract {contract.wire_dtype}")
+    got, want = wire_bytes(census, contract), contract_wire_bytes(model,
+                                                                  contract)
+    if got != want:
+        raise AssertionError(f"{label}: {got} bytes on the wire, "
+                             f"contract_wire_bytes {want}")
+    return got
+
+
 def _dist_chain(label, model, data, step, ldata, st, world, pipe):
     """1 + 3 sweeps of a placed chain: (sweep-1 state, last state, ms
     of the timed sweeps, launches); each sweep's census held against
-    ``contract_for`` and the kernels' operands checked 16-byte aligned."""
+    ``contract_for`` (its wire dtype and ``contract_wire_bytes`` too) and
+    the kernels' operands checked 16-byte aligned."""
     import torch
     from repro_torch.analysis.contract import assert_census, contract_for
     from repro_torch.core import distributed as D
@@ -2107,6 +2647,7 @@ def _dist_chain(label, model, data, step, ldata, st, world, pipe):
         if s >= DIST_SWEEPS[0]:
             ms.append((time.perf_counter() - t0) * 1e3)
         assert_census(contract, D.census(), where=f"{label} sweep {s}")
+        check_wire(f"{label} sweep {s}", model, D.census(), contract)
         rmse.append(float(m["rmse_train_0"]))
         if s == 0:
             first = step.gather_state(st)
@@ -2163,13 +2704,15 @@ def dist_rank(rank, world, out, seed):
         f"{torch.distributed.get_backend()}", flush=True)
     train, test = slice_data(COMPOUNDS, seed, dev)
     launches = {}
-    for label, mat, noise, pipes in (
-            ("slice", train, AdaptiveGaussian(), ("eager", "ring")),
-            ("probit", None, ProbitNoise(), ("eager",))):
+    for label, mat, noise, pipes, bf16 in (
+            ("slice", train, AdaptiveGaussian(), ("eager", "ring"), False),
+            ("probit", None, ProbitNoise(), ("eager",), False),
+            ("slice bf16_gather", train, AdaptiveGaussian(),
+             ("eager", "ring"), True)):
         if mat is None:
             small, _ = slice_data(DIST_PROBIT, seed, dev)
             mat = with_values(small, (small.coo_v > 0).float())
-        model, data = _dist_model(mat, dev, noise)
+        model, data = _dist_model(mat, dev, noise, bf16)
         st0 = init_state(model, data, seed)
         single_ms, single_rmse, st = [], [], st0
         for s in range(sum(DIST_SWEEPS)):
@@ -2196,9 +2739,17 @@ def dist_rank(rank, world, out, seed):
             firsts[pipe] = first
             launches[f"{label}_{pipe}"] = counts
             sweeps = sum(DIST_SWEEPS)
-            want = {"gram": 2 * sweeps,
-                    "sddmm_gathered": (3 if label == "probit" else 1)
-                    * sweeps}
+            if bf16:
+                # the bf16 entries, the residuals through the padded
+                # bf16 x bf16 one; no fp32 gathered entry
+                want = {"gram_gathered_bf16": 2 * sweeps,
+                        "sddmm_padded_bf16": sweeps,
+                        "sddmm_gathered_bf16": 0, "gram": 0,
+                        "sddmm_gathered": 0}
+            else:
+                want = {"gram": 2 * sweeps,
+                        "sddmm_gathered": (3 if label == "probit" else 1)
+                        * sweeps}
             got = {k: counts[k] for k in want}
             if got != want or counts["sddmm"]:
                 raise AssertionError(f"distributed {label}/{pipe}: launches "
@@ -2211,8 +2762,12 @@ def dist_rank(rank, world, out, seed):
             # chain (probit's tails most) carries past an elementwise
             # bound: there the rmse of each sweep is held at rtol 1e-3
             # and the factors are reported
+            # bf16: after the first sweep an element of a factor near a
+            # bf16 rounding boundary may round the other way in one of
+            # the two (their fp32 factors differ by the alpha's ULPs),
+            # so later sweeps are reported
             hold1 = "bitwise" if world == 1 else "report"
-            hold = ("report" if world > 1 else
+            hold = ("report" if world > 1 or bf16 else
                     "bitwise" if label == "probit" else "elementwise")
             bits1 = _held(f"{label}/{pipe} sweep 1", first, single_first,
                           hold1)
@@ -2229,8 +2784,9 @@ def dist_rank(rank, world, out, seed):
                      f"{bits}; census a sweep {contract.all_gathers} "
                      f"all-gathers, {contract.collective_permutes} hops, "
                      f"{contract.all_reduces} all-reduces (max "
-                     f"{contract.max_reduce_elems} elements), as "
-                     "contract_for; launches " + str(got))
+                     f"{contract.max_reduce_elems} elements), wire "
+                     f"{contract.wire_dtype}, as contract_for; launches "
+                     + str(got))
             del step, ldata, lst, first
             torch.cuda.empty_cache()
         if "ring" in firsts and not all(
@@ -2275,12 +2831,22 @@ def dist_rank(rank, world, out, seed):
 
 
 def dist_gloo_probe(rank, world, out):
-    """Whether gloo takes CUDA tensors for the sweep's two collectives,
-    with both ranks on the one card."""
+    """Whether gloo takes CUDA tensors for the sweep's collectives, with
+    both ranks on the one card: fp32 all-gather and all-reduce, then in
+    bf16 the eager exchange's all-gather and, last, the ring's hop
+    (``batch_isend_irecv``).  Rank 0 appends each step it passed to
+    ``out/probe.txt`` before the next, since gloo may end a rank's
+    process on a tensor it does not take."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+
+    def passed(step):
+        if rank == 0:
+            with open(Path(out) / "probe.txt", "a") as f:
+                f.write(step + "\n")
+
     x = torch.full((4, 8), float(rank), device="cuda")
     full = torch.empty((4 * world, 8), device="cuda")
     dist.all_gather_into_tensor(full, x)
@@ -2290,13 +2856,32 @@ def dist_gloo_probe(rank, world, out):
                                for _ in range(4)] or y.tolist() != [world] * 3:
         raise AssertionError(f"gloo over CUDA tensors: wrong values "
                              f"{full[:, 0].tolist()} {y.tolist()}")
+    passed("fp32")
+    x = torch.full((4, 8), rank + 0.5, device="cuda", dtype=torch.bfloat16)
+    full = torch.empty((4 * world, 8), device="cuda", dtype=torch.bfloat16)
+    dist.all_gather_into_tensor(full, x)
+    got = full[:, 0].float().tolist()
+    if got != [r + 0.5 for r in range(world) for _ in range(4)]:
+        raise AssertionError(f"gloo bf16 all_gather: {got}")
+    passed("all_gather")
+    nxt = torch.empty_like(x)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, (rank - 1) % world),
+            dist.P2POp(dist.irecv, nxt, (rank + 1) % world)]):
+        req.wait()
+    if float(nxt[0, 0]) != (rank + 1) % world + 0.5:
+        raise AssertionError(f"gloo bf16 ring_hop: {float(nxt[0, 0])}")
 
 
-def dist_gloo_rank(rank, world, out, seed):
-    """Two ranks on the one card through gloo, eager: each holds half the
-    slice's rows at an offset, in tensors of its own.  The first sweep
-    is held within 2e-4 of the single-device sweep's, the second's rmse
-    at rtol 1e-3 (its factors reported: see ``dist_rank``)."""
+def dist_gloo_rank(rank, world, out, seed, bf16_pipes):
+    """Two ranks on the one card through gloo: each holds half the
+    slice's rows at an offset, in tensors of its own.  fp32 under eager,
+    then ``bf16_gather`` under the pipelines of ``bf16_pipes`` (those
+    whose collective gloo takes in bf16), the wire held at
+    ``contract_wire_bytes`` in bf16.
+    The first fp32 sweep is held within 2e-4 of the single-device
+    sweep's; every sweep's rmse at rtol 1e-3 (the other factors
+    reported: see ``dist_rank``)."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.analysis.contract import assert_census, contract_for
@@ -2305,42 +2890,58 @@ def dist_gloo_rank(rank, world, out, seed):
     dev = f"cuda:{torch.cuda.current_device()}"
     mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
     train, _ = slice_data(COMPOUNDS, seed, dev)
-    model, data = _dist_model(train, dev, AdaptiveGaussian())
-    st0 = init_state(model, data, seed)
-    step, ldata, st = D.make_distributed_step(model, mesh, data, st0,
-                                              "eager")
-    contract = contract_for(model, (world,), "eager")
-    ms, rmse, gathered = [], [], []
-    for s in range(DIST_GLOO_SWEEPS):
-        D.reset_census()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, m = step(ldata, st)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        assert_census(contract, D.census(), where=f"gloo sweep {s}")
-        rmse.append(float(m["rmse_train_0"]))
-        gathered.append(step.gather_state(st))
-    if not _aligned(*st.factors):
-        raise AssertionError("gloo: a factor shard is not 16-byte aligned")
-    del step, ldata, st
-    if rank == 0:
-        want, report = st0, []
+    runs = [(False, "eager")] + [(True, pipe) for pipe in bf16_pipes]
+    for bf16, pipe in runs:
+        model, data = _dist_model(train, dev, AdaptiveGaussian(), bf16)
+        st0 = init_state(model, data, seed)
+        step, ldata, st = D.make_distributed_step(model, mesh, data, st0,
+                                                  pipe)
+        contract = contract_for(model, (world,), pipe)
+        ms, rmse, gathered, wire = [], [], [], 0
         for s in range(DIST_GLOO_SWEEPS):
-            want, m = gibbs_step(model, data, want)
-            hold = "elementwise" if s == 0 else "report"
-            report.append(f"sweep {s + 1} "
-                          + _held(f"gloo sweep {s + 1}", gathered[s], want,
-                                  hold))
-            if abs(rmse[s] - float(m["rmse_train_0"])) > 1e-3 * float(
-                    m["rmse_train_0"]):
-                raise AssertionError(f"gloo sweep {s + 1}: rmse_train "
-                                     f"{rmse[s]} against {m['rmse_train_0']}")
-        print(f"distributed (b): world of {world} ranks on one card through "
-              f"gloo, eager, {DIST_GLOO_SWEEPS} sweeps of the slice "
-              f"(ranks at rows 0 and {COMPOUNDS // world}): sweeps "
-              + ", ".join(f"{t:.1f}" for t in ms) + " ms; vs the "
-              "single-device sweeps: " + "; ".join(report), flush=True)
+            D.reset_census()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(ldata, st)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            assert_census(contract, D.census(), where=f"gloo sweep {s}")
+            wire = check_wire(f"gloo sweep {s}", model, D.census(),
+                              contract)
+            rmse.append(float(m["rmse_train_0"]))
+            gathered.append(step.gather_state(st))
+        if not _aligned(*st.factors):
+            raise AssertionError("gloo: a factor shard is not 16-byte "
+                                 "aligned")
+        del step, ldata, st
+        if rank == 0:
+            want, report = st0, []
+            for s in range(DIST_GLOO_SWEEPS):
+                want, m = gibbs_step(model, data, want)
+                # bf16: the two ranks sum the hyper moments in another
+                # order, so the first half-sweep's fp32 factor moves by
+                # ULPs and a few elements of its bf16 copy round the
+                # other way; the later half-sweep carries that past an
+                # elementwise bound, so bf16 factors are reported
+                hold = "elementwise" if s == 0 and not bf16 else "report"
+                report.append(f"sweep {s + 1} "
+                              + _held(f"gloo sweep {s + 1}", gathered[s],
+                                      want, hold))
+                if abs(rmse[s] - float(m["rmse_train_0"])) > 1e-3 * float(
+                        m["rmse_train_0"]):
+                    raise AssertionError(
+                        f"gloo sweep {s + 1}: rmse_train {rmse[s]} against "
+                        f"{m['rmse_train_0']}")
+            print(f"distributed (b): world of {world} ranks on one card "
+                  f"through gloo, {'bf16_gather, ' if bf16 else ''}{pipe}, "
+                  f"{DIST_GLOO_SWEEPS} sweeps of the slice (ranks at rows 0 "
+                  f"and {COMPOUNDS // world}): sweeps "
+                  + ", ".join(f"{t:.1f}" for t in ms) + " ms; wire "
+                  f"{contract.wire_dtype}, {wire} bytes a sweep received by "
+                  "a rank = contract_wire_bytes; vs the single-device "
+                  "sweeps: " + "; ".join(report), flush=True)
+        del model, data, st0, gathered
+        torch.cuda.empty_cache()
 
 
 def phase_distributed(seed: int):
@@ -2349,11 +2950,14 @@ def phase_distributed(seed: int):
     width under eager and ring, 1 + 3 sweeps, beside the single-device
     sweep (at one rank the first sweep bitwise it, ring's bitwise
     eager's, the fourth within 2e-4), probit at 16,384 compounds under
-    eager, each sweep's collectives held against ``contract_for``, and
-    ``TrainSession(mesh=...)`` for 1 + 1 sweeps into a store; (b) where
-    gloo takes CUDA tensors (probed first), two ranks on the one card
-    through gloo, eager.  Returns the kernels' launches on the
-    distributed path."""
+    eager, the slice with ``bf16_gather`` under eager and ring, each
+    sweep's collectives held against ``contract_for`` (the wire's dtype
+    and ``contract_wire_bytes`` too), and ``TrainSession(mesh=...)`` for
+    1 + 1 sweeps into a store; (b) where gloo takes CUDA tensors (probed
+    first in one world, fp32 and then each bf16 collective), two ranks
+    on the one card through gloo: eager, then bf16 under the pipelines
+    whose collective gloo takes.  Returns the kernels'
+    launches on the distributed path."""
     import tempfile
     import torch
     from repro_torch.runtime import run_world
@@ -2367,20 +2971,42 @@ def phase_distributed(seed: int):
         print(f"distributed (a): world of {n} in "
               f"{time.perf_counter() - t0:.1f} s (ranks' start included)")
         launches = json.loads((Path(tmp) / "launches.json").read_text())
+        # one world probes gloo: fp32, then the bf16 exchange of each
+        # pipeline; the bf16 runs take the pipelines whose collective it
+        # takes (the ring's hop, the last step, only if the world ended
+        # well)
         try:
             run_world("chip_smoke:dist_gloo_probe", 2, device_type="cuda",
                       backend="gloo", local_ranks=[0, 0],
                       workdir=Path(tmp) / "probe", args=(tmp,),
-                      extra_paths=[str(ROOT)], timeout_s=300)
-        except RuntimeError as err:
-            tail = [line for line in str(err).splitlines() if line.strip()]
+                      extra_paths=[str(ROOT)], timeout_s=120)
+            err = None
+        except RuntimeError as exc:
+            tail = [line for line in str(exc).splitlines() if line.strip()]
+            err = tail[-1] if tail else str(exc)
+        probe = Path(tmp) / "probe.txt"
+        done = probe.read_text().split() if probe.exists() else []
+        if "fp32" not in done:
             print("distributed (b): left out: gloo does not take CUDA "
-                  f"tensors here: {tail[-1] if tail else err}")
+                  f"tensors here: {err}")
             return launches
+        pipes = []
+        for what, pipe, ok in (("all_gather", "eager", "all_gather" in done),
+                               ("ring_hop", "ring", err is None)):
+            if ok:
+                pipes.append(pipe)
+                found = "taken"
+            elif what == "ring_hop" and "all_gather" not in done:
+                found = "not reached"
+            else:
+                found = f"refused ({err})"
+            print(f"distributed (b): gloo on bf16 CUDA tensors, {what}: "
+                  f"{found}")
         t0 = time.perf_counter()
         outs = run_world("chip_smoke:dist_gloo_rank", 2, device_type="cuda",
                          backend="gloo", local_ranks=[0, 0],
-                         workdir=Path(tmp) / "gloo", args=(tmp, seed),
+                         workdir=Path(tmp) / "gloo",
+                         args=(tmp, seed, pipes),
                          extra_paths=[str(ROOT)], timeout_s=600)
         print(outs[0], end="")
         print(f"distributed (b): in {time.perf_counter() - t0:.1f} s")
@@ -2766,7 +3392,7 @@ def phase_lm(seed: int, flash_entry, arch: str = LM_ARCH,
     counts = ops.launch_counts()
     # forwards: the timed ones, generate's prefill and the one decode is
     # held against
-    want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0, "topk_score": 0,
+    want = {**dict.fromkeys(counts, 0),
             "flash": cfg.n_layers * (n_fwd + 2 + n_extra), "flash_bwd": 0}
     if counts != want or kflash.design_launches[source] != want["flash"]:
         raise AssertionError(f"lm: launch counts {counts} "
@@ -3494,7 +4120,7 @@ def phase_train(seed: int, bwd_entry):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_layers = cfg.n_layers
-    want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0, "topk_score": 0,
+    want = {**dict.fromkeys(counts, 0),
             "flash": 2 * n_layers * TRAIN_STEPS,
             "flash_bwd": n_layers * TRAIN_STEPS}
     if counts != want or kflash.design_launches["flash_sm90"] != \
@@ -3767,7 +4393,7 @@ def phase_train_mla(seed: int, entry):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_stack = len(run["params"].stack)
-    want = {"gram": 0, "sddmm": 0, "sddmm_gathered": 0, "topk_score": 0,
+    want = {**dict.fromkeys(counts, 0),
             "flash": (cfg.n_layers + n_stack) * steps,
             "flash_bwd": cfg.n_layers * steps}
     if counts != want or kflash.design_launches["flash_sm90"] != \
@@ -3980,6 +4606,11 @@ def phase_profile(sess, res, sweep_ms):
                              "index_select in a sweep, want none")
 
 
+def header(text: str) -> None:
+    """A phase's header line, with the seconds since the script began."""
+    print(f"{text} [{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4000,59 +4631,67 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     sys.path.insert(0, str(ROOT / "scripts_dev"))
 
-    print("== card")
+    header("== card")
     phase_card()
-    print(f"== data: {COMPOUNDS} compounds x 8192 proteins, seed "
-          f"{args.seed}")
+    header(f"== data: {COMPOUNDS} compounds x 8192 proteins, seed "
+           f"{args.seed}")
     t0 = time.perf_counter()
     train, test = slice_data(COMPOUNDS, args.seed, "cuda")
     print(f"data: {int(train.nnz)} training entries, {test[0].size} "
           f"test entries, row T={train.rows.max_nnz}, col "
           f"T={train.cols.max_nnz}, {time.perf_counter() - t0:.1f} s")
-    print("== kernels vs plain versions")
+    header("== kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     entries = phase_kernels(train, gen)
-    print("== golden chain")
+    header("== golden chain")
     phase_golden()
-    print("== slice")
+    header("== slice")
     burnin, nsamples = SWEEPS
     sess, res, counts, sweep_ms = phase_slice(train, test, burnin,
                                               nsamples, args.seed)
-    print("== profile")
+    # the run's peak: run_timed reset the statistics before it
+    fp32 = {"ms": statistics.median(sweep_ms[1:]),
+            "peak": torch.cuda.max_memory_allocated(),
+            "rmse_test": res.rmse_test}
+    header("== profile")
     phase_profile(sess, res, sweep_ms)
     del sess, res
-    print("== witness: the test predictions where the model is well posed")
-    phase_witness(train, test, args.seed)
+    header("== witness: the test predictions where the model is well posed")
+    fp32["witness"] = phase_witness(train, test, args.seed)
     torch.cuda.empty_cache()
-    print("== serving: store, PredictSession, RecommendServer, topk_score")
-    topk = phase_serving(train, test, args.seed, gen)
+    header("== bf16_gather: the bf16 kernels, the slice, the witness and "
+           "probit with ModelBuilder(bf16_gather=True)")
+    bf16, bf16_counts = phase_bf16(train, test, args.seed, gen, fp32)
     torch.cuda.empty_cache()
-    print("== macau: side information, store, predict_new, cold start")
+    header("== serving: store, PredictSession, RecommendServer, topk_score")
+    topk, topk16 = phase_serving(train, test, args.seed, gen)
+    torch.cuda.empty_cache()
+    header("== macau: side information, store, predict_new, cold start")
     phase_macau(train, args.seed)
     torch.cuda.empty_cache()
-    print("== probit: binary activities through probit noise")
+    header("== probit: binary activities through probit noise")
     phase_probit(train, test, args.seed)
     del train, test
     torch.cuda.empty_cache()
-    print("== dense: one fully observed block, the shared-Gram path")
+    header("== dense: one fully observed block, the shared-Gram path")
     phase_dense(args.seed)
-    print("== gfa: spike-and-slab loadings over dense views")
+    header("== gfa: spike-and-slab loadings over dense views")
     phase_gfa(args.seed)
-    print("== chains: two chains, each bitwise its single-chain run")
+    header("== chains: two chains, each bitwise its single-chain run")
     phase_chains(args.seed)
     torch.cuda.empty_cache()
-    print("== sessions: two chains, store, resume, reload, serve, trace, "
-          "GFASession")
+    header("== sessions: two chains, store, resume, reload, serve, trace, "
+           "GFASession")
     phase_sessions(args.seed)
-    print("== distributed: the sweep over torch.distributed, eager and "
-          "ring")
+    header("== distributed: the sweep over torch.distributed, eager and "
+           "ring")
     dist_launches = phase_distributed(args.seed)
     torch.cuda.empty_cache()
-    print("== lm: flash, Qwen3-4B forward, generate, BatchedServer")
+    header("== lm: flash, Qwen3-4B forward, generate, BatchedServer")
     flash = phase_lm(args.seed, phase_flash(gen))
     torch.cuda.empty_cache()
-    print("== train: the LSE forward, flash_bwd, SmolLM-135M training, "
-          "resume")
+    header("== train: the LSE forward, flash_bwd, SmolLM-135M training, "
+           "resume")
     bwd, bwd_mla = phase_flash_bwd(gen)
     bwd, flash["train_launches"] = phase_train(args.seed, bwd)
     flash["train_launches_per_step"] = flash["train_launches"] \
@@ -4065,8 +4704,8 @@ def main(argv=None) -> int:
                      "lm phase, train_launches the train phase")
     gc.collect()
     torch.cuda.empty_cache()
-    print("== deepseek: the two-width flash, DeepSeek-V2-Lite forward, "
-          "generate, BatchedServer")
+    header("== deepseek: the two-width flash, DeepSeek-V2-Lite forward, "
+           "generate, BatchedServer")
     flash_mla = phase_lm(args.seed, phase_flash_mla(gen), arch=DS_ARCH,
                          agree_min=None)
     gc.collect()
@@ -4074,21 +4713,47 @@ def main(argv=None) -> int:
     phase_decode_fp32(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"== train mla: DeepSeek-V2-Lite at full width, "
-          f"{MLA_TRAIN_LAYERS} layers, through the two-width flash "
-          "backward")
+    header(f"== train mla: DeepSeek-V2-Lite at full width, "
+           f"{MLA_TRAIN_LAYERS} layers, through the two-width flash "
+           "backward")
     bwd_mla = phase_train_mla(args.seed, bwd_mla)
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]
+    # the bf16 entries' launches on the bf16_gather paths: the slice's
+    # run, and probit's for the mixed padded entry; the pre-gathered
+    # bf16 sddmm is the reference's entry, which the port's sweep
+    # replaces by the gathered one
+    for name, run in (("gram_gathered_bf16", "slice"),
+                      ("sddmm_gathered_bf16", "slice"),
+                      ("sddmm_padded_mixed", "probit")):
+        bf16[name]["launches"] = bf16_counts[run][name]
+        bf16[name]["launches_path"] = f"bf16_gather {run}"
+    bf16["sddmm_bf16"]["launches"] = bf16_counts["slice"]["sddmm_bf16"]
+    bf16["sddmm_bf16"]["launches_note"] = (
+        "the reference's pre-gathered entry; the port's sweep runs "
+        "sddmm_gathered_bf16 in its place")
     # the same kernels' launches in the distributed phase's runs (slice
-    # eager and ring, probit eager; 4 sweeps each), apart from the main
-    # path's
+    # eager and ring, probit eager, the bf16 slice eager and ring; 4
+    # sweeps each), apart from the main path's
     for name in ("gram", "sddmm_gathered"):
         entries[name]["distributed_launches"] = {
-            run: c[name] for run, c in dist_launches.items()}
+            run: c[name] for run, c in dist_launches.items()
+            if "bf16" not in run}
+    # (the bf16 runs' residuals go through the padded bf16 x bf16 entry,
+    # which the sddmm_padded_mixed entry holds beside the mixed one)
+    for name, key in (("gram_gathered_bf16", "gram_gathered_bf16"),
+                      ("sddmm_padded_mixed", "sddmm_padded_bf16")):
+        bf16[name]["distributed_launches"] = {
+            run: c[key] for run, c in dist_launches.items() if "bf16" in run}
+    bf16["sddmm_padded_mixed"]["distributed_entry"] = "sddmm_padded_bf16"
+    header("== done: every phase passed")
     print(json.dumps({"kernels": [entries["gram"], entries["sddmm"],
                                   entries["sddmm_gathered"], topk,
+                                  bf16["gram_gathered_bf16"],
+                                  bf16["sddmm_bf16"],
+                                  bf16["sddmm_gathered_bf16"],
+                                  bf16["sddmm_padded_mixed"], topk16,
                                   flash, bwd, flash_mla, bwd_mla]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,9 @@ The arithmetic half of ``repro/analysis/contract.py``.  A
                              (K^2 Normal, max(K^2, D K) Macau, K
                              spike-and-slab): Macau's (D, D) side^T side
                              is never reduced;
-* ``wire_dtype``          -- the exchange's dtype, ``"f32"`` (the port
-                             refuses ``bf16_gather``);
+* ``wire_dtype``          -- the exchange's dtype: ``"bf16"`` when
+                             ``ModelDef.bf16_gather`` (the factor is cast
+                             before it travels), else ``"f32"``;
 * ``chains``              -- chains a row-shard group sweeps a call:
                              every count above is their total.
 
@@ -125,7 +126,8 @@ def contract_for(model, mesh_shape: Sequence[int],
     return CommContract(
         pipeline=pipeline, n_shards=n_shards, all_gathers=ag * local,
         collective_permutes=cp * local, all_reduces=ar * local,
-        max_reduce_elems=elems, wire_dtype="f32", chains=local)
+        max_reduce_elems=elems,
+        wire_dtype="bf16" if model.bf16_gather else "f32", chains=local)
 
 
 def contract_wire_bytes(model, contract: CommContract) -> int:

@@ -113,12 +113,24 @@ class ModelDef:
 
     ``device`` is where the chain's state lives: ``None`` means the
     card, and raises when there is none (pass ``"cpu"`` for the CPU).
+
+    ``bf16_gather``: cast the *fixed* factor to bf16 before the padded
+    gather in each half-sweep.  On a sharded mesh the cast happens
+    before the all-gather, halving the dominant collective payload;
+    the Gram/rhs accumulation still runs in f32 (the conditioning
+    values carry ~1e-3 relative noise -- immaterial to a Gibbs chain).
+    The reference's flag: one bf16 copy of each other entity's factor
+    serves every consumer of an entity update (``gibbs.gather_view``),
+    and each consumer reads the bf16 values widened exactly at its
+    products, as the reference's compiled sweep does
+    (``core/gibbs.py`` says where it still rounds).
     """
 
     entities: Tuple[EntityDef, ...]
     blocks: Tuple[BlockDef, ...]
     num_latent: int
     device: Any = None
+    bf16_gather: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))

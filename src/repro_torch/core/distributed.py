@@ -13,8 +13,10 @@ starts a rank that way).  ``mesh`` is a
   ``FACTOR_AXES`` order (the reference's ``_shard_index``); each rank
   holds its shard in tensors of its own (``clone``, never a view at an
   offset, so the kernels see aligned, contiguous operands);
-* the *fixed* factor of each half-sweep is needed whole on every rank.
-  How it travels is ``pipeline`` (default ``REPRO_PIPELINE``, else
+* the *fixed* factor of each half-sweep is needed whole on every rank,
+  in bf16 when ``ModelDef.bf16_gather`` (cast before it travels, so the
+  wire carries half the bytes, as the reference's does).  How it
+  travels is ``pipeline`` (default ``REPRO_PIPELINE``, else
   ``"eager"``):
 
   - ``"eager"``: one ``all_gather_into_tensor`` per half-sweep; the last
@@ -423,6 +425,12 @@ def _ring_accumulate(lay: Layout, f_shard: torch.Tensor, init, chunk_fn):
     return acc
 
 
+def _wire_cast(model: ModelDef, f: torch.Tensor) -> torch.Tensor:
+    """A factor as it travels and is read whole: bf16 under
+    ``bf16_gather``, else itself."""
+    return f.to(torch.bfloat16) if model.bf16_gather else f
+
+
 def _place_chunk(full: torch.Tensor, chunk: torch.Tensor, c0: int):
     full[c0:c0 + chunk.shape[0]].copy_(chunk)
     return full
@@ -513,7 +521,8 @@ def _stream_dense(model: ModelDef, lay: Layout, data: MFData, e: int,
                 rh.add_(drh)
             return acc
 
-        accs = _ring_accumulate(lay, factors[o], init, chunk_fn)
+        accs = _ring_accumulate(lay, _wire_cast(model, factors[o]), init,
+                                chunk_fn)
         for (_, _, _, alpha), (gs, gr, rh) in zip(prep, accs):
             if gs is not None:
                 gram_shared = alpha * gs if gram_shared is None \
@@ -537,7 +546,11 @@ def _sharded_sweep(model: ModelDef, lay: Layout, ring: bool, data: MFData,
     on the exchanged fixed view; the hyper moments and each block's sse
     and nnz all-reduced.  The residuals are taken at the padded slots of
     the last-updated entity's orientation (``ops.gathered_sddmm_padded``
-    for sparse blocks) against the last half-sweep's view.
+    for sparse blocks) against the last half-sweep's view.  With
+    ``bf16_gather`` every exchanged view is bf16 (cast before the
+    collective) and so is the later entity's factor there, and the
+    predictions are fp32 sums of their exact products (the reference
+    types them bf16, and its compiled program computes them in fp32).
     """
     S, group = lay.n_shards, lay.group
     keys = random.split(state.key, len(model.entities) + 2)
@@ -550,7 +563,7 @@ def _sharded_sweep(model: ModelDef, lay: Layout, ring: bool, data: MFData,
 
     def fixed_view(o: int) -> torch.Tensor:
         if o not in gathered:
-            f = factors[o]
+            f = _wire_cast(model, factors[o])
             if ring:
                 full = torch.empty((model.entities[o].n_rows, f.shape[1]),
                                    dtype=f.dtype, device=f.device)
@@ -588,7 +601,7 @@ def _sharded_sweep(model: ModelDef, lay: Layout, ring: bool, data: MFData,
         e_last = max(blk.row_entity, blk.col_entity)
         payload = data.blocks[bi]
         fixed = gathered[blk.other(e_last)]
-        v = factors[e_last]
+        v = _wire_cast(model, factors[e_last])
         if blk.sparse:
             padded = payload.rows if blk.row_entity == e_last \
                 else payload.cols
@@ -596,7 +609,7 @@ def _sharded_sweep(model: ModelDef, lay: Layout, ring: bool, data: MFData,
             pred = ops.gathered_sddmm_padded(v, fixed, padded.idx)
         else:
             vals, msk = payload.oriented(blk.row_entity == e_last)
-            pred = v @ fixed.T
+            pred = v.float() @ fixed.float().T
         resid = (vals - pred) * msk
         se = _all_reduce(torch.sum(resid * resid), group)
         nnz = _all_reduce(torch.sum(msk), group)

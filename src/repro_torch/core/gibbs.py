@@ -28,6 +28,24 @@ are split in the reference's order, so the chain draws the same numbers
 as ``repro``'s.  ``multi_chain_step`` runs several chains, one after the
 other: chain c is the single-chain run keyed ``chain_keys(seed, C)[c]``.
 
+With ``ModelDef.bf16_gather`` every consumer of an entity update reads
+one bf16 copy of each other entity's current factor (``gather_view``),
+and the sweep-end metrics one more of every factor: the Gram of the
+gathered rows (``gathered_gram_and_rhs``'s bf16 entry), probit's padded
+predictions (fp32 u against the bf16 rows), the dense contributions,
+the spike-and-slab update and the predictions at the observed entries
+(``gathered_sddmm``'s bf16 entry).  Every product reads the bf16 values
+widened exactly, so it is exact in fp32: where JAX types a product of
+two bf16 operands bf16 (a dense block's shared Gram ``fixed.T @ fixed``,
+the dense predictions ``U @ V.T``, spike-and-slab's ``f_k * f_k``), its
+only consumers are fp32, and XLA's compiled program computes it in fp32
+(the convert folds into the dot or the multiply; the reference's
+``gibbs_step`` is jitted).  The roundings that remain are the
+reference's explicit ones: ``val * mask`` to bf16 in the Gram's rhs,
+and the bf16 result of ``jnp.sum`` over a fully observed view in the
+spike-and-slab update.  Without the flag the program is the fp32 one,
+bit for bit.
+
 Unlike the reference's pure functions, the factor update works in place
 on the freshly allocated (N, K, K) Gram: at 131,072 rows and K = 128
 each such buffer is 8.6 GB, and an out-of-place sum would hold two.
@@ -202,13 +220,14 @@ def _dense_contrib(payload: DenseBlock, as_row: bool, fixed: torch.Tensor,
     Gram for every row, a masked one a (R, K, K) Gram per row.
     ``row_offset`` as in ``_sparse_contrib``."""
     X, m = payload.oriented(as_row)             # (R, C)
-    pred = u_cur @ fixed.T if isinstance(noise, ProbitNoise) else None
+    wide = fixed.float()     # a bf16 fixed, widened exactly
+    pred = u_cur @ wide.T if isinstance(noise, ProbitNoise) else None
     vals, alpha = noise.augment(key, nstate, pred, X, m,
                                 row_offset=row_offset)
     if payload.fully:
-        return alpha * (fixed.T @ fixed), None, alpha * (vals @ fixed)
-    gram_rows = alpha * torch.einsum("rc,ck,cl->rkl", m, fixed, fixed)
-    return None, gram_rows, alpha * ((vals * m) @ fixed)
+        return alpha * (wide.T @ wide), None, alpha * (vals @ wide)
+    gram_rows = alpha * torch.einsum("rc,ck,cl->rkl", m, wide, wide)
+    return None, gram_rows, alpha * ((vals * m) @ wide)
 
 
 def _dense_chunk_contrib(vals: torch.Tensor, m: torch.Tensor, fully: bool,
@@ -217,13 +236,15 @@ def _dense_chunk_contrib(vals: torch.Tensor, m: torch.Tensor, fully: bool,
     ``[c0, c0 + Cc)`` (``chunk``): summed over any partition of the
     columns they equal the whole block's up to f32 summation order.
     ``vals``/``m`` are the full oriented (R, C) payload, already
-    augmented; alpha is applied by the caller after the sum."""
+    augmented; alpha is applied by the caller after the sum.  A bf16
+    chunk (``bf16_gather``) is widened exactly, as in ``_dense_contrib``."""
     vs = vals[:, c0:c0 + chunk.shape[0]]
+    wide = chunk.float()
     if fully:
-        return chunk.T @ chunk, None, vs @ chunk
+        return wide.T @ wide, None, vs @ wide
     ms = m[:, c0:c0 + chunk.shape[0]]
-    gram_rows = torch.einsum("rc,ck,cl->rkl", ms, chunk, chunk)
-    return None, gram_rows, (vs * ms) @ chunk
+    gram_rows = torch.einsum("rc,ck,cl->rkl", ms, wide, wide)
+    return None, gram_rows, (vs * ms) @ wide
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +333,10 @@ def _sample_sns_factor(model: ModelDef, data: MFData, key, e: int,
     ``fixed_view(o)`` is the whole factor of entity ``o``; ``u`` and the
     blocks' rows may be a row shard whose row 0 has the global index
     ``row_offset``: q and l are row-local, and both draws are
-    counter-based on the global row.
+    counter-based on the global row.  A bf16 view (``bf16_gather``) is
+    widened exactly at every product; a fully observed block's
+    sum_c f_k^2 is rounded to bf16, as the reference's ``jnp.sum`` of a
+    bf16 vector is.
     ``trace``, when a list, receives ``(k, p_incl, s)`` per component
     (the tests read the inclusion odds there).
     """
@@ -328,12 +352,12 @@ def _sample_sns_factor(model: ModelDef, data: MFData, key, e: int,
             R, T = padded.idx.shape
             vg = fixed.index_select(0, padded.idx.reshape(-1)).reshape(
                 R, T, -1)                                # (R, T, K)
-            pred = torch.einsum("rtk,rk->rt", vg, u)
+            pred = torch.einsum("rtk,rk->rt", vg.float(), u)
             views.append(["sp", vg, padded.val, padded.mask, pred, alpha])
         else:
             X, m = payload.oriented(as_row)
             kind = "df" if payload.fully else "dn"
-            views.append([kind, fixed, X, m, u @ fixed.T, alpha])
+            views.append([kind, fixed, X, m, u @ fixed.float().T, alpha])
 
     rho, tau = hyper["rho"], hyper["tau"]
     k_incl, k_slab = random.split(key)
@@ -345,18 +369,18 @@ def _sample_sns_factor(model: ModelDef, data: MFData, key, e: int,
         for view in views:
             kind, Fv, val, m, pred, alpha = view
             if kind == "sp":
-                fk = Fv[:, :, k]                         # (R, T)
+                fk = Fv[:, :, k].float()                 # (R, T)
                 pred = pred - u[:, k][:, None] * fk
                 view[4] = pred
                 q = q + alpha * torch.sum(fk * fk * m, dim=-1)
                 l = l + alpha * torch.sum((val - pred) * m * fk, dim=-1)
                 continue
-            fk = Fv[:, k]                                # (C,)
+            fk = Fv[:, k].float()                        # (C,)
             pred.addr_(u[:, k], fk, alpha=-1.0)
             if kind == "df":
                 # fully observed: every row shares sum_c fk_c^2 and the
                 # mask multiply drops
-                q = q + alpha * torch.sum(fk * fk)
+                q = q + alpha * torch.sum(fk * fk).to(Fv.dtype).float()
                 l = l + alpha * ((val - pred) @ fk)
             else:
                 q = q + alpha * (m @ (fk * fk))
@@ -379,9 +403,9 @@ def _sample_sns_factor(model: ModelDef, data: MFData, key, e: int,
         for view in views:
             kind, Fv, _, _, pred, _ = view
             if kind == "sp":
-                view[4] = pred + u_k[:, None] * Fv[:, :, k]
+                view[4] = pred + u_k[:, None] * Fv[:, :, k].float()
             else:
-                pred.addr_(u_k, Fv[:, k])
+                pred.addr_(u_k, Fv[:, k].float())
     return u
 
 
@@ -410,6 +434,23 @@ def _prior_terms(prior, hyper, n_rows: int, side, device):
     return prior.precision_term(hyper), prior.mean_term(hyper, n_rows)
 
 
+def gather_view(model: ModelDef, factors):
+    """``fixed_view(o)``: the factor of entity ``o`` as the gathers and
+    contractions read it.  With ``bf16_gather`` a bf16 copy, made at the
+    first call for ``o`` and shared by every later one (the reference's
+    ``_gather_view``, which one XLA program shares among its consumers);
+    without it the factor itself."""
+    if not model.bf16_gather:
+        return factors.__getitem__
+    copies: Dict[int, torch.Tensor] = {}
+
+    def view(o: int) -> torch.Tensor:
+        if o not in copies:
+            copies[o] = factors[o].to(torch.bfloat16)
+        return copies[o]
+    return view
+
+
 def _entity_update(model: ModelDef, data: MFData, key, e: int,
                    factors, hypers, noises):
     """Hyper-sample + factor-sample for one entity; returns updates."""
@@ -427,7 +468,7 @@ def _entity_update(model: ModelDef, data: MFData, key, e: int,
 
     # 2. factor matrix from its conditional
     return _factor_update(model, data, k_fac, k_blk, e, u, hyper,
-                          factors.__getitem__, noises), hyper
+                          gather_view(model, factors), noises), hyper
 
 
 def _factor_update(model: ModelDef, data: MFData, k_fac, k_blk, e: int,
@@ -499,7 +540,9 @@ def _factor_update(model: ModelDef, data: MFData, k_fac, k_blk, e: int,
 
 
 def _block_pred_observed(model: ModelDef, data: MFData, bi: int, factors):
-    """Predictions + (vals, mask) at a block's observed entries."""
+    """Predictions + (vals, mask) at a block's observed entries, fp32;
+    bf16 factors (``bf16_gather``) go through ``gathered_sddmm``'s bf16
+    entry (sparse) or are widened exactly (dense)."""
     blk = model.blocks[bi]
     U = factors[blk.row_entity]
     V = factors[blk.col_entity]
@@ -507,7 +550,7 @@ def _block_pred_observed(model: ModelDef, data: MFData, bi: int, factors):
     if blk.sparse:
         pred = ops.gathered_sddmm(U, V, payload.coo_i, payload.coo_j)
         return pred, payload.coo_v, payload.coo_mask
-    return U @ V.T, payload.X, payload.mask
+    return U.float() @ V.float().T, payload.X, payload.mask
 
 
 def gibbs_step(model: ModelDef, data: MFData, state: MFState
@@ -527,11 +570,22 @@ def gibbs_step(model: ModelDef, data: MFData, state: MFState
         factors[e] = u_new
         hypers[e] = hyper
 
+    noises, metrics = _sweep_end(model, data, nkey, tuple(factors), noises)
+    new_state = MFState(key, tuple(factors), tuple(hypers), tuple(noises),
+                        state.step + 1)
+    return new_state, metrics
+
+
+def _sweep_end(model: ModelDef, data: MFData, nkey, factors, noises):
+    """Every block's noise state resampled from the residuals at its
+    observed entries, and the metrics: (noises, metrics)."""
+    noises = list(noises)
     metrics = {}
     nkeys = random.split(nkey, max(1, len(model.blocks)))
+    view = gather_view(model, factors)
+    views = [view(e) for e in range(len(factors))]
     for bi, blk in enumerate(model.blocks):
-        pred, vals, mask = _block_pred_observed(model, data, bi,
-                                                tuple(factors))
+        pred, vals, mask = _block_pred_observed(model, data, bi, views)
         noises[bi] = blk.noise.sample_state(nkeys[bi], noises[bi], pred,
                                             vals, mask)
         se = torch.sum(((vals - pred) * mask) ** 2)
@@ -540,10 +594,7 @@ def gibbs_step(model: ModelDef, data: MFData, state: MFState
         metrics[f"rmse_train_{bi}"] = torch.sqrt(
             se / torch.clamp_min(torch.sum(mask), 1.0))
         metrics[f"alpha_{bi}"] = noises[bi]["alpha"]
-
-    new_state = MFState(key, tuple(factors), tuple(hypers), tuple(noises),
-                        state.step + 1)
-    return new_state, metrics
+    return noises, metrics
 
 
 def run_sweeps(model: ModelDef, data: MFData, state: MFState, n: int

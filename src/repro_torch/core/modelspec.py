@@ -8,9 +8,9 @@ noises, ``num_latent``) without the data.  The format is the
 reference's, ``repro-mf-model-v1``, so a store written by either
 package loads in the other:
 
-* the port writes ``use_pallas`` and ``bf16_gather`` as ``false``; on
-  read it ignores ``use_pallas`` (the tensors' device decides the path)
-  and refuses ``bf16_gather`` (not ported yet);
+* the port writes ``use_pallas`` as ``false`` and ``bf16_gather`` as
+  the model has it; on read it ignores ``use_pallas`` (the tensors'
+  device decides the path) and keeps ``bf16_gather``;
 * priors and noises are tagged by class name, with every field of the
   dataclass: the reference's four priors and three noises.
 """
@@ -80,7 +80,7 @@ def model_to_spec(model: ModelDef) -> dict:
         "format": FORMAT,
         "num_latent": model.num_latent,
         "use_pallas": False,
-        "bf16_gather": False,
+        "bf16_gather": model.bf16_gather,
         "entities": [
             {"name": e.name, "n_rows": e.n_rows,
              "prior": _to_spec(e.prior, PRIOR_TYPES, "prior")}
@@ -96,10 +96,6 @@ def model_to_spec(model: ModelDef) -> dict:
 def spec_to_model(spec: dict, device: DeviceLike = None) -> ModelDef:
     """Rebuild the ``ModelDef`` (static graph only, no data payloads)
     on ``device`` (default: the card)."""
-    if spec.get("bf16_gather", False):
-        raise ValueError(
-            "the store was trained with bf16_gather=True, which is not "
-            "ported yet (see ROADMAP.md, queue A, item 12)")
     ents = tuple(
         EntityDef(e["name"], int(e["n_rows"]),
                   _from_spec(e["prior"], PRIOR_TYPES, "prior"))
@@ -109,7 +105,8 @@ def spec_to_model(spec: dict, device: DeviceLike = None) -> ModelDef:
                  _from_spec(b["noise"], NOISE_TYPES, "noise"),
                  bool(b["sparse"]))
         for b in spec["blocks"])
-    return ModelDef(ents, blocks, int(spec["num_latent"]), device)
+    return ModelDef(ents, blocks, int(spec["num_latent"]), device,
+                    bf16_gather=bool(spec.get("bf16_gather", False)))
 
 
 def state_template(model: ModelDef) -> MFState:

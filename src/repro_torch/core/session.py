@@ -294,11 +294,16 @@ class ModelBuilder:
     ``device`` (default: the card) is where the chain runs; sparse and
     ``DenseBlock`` data must already live there, dense arrays and side
     information (numpy arrays or tensors) are moved there.
+    ``bf16_gather`` is the reference's ``ModelDef.bf16_gather``: the
+    fixed factor of every half-sweep gathered (and, sharded, exchanged)
+    as bf16.
     """
 
-    def __init__(self, num_latent: int = 16, device: DeviceLike = None):
+    def __init__(self, num_latent: int = 16, device: DeviceLike = None,
+                 bf16_gather: bool = False):
         self.num_latent = num_latent
         self.device = resolve_device(device)
+        self.bf16_gather = bf16_gather
         self._entities: List[Tuple[str, int, Any,
                                    Optional[torch.Tensor]]] = []
         self._blocks: List[Tuple[str, str, Any, Any,
@@ -428,7 +433,8 @@ class ModelBuilder:
             BlockDef(self._entity_index(r), self._entity_index(c),
                      noise, isinstance(payload, SparseMatrix))
             for r, c, payload, noise, _ in self._blocks)
-        model = ModelDef(ents, blocks, self.num_latent, self.device)
+        model = ModelDef(ents, blocks, self.num_latent, self.device,
+                         bf16_gather=self.bf16_gather)
         data = with_side_grams(MFData(
             tuple(p for _, _, p, _, _ in self._blocks),
             tuple(s for *_, s in self._entities)))

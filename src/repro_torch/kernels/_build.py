@@ -35,21 +35,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _FLASH_BWD = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 11 + [ctypes.c_void_p]
 _GRAM_PRE = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
              + [ctypes.c_int, ctypes.c_void_p])
+_GRAM_GATHERED = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 4 \
+    + [ctypes.c_void_p]
+_SDDMM_PRE = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+              + [ctypes.c_int, ctypes.c_void_p])
+_SDDMM_GATHERED = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
+_SDDMM_PADDED = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
+                 + [ctypes.c_int, ctypes.c_void_p])
+_TOPK = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 9
+         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 # ctypes signatures of the C entries, by source: {entry: argtypes}
 _SIGNATURES = {
     "gram": {"gram_f32": _GRAM_PRE, "gram_bf16": _GRAM_PRE,
-             "gram_gathered_f32": [ctypes.c_void_p] * 10
-             + [ctypes.c_int64] * 4 + [ctypes.c_void_p]},
-    "sddmm": {"sddmm_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
-              + [ctypes.c_int, ctypes.c_void_p],
-              "sddmm_gathered_f32": [ctypes.c_void_p] * 5
-              + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p],
-              "sddmm_padded_f32": [ctypes.c_void_p] * 4
-              + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p]},
-    "topk_score": {"topk_score_f32": [ctypes.c_void_p] * 7
-                   + [ctypes.c_int64] * 9
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
+             "gram_gathered_f32": _GRAM_GATHERED,
+             "gram_gathered_bf16": _GRAM_GATHERED},
+    "sddmm": {"sddmm_f32": _SDDMM_PRE, "sddmm_bf16": _SDDMM_PRE,
+              "sddmm_gathered_f32": _SDDMM_GATHERED,
+              "sddmm_gathered_bf16": _SDDMM_GATHERED,
+              "sddmm_padded_f32": _SDDMM_PADDED,
+              "sddmm_padded_bf16": _SDDMM_PADDED,
+              "sddmm_padded_mixed": _SDDMM_PADDED},
+    "topk_score": {"topk_score_f32": _TOPK, "topk_score_bf16": _TOPK},
     # the flash entries take v's width after hd, and lse's address as an
     # int64 after q_offset
     "flash": {"flash_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 21

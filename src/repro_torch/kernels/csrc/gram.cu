@@ -63,9 +63,17 @@
 // * an idx outside [0, n_fixed) is never read: its row counts as zeros
 //   (the wrapper adds no host sync to check; the sparse layout never
 //   holds one).  Ragged T and K are masked in the kernel;
-// * bf16 operand rows (pre-gathered entry) are converted to fp32 in the
-//   loads; the masked operand and val * mask are rounded to bf16 as
-//   the reference's bf16 program does, and the FMA chain is fp32.
+// * bf16 operand rows (the reference's bf16_gather: gram_bf16 on the
+//   pre-gathered slab, gram_gathered_bf16 on the sweep's bf16 copy of
+//   the fixed factor, 2-byte elements copied through idx as fp32 rows
+//   are) are widened exactly to fp32 where the FMAs read them; the
+//   masked operand and val * mask are rounded to bf16 as the
+//   reference's bf16 program does (its gram_ref rounds val * mask to
+//   bf16 before the rhs product), and the FMA chain is fp32: a product
+//   of two bf16 values is exact in fp32.  alpha, acc and lam enter in
+//   the same fp32 epilogue.  The ring stages hold half the bytes a row;
+//   the (R, K, K) fp32 writes, which bound the rows' half-sweep, do
+//   not shrink.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -777,18 +785,12 @@ extern "C" int gram_bf16(const void* vg, const void* val, const void* mask,
       (cudaStream_t)stream);
 }
 
-// Gathered entry: fixed (n_fixed, K) fp32, idx (R, T) int32, val and
-// mask (R, T) fp32, alpha a 0-d fp32 on the device, acc_g (R, K, K) and
-// acc_r (R, K) or null, lam (K, K) or null, all contiguous ->
-// out_g (R, K, K) = (alpha * g + acc_g) + lam and out_r (R, K) =
-// alpha * b + acc_r; out_g and out_r may be acc_g and acc_r.
-extern "C" int gram_gathered_f32(const void* fixed, const void* idx,
-                                 const void* val, const void* mask,
-                                 const void* alpha, const void* acc_g,
-                                 const void* acc_r, const void* lam,
-                                 void* out_g, void* out_r, int64_t R,
-                                 int64_t T, int64_t K, int64_t n_fixed,
-                                 void* stream) {
+namespace {
+
+Params gathered(const void* fixed, const void* idx, const void* val,
+                const void* mask, const void* alpha, const void* acc_g,
+                const void* acc_r, const void* lam, void* out_g, void* out_r,
+                int64_t R, int64_t T, int64_t K, int64_t n_fixed) {
   Params P = {};
   P.src = fixed;
   P.idx = (const int*)idx;
@@ -805,5 +807,40 @@ extern "C" int gram_gathered_f32(const void* fixed, const void* idx,
   P.K = K;
   P.n_src = n_fixed;
   P.copy16 = 1;
-  return (int)launch<float>(P, (cudaStream_t)stream);
+  return P;
+}
+
+}  // namespace
+
+// Gathered entry: fixed (n_fixed, K) fp32, idx (R, T) int32, val and
+// mask (R, T) fp32, alpha a 0-d fp32 on the device, acc_g (R, K, K) and
+// acc_r (R, K) or null, lam (K, K) or null, all contiguous ->
+// out_g (R, K, K) = (alpha * g + acc_g) + lam and out_r (R, K) =
+// alpha * b + acc_r; out_g and out_r may be acc_g and acc_r.
+extern "C" int gram_gathered_f32(const void* fixed, const void* idx,
+                                 const void* val, const void* mask,
+                                 const void* alpha, const void* acc_g,
+                                 const void* acc_r, const void* lam,
+                                 void* out_g, void* out_r, int64_t R,
+                                 int64_t T, int64_t K, int64_t n_fixed,
+                                 void* stream) {
+  return (int)launch<float>(gathered(fixed, idx, val, mask, alpha, acc_g,
+                                     acc_r, lam, out_g, out_r, R, T, K,
+                                     n_fixed),
+                            (cudaStream_t)stream);
+}
+
+// The same with a bf16 fixed factor (n_fixed, K); val, mask, alpha, acc,
+// lam and the outputs fp32.
+extern "C" int gram_gathered_bf16(const void* fixed, const void* idx,
+                                  const void* val, const void* mask,
+                                  const void* alpha, const void* acc_g,
+                                  const void* acc_r, const void* lam,
+                                  void* out_g, void* out_r, int64_t R,
+                                  int64_t T, int64_t K, int64_t n_fixed,
+                                  void* stream) {
+  return (int)launch<__nv_bfloat16>(
+      gathered(fixed, idx, val, mask, alpha, acc_g, acc_r, lam, out_g,
+               out_r, R, T, K, n_fixed),
+      (cudaStream_t)stream);
 }

@@ -1,4 +1,6 @@
-// Posterior scoring and stable top-k, fp32, for Hopper (sm_90a).
+// Posterior scoring and stable top-k for Hopper (sm_90a): fp32 operands
+// (topk_score_f32), or bf16 ones (topk_score_bf16: both us and v bf16,
+// the reference's bf16 branch), always summed in fp32.
 //
 // For each user b, against every item n across every retained sample s:
 //   score[s, n] = us[b, s, :] . v[s, n, :]
@@ -59,6 +61,19 @@
 // are unique, so the first k are one set in one order whatever the
 // route or the chunk size, and ties go to the lowest id.
 //
+// bf16 (topk_score_bf16).  The item stack and the user rows are read as
+// bf16 through their own tensor maps: boxes of the same 32 elements of
+// K, 64 bytes a box row instead of 128, with the 64-byte swizzle (the
+// 16-byte chunk index XORed with bits 7-8 of the address, so the 8 rows
+// a quarter-warp reads fall on all 32 banks).  A thread reads 16 bytes
+// (8 elements) of its item's box row and of each user's, widens them
+// exactly to fp32 and runs the fp32 program's fmaf chain over them in
+// the same k order: the product of two bf16 values is exact in fp32, so
+// each (user, item) gives the bits of the fp32 kernel on the widened
+// operands, and the batch contract holds as in fp32.  A stage holds half
+// the bytes; selection is unchanged.  The plain-load staging takes
+// K % 8 != 0 or pointers off 16 bytes.
+//
 // What bounds it on an H100: the memory.  The least time reads the
 // item stack once, S*N*K*4 bytes for 2*B*S*N*K operations (2 per byte
 // at B = 8, far below the fp32 ridge): 0.642 ms at B = 8, S = 32,
@@ -74,6 +89,7 @@
 // host work beside it.  Every offset is 64-bit.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -145,10 +161,57 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 
 // ---- pass 1: scoring -----------------------------------------------------
 
+// The operand element: its box row's bytes, where chunk c (16 bytes) of
+// box row r lies under the map's swizzle, and the 16 bytes of a chunk
+// widened to fp32 in k order.
+template <typename E>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int PER = 4;   // elements a 16-byte chunk
+  static __host__ __device__ constexpr uint32_t chunk(int c, int r) {
+    return (uint32_t)((c ^ (r & 7)) << 4);   // 128-byte swizzle
+  }
+  static __device__ __forceinline__ void wide(const unsigned char* p,
+                                              float (&x)[PER]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  }
+  static __device__ __forceinline__ float one(const unsigned char* p) {
+    return *reinterpret_cast<const float*>(p);
+  }
+  static __device__ __forceinline__ float zero() { return 0.f; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int PER = 8;
+  static __host__ __device__ constexpr uint32_t chunk(int c, int r) {
+    return (uint32_t)((c ^ ((r >> 1) & 3)) << 4);   // 64-byte swizzle
+  }
+  static __device__ __forceinline__ void wide(const unsigned char* p,
+                                              float (&x)[PER]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ float one(const unsigned char* p) {
+    return __uint_as_float((uint32_t)*reinterpret_cast<const uint16_t*>(p)
+                           << 16);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 zero() {
+    return __nv_bfloat16(0.f);
+  }
+};
+
 constexpr int SCORE_THREADS = 256;
 constexpr int GROUP = 8;          // users a scoring block serves
-constexpr int BOX = 32;           // floats of K in a box row
-constexpr int LINE = BOX * 4;     // bytes of a box row: the swizzle span
+constexpr int BOX = 32;           // elements of K in a box row
 constexpr int STAGES = 3;   // stages in flight (TMA): 2 blocks an SM
 
 // boxes of K a stage holds for a tile of tn items: 32 KB of items
@@ -156,14 +219,18 @@ __host__ __device__ constexpr int boxes_a_stage(int64_t tn) {
   return tn >= 256 ? 1 : (tn == 128 ? 2 : 4);
 }
 
-template <int TN>
+template <int TN, typename E>
 struct Tile {
   static constexpr int SUBS = SCORE_THREADS / TN;   // threads an item
   static constexpr int UPT = GROUP / SUBS;          // users a thread
   static constexpr int NB = boxes_a_stage(TN);
+  // bytes of a box row: the swizzle span (128 fp32, 64 bf16)
+  static constexpr int LINE = BOX * (int)sizeof(E);
+  static constexpr int CHUNKS = LINE / 16;          // 16-byte chunks a row
   static constexpr int V_BOX = TN * LINE;
   static constexpr int U_BOX = GROUP * LINE;
-  static constexpr int STAGE = NB * (V_BOX + U_BOX);   // a multiple of 1024
+  // a multiple of the swizzle's period (1024 bytes fp32, 512 bf16)
+  static constexpr int STAGE = NB * (V_BOX + U_BOX);
   static constexpr int smem(int stages) {
     return stages * STAGE + 1024 + 8 * stages;   // alignment, mbarriers
   }
@@ -171,8 +238,8 @@ struct Tile {
 };
 
 struct ScoreArgs {
-  const float* us;     // (B, S, K)
-  const float* v;      // (S, N, K)
+  const void* us;      // (B, S, K), fp32 or bf16
+  const void* v;       // (S, N, K), as us
   const float* excl;   // (B, N)
   uint32_t* key;       // (B, N) outputs
   float* mean;
@@ -185,14 +252,14 @@ struct ScoreArgs {
 
 // thread 0: stage i (sample i / kst, boxes of K from (i % kst) * NB) into
 // the buffer at st, completing on the barrier bar
-template <int TN>
+template <int TN, typename E>
 __device__ __forceinline__ void issue_stage(const CUtensorMap* vm,
                                             const CUtensorMap* um,
                                             uint32_t st, uint32_t bar,
                                             int64_t i, const ScoreArgs& a,
                                             int nbox, int64_t n0,
                                             int64_t g0) {
-  using T = Tile<TN>;
+  using T = Tile<TN, E>;
   const int s = (int)(i / a.kst);
   const int first = (int)(i % a.kst) * T::NB;
   const int nb = (int)lmin(T::NB, nbox - first);
@@ -205,79 +272,85 @@ __device__ __forceinline__ void issue_stage(const CUtensorMap* vm,
 }
 
 // every thread: stage i by plain loads, in the layout TMA gives
-template <int TN>
+// the byte of element c (0 <= c < BOX) of box row r, under the swizzle
+template <typename E>
+__device__ __forceinline__ int elem_at(int r, int c) {
+  constexpr int PER = Elem<E>::PER;
+  return r * BOX * (int)sizeof(E) + (int)Elem<E>::chunk(c / PER, r) +
+         (c % PER) * (int)sizeof(E);
+}
+
+template <int TN, typename E>
 __device__ void fill_stage(unsigned char* st, int64_t i, const ScoreArgs& a,
                            int nbox, int64_t n0, int64_t g0) {
-  using T = Tile<TN>;
+  using T = Tile<TN, E>;
+  const E* v = static_cast<const E*>(a.v);
+  const E* us = static_cast<const E*>(a.us);
   const int64_t s = i / a.kst;
   const int first = (int)(i % a.kst) * T::NB;
   const int nb = (int)lmin(T::NB, nbox - first);
   for (int idx = threadIdx.x; idx < nb * TN * BOX; idx += SCORE_THREADS) {
     const int j = idx / (TN * BOX), rr = idx / BOX % TN, c = idx % BOX;
     const int64_t kk = (int64_t)(first + j) * BOX + c, n = n0 + rr;
-    const float x = (n < a.N && kk < a.K) ? a.v[(s * a.N + n) * a.K + kk]
-                                          : 0.f;
-    *reinterpret_cast<float*>(st + j * T::V_BOX + rr * LINE +
-                              (((c >> 2) ^ (rr & 7)) << 4) + (c & 3) * 4) = x;
+    const E x = (n < a.N && kk < a.K) ? v[(s * a.N + n) * a.K + kk]
+                                      : Elem<E>::zero();
+    *reinterpret_cast<E*>(st + j * T::V_BOX + elem_at<E>(rr, c)) = x;
   }
   for (int idx = threadIdx.x; idx < nb * GROUP * BOX;
        idx += SCORE_THREADS) {
     const int j = idx / (GROUP * BOX), g = idx / BOX % GROUP, c = idx % BOX;
     const int64_t kk = (int64_t)(first + j) * BOX + c, b = g0 + g;
-    const float x = (b < a.B && kk < a.K) ? a.us[(b * a.S + s) * a.K + kk]
-                                          : 0.f;
-    *reinterpret_cast<float*>(st + T::NB * T::V_BOX + j * T::U_BOX +
-                              g * LINE + (((c >> 2) ^ (g & 7)) << 4) +
-                              (c & 3) * 4) = x;
+    const E x = (b < a.B && kk < a.K) ? us[(b * a.S + s) * a.K + kk]
+                                      : Elem<E>::zero();
+    *reinterpret_cast<E*>(st + T::NB * T::V_BOX + j * T::U_BOX +
+                          elem_at<E>(g, c)) = x;
   }
 }
 
-// columns 4c..4c+3 of box j: the thread's item row r against its users
-template <int TN>
-__device__ __forceinline__ void dot4(const unsigned char* st, int j, int c,
-                                     int r, int u0,
-                                     float (&acc)[Tile<TN>::UPT]) {
-  using T = Tile<TN>;
-  const float4 x = *reinterpret_cast<const float4*>(
-      st + j * T::V_BOX + r * LINE + ((c ^ (r & 7)) << 4));
+// chunk c (columns PER*c..PER*c+PER-1) of box j: the thread's item row
+// r against its users
+template <int TN, typename E>
+__device__ __forceinline__ void dot_chunk(const unsigned char* st, int j,
+                                          int c, int r, int u0,
+                                          float (&acc)[Tile<TN, E>::UPT]) {
+  using T = Tile<TN, E>;
+  using X = Elem<E>;
+  float x[X::PER];
+  X::wide(st + j * T::V_BOX + r * T::LINE + X::chunk(c, r), x);
   const unsigned char* ub = st + T::NB * T::V_BOX + j * T::U_BOX;
 #pragma unroll
   for (int g = 0; g < T::UPT; ++g) {
     const int ur = u0 + g;
-    const float4 y = *reinterpret_cast<const float4*>(
-        ub + ur * LINE + ((c ^ (ur & 7)) << 4));
-    acc[g] = fmaf(x.x, y.x, acc[g]);
-    acc[g] = fmaf(x.y, y.y, acc[g]);
-    acc[g] = fmaf(x.z, y.z, acc[g]);
-    acc[g] = fmaf(x.w, y.w, acc[g]);
+    float y[X::PER];
+    X::wide(ub + ur * T::LINE + X::chunk(c, ur), y);
+#pragma unroll
+    for (int q = 0; q < X::PER; ++q) acc[g] = fmaf(x[q], y[q], acc[g]);
   }
 }
 
 // column kk (0 <= kk < NB * BOX) of the stage
-template <int TN>
+template <int TN, typename E>
 __device__ __forceinline__ void dot1(const unsigned char* st, int kk, int r,
-                                     int u0, float (&acc)[Tile<TN>::UPT]) {
-  using T = Tile<TN>;
+                                     int u0,
+                                     float (&acc)[Tile<TN, E>::UPT]) {
+  using T = Tile<TN, E>;
   const int j = kk / BOX, c = kk % BOX;
-  const float x = *reinterpret_cast<const float*>(
-      st + j * T::V_BOX + r * LINE + (((c >> 2) ^ (r & 7)) << 4) +
-      (c & 3) * 4);
+  const float x = Elem<E>::one(st + j * T::V_BOX + elem_at<E>(r, c));
   const unsigned char* ub = st + T::NB * T::V_BOX + j * T::U_BOX;
 #pragma unroll
   for (int g = 0; g < T::UPT; ++g) {
-    const int ur = u0 + g;
-    const float y = *reinterpret_cast<const float*>(
-        ub + ur * LINE + (((c >> 2) ^ (ur & 7)) << 4) + (c & 3) * 4);
+    const float y = Elem<E>::one(ub + elem_at<E>(u0 + g, c));
     acc[g] = fmaf(x, y, acc[g]);
   }
 }
 
-template <int TN, bool TMA>
+template <int TN, bool TMA, typename E>
 __global__ void __launch_bounds__(SCORE_THREADS, 1)
     score_kernel(const __grid_constant__ CUtensorMap vmap,
                  const __grid_constant__ CUtensorMap umap,
                  const ScoreArgs a) {
-  using T = Tile<TN>;
+  using T = Tile<TN, E>;
+  constexpr int PER = Elem<E>::PER;
   constexpr int NST = TMA ? STAGES : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -300,8 +373,8 @@ __global__ void __launch_bounds__(SCORE_THREADS, 1)
   __syncthreads();
   if (TMA && threadIdx.x == 0)
     for (int64_t i = 0; i < NST && i < total; ++i)
-      issue_stage<TN>(&vmap, &umap, base + (uint32_t)i * T::STAGE,
-                      bars + 8 * (uint32_t)i, i, a, nbox, n0, g0);
+      issue_stage<TN, E>(&vmap, &umap, base + (uint32_t)i * T::STAGE,
+                         bars + 8 * (uint32_t)i, i, a, nbox, n0, g0);
 
   float acc[T::UPT], msum[T::UPT], qsum[T::UPT];
 #pragma unroll
@@ -313,7 +386,7 @@ __global__ void __launch_bounds__(SCORE_THREADS, 1)
     if (TMA) {
       mbar_wait(bars + 8 * buf, (uint32_t)((i / NST) & 1));
     } else {
-      fill_stage<TN>(sm, i, a, nbox, n0, g0);
+      fill_stage<TN, E>(sm, i, a, nbox, n0, g0);
       __syncthreads();
     }
     const int64_t kb = (i % a.kst) * T::NB * BOX;
@@ -322,13 +395,14 @@ __global__ void __launch_bounds__(SCORE_THREADS, 1)
 #pragma unroll
       for (int j = 0; j < T::NB; ++j) {
 #pragma unroll
-        for (int c = 0; c < BOX / 4; ++c) dot4<TN>(st, j, c, r, u0, acc);
+        for (int c = 0; c < T::CHUNKS; ++c)
+          dot_chunk<TN, E>(st, j, c, r, u0, acc);
       }
     } else {
       int kk = 0;
-      for (; kk + 4 <= width; kk += 4)
-        dot4<TN>(st, kk / BOX, kk % BOX / 4, r, u0, acc);
-      for (; kk < width; ++kk) dot1<TN>(st, kk, r, u0, acc);
+      for (; kk + PER <= width; kk += PER)
+        dot_chunk<TN, E>(st, kk / BOX, kk % BOX / PER, r, u0, acc);
+      for (; kk < width; ++kk) dot1<TN, E>(st, kk, r, u0, acc);
     }
     if (kb + width == a.K) {   // the sample's last stage
 #pragma unroll
@@ -340,8 +414,8 @@ __global__ void __launch_bounds__(SCORE_THREADS, 1)
     }
     __syncthreads();   // every thread is done with the buffer
     if (TMA && threadIdx.x == 0 && i + NST < total)
-      issue_stage<TN>(&vmap, &umap, base + buf * T::STAGE,
-                      bars + 8 * buf, i + NST, a, nbox, n0, g0);
+      issue_stage<TN, E>(&vmap, &umap, base + buf * T::STAGE,
+                         bars + 8 * buf, i + NST, a, nbox, n0, g0);
   }
 
   const int64_t n = n0 + r;
@@ -690,43 +764,50 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a packed fp32 (d2, d1, d0) array as a 3-d map, boxes of
-// BOX x box1 x box2, 128-byte swizzle, zeros outside the array
+// a packed (d2, d1, d0) array of E as a 3-d map, boxes of BOX x box1 x
+// box2 (a box row BOX elements: 128 bytes fp32 with the 128-byte
+// swizzle, 64 bytes bf16 with the 64-byte one), zeros outside the array
+template <typename E>
 CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
                   int64_t d0, int64_t d1, int64_t d2, uint32_t box1,
                   uint32_t box2) {
+  constexpr bool F32 = sizeof(E) == 4;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
                               (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * 4),
-                                 (cuuint64_t)(d0 * d1 * 4)};
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * sizeof(E)),
+                                 (cuuint64_t)(d0 * d1 * sizeof(E))};
   const cuuint32_t box[3] = {BOX, box1, box2};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return enc(map,
+             F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             3, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             F32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int TN, bool TMA>
+template <int TN, bool TMA, typename E>
 cudaError_t launch_score(const CUtensorMap& vm, const CUtensorMap& um,
                          const ScoreArgs& a, int64_t blocks,
                          cudaStream_t st) {
-  const int bytes = Tile<TN>::smem(TMA ? STAGES : 1);
+  const int bytes = Tile<TN, E>::smem(TMA ? STAGES : 1);
   cudaError_t err = cudaFuncSetAttribute(
-      score_kernel<TN, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      score_kernel<TN, TMA, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  score_kernel<TN, TMA><<<(unsigned)blocks, SCORE_THREADS, bytes, st>>>(
+  score_kernel<TN, TMA, E><<<(unsigned)blocks, SCORE_THREADS, bytes, st>>>(
       vm, um, a);
   return cudaGetLastError();
 }
 
-template <int TN>
+template <int TN, typename E>
 cudaError_t launch_score(bool tma, const CUtensorMap& vm,
                          const CUtensorMap& um, const ScoreArgs& a,
                          int64_t blocks, cudaStream_t st) {
-  return tma ? launch_score<TN, true>(vm, um, a, blocks, st)
-             : launch_score<TN, false>(vm, um, a, blocks, st);
+  return tma ? launch_score<TN, true, E>(vm, um, a, blocks, st)
+             : launch_score<TN, false, E>(vm, um, a, blocks, st);
 }
 
 int64_t align256(int64_t bytes) { return (bytes + 255) / 256 * 256; }
@@ -739,27 +820,11 @@ int pow2_at_least(int64_t n) {
 
 constexpr int64_t MAX_GRID = 0x7fffffff;
 
-}  // namespace
-
-// us (B, S, K), v (S, N, K), excl (B, N) fp32, contiguous ->
-// ids (B, k) int32, mean (B, k), ex2 (B, k) fp32, for 1 <= k <= N.
-// tn: items a scoring block scores (32, 64, 128 or 256); chunk: items a
-// chunk block sorts (k <= 1024; a power of 2 >= k, <= 4096); group:
-// lists a merge block folds (group * k <= 4096).  tma != 0 promises
-// K % 4 == 0 and 16-byte aligned us and v.  passes: 1 scoring, 2
-// selection (over the scratch a scoring pass left), 3 both.  scratch:
-// scratch_bytes of device memory, laid out as (B, N) rank keys, means,
-// ex2, then two sets of sorted runs (B, lists, k) of 64-bit keys, each
-// part 256-byte aligned.  Returns the first cudaError_t of the
-// launches; 1000 + the CUresult of a tensor map that did not encode;
-// 999 when the driver has no cuTensorMapEncodeTiled.
-extern "C" int topk_score_f32(const void* us, const void* v,
-                              const void* excl, void* ids, void* mean,
-                              void* ex2, void* scratch,
-                              int64_t scratch_bytes, int64_t B, int64_t S,
-                              int64_t N, int64_t K, int64_t k, int64_t tn,
-                              int64_t chunk, int64_t group, int tma,
-                              int passes, void* stream) {
+template <typename E>
+int run(const void* us, const void* v, const void* excl, void* ids,
+        void* mean, void* ex2, void* scratch, int64_t scratch_bytes,
+        int64_t B, int64_t S, int64_t N, int64_t K, int64_t k, int64_t tn,
+        int64_t chunk, int64_t group, int tma, int passes, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
   if (k < 1 || k > N || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -784,8 +849,8 @@ extern "C" int topk_score_f32(const void* us, const void* v,
   if (passes & 1) {
     const int nb = boxes_a_stage(tn);
     ScoreArgs a;
-    a.us = static_cast<const float*>(us);
-    a.v = static_cast<const float*>(v);
+    a.us = us;
+    a.v = v;
     a.excl = static_cast<const float*>(excl);
     a.key = keys;
     a.mean = smean;
@@ -803,15 +868,24 @@ extern "C" int topk_score_f32(const void* us, const void* v,
     if (tma) {
       EncodeTiled enc = encoder();
       if (enc == nullptr) return 999;
-      CUresult r = make_map(enc, &vm, v, K, N, S, (uint32_t)tn, 1);
-      if (r == CUDA_SUCCESS) r = make_map(enc, &um, us, K, S, B, 1, GROUP);
+      CUresult r = make_map<E>(enc, &vm, v, K, N, S, (uint32_t)tn, 1);
+      if (r == CUDA_SUCCESS)
+        r = make_map<E>(enc, &um, us, K, S, B, 1, GROUP);
       if (r != CUDA_SUCCESS) return 1000 + (int)r;
     }
     switch (tn) {
-      case 256: err = launch_score<256>(tma, vm, um, a, blocks, st); break;
-      case 128: err = launch_score<128>(tma, vm, um, a, blocks, st); break;
-      case 64: err = launch_score<64>(tma, vm, um, a, blocks, st); break;
-      case 32: err = launch_score<32>(tma, vm, um, a, blocks, st); break;
+      case 256:
+        err = launch_score<256, E>(tma, vm, um, a, blocks, st);
+        break;
+      case 128:
+        err = launch_score<128, E>(tma, vm, um, a, blocks, st);
+        break;
+      case 64:
+        err = launch_score<64, E>(tma, vm, um, a, blocks, st);
+        break;
+      case 32:
+        err = launch_score<32, E>(tma, vm, um, a, blocks, st);
+        break;
       default: return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
@@ -877,4 +951,43 @@ extern "C" int topk_score_f32(const void* us, const void* v,
     other = t;
   }
   return (int)cudaSuccess;
+}
+
+}  // namespace
+
+// us (B, S, K), v (S, N, K), excl (B, N) fp32, contiguous ->
+// ids (B, k) int32, mean (B, k), ex2 (B, k) fp32, for 1 <= k <= N.
+// tn: items a scoring block scores (32, 64, 128 or 256); chunk: items a
+// chunk block sorts (k <= 1024; a power of 2 >= k, <= 4096); group:
+// lists a merge block folds (group * k <= 4096).  tma != 0 promises
+// K % 4 == 0 and 16-byte aligned us and v.  passes: 1 scoring, 2
+// selection (over the scratch a scoring pass left), 3 both.  scratch:
+// scratch_bytes of device memory, laid out as (B, N) rank keys, means,
+// ex2, then two sets of sorted runs (B, lists, k) of 64-bit keys, each
+// part 256-byte aligned.  Returns the first cudaError_t of the
+// launches; 1000 + the CUresult of a tensor map that did not encode;
+// 999 when the driver has no cuTensorMapEncodeTiled.
+extern "C" int topk_score_f32(const void* us, const void* v,
+                              const void* excl, void* ids, void* mean,
+                              void* ex2, void* scratch,
+                              int64_t scratch_bytes, int64_t B, int64_t S,
+                              int64_t N, int64_t K, int64_t k, int64_t tn,
+                              int64_t chunk, int64_t group, int tma,
+                              int passes, void* stream) {
+  return run<float>(us, v, excl, ids, mean, ex2, scratch, scratch_bytes, B,
+                    S, N, K, k, tn, chunk, group, tma, passes, stream);
+}
+
+// The same with bf16 us and v (excl and the outputs as above); tma != 0
+// promises K % 8 == 0 and 16-byte aligned us and v.
+extern "C" int topk_score_bf16(const void* us, const void* v,
+                               const void* excl, void* ids, void* mean,
+                               void* ex2, void* scratch,
+                               int64_t scratch_bytes, int64_t B, int64_t S,
+                               int64_t N, int64_t K, int64_t k, int64_t tn,
+                               int64_t chunk, int64_t group, int tma,
+                               int passes, void* stream) {
+  return run<__nv_bfloat16>(us, v, excl, ids, mean, ex2, scratch,
+                            scratch_bytes, B, S, N, K, k, tn, chunk, group,
+                            tma, passes, stream);
 }

@@ -10,11 +10,16 @@ on the card and how the design answers that.  It has two entries:
 * ``gathered_gram_cuda(fixed, idx, val, mask, alpha, acc=, lam=)``
   gathers ``fixed[idx]`` in its loads and writes the precision's part
   ``(alpha * g + acc) + lam`` once: ``ops.gathered_gram_and_rhs``, the
-  sweep's entry.  Plain version ``ref.gathered_gram_ref``.
+  sweep's entry, for an fp32 ``fixed`` (``gram_gathered_f32``) or the
+  bf16 copy of the reference's ``bf16_gather`` sweep
+  (``gram_gathered_bf16``: the bf16 program of ``ref.gram_ref``).
+  Plain version ``ref.gathered_gram_ref``.
 
-``launches`` counts the kernel's launches, so a run can show that its
-main path went through the kernel: one per call for K <= 128, two above
-(the tiled path starts the tiles on the diagonal, then those below).
+``launches`` counts the kernel's launches under ``ops.launch_counts()``'s
+keys, ``gram`` (the fp32 entries and the pre-gathered bf16 one) and
+``gram_gathered_bf16``, so a run can show that its main path went
+through the kernel: one per call for K <= 128, two above (the tiled
+path starts the tiles on the diagonal, then those below).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 
 from . import _build
 
-launches = 0
+launches = {"gram": 0, "gram_gathered_bf16": 0}
 TILE = 128  # K up to which one persistent launch serves a call
 
 
@@ -44,9 +49,8 @@ def _same_device(*xs):
         raise ValueError("gram: operands on different devices")
 
 
-def _count(K: int) -> None:
-    global launches
-    launches += 1 if K <= TILE else 2
+def _count(K: int) -> int:
+    return 1 if K <= TILE else 2
 
 
 def gram_cuda(vg: torch.Tensor, val: torch.Tensor, mask: torch.Tensor):
@@ -70,7 +74,7 @@ def gram_cuda(vg: torch.Tensor, val: torch.Tensor, mask: torch.Tensor):
         err = fn(vg.data_ptr(), val.data_ptr(), mask.data_ptr(),
                  gram.data_ptr(), rhs.data_ptr(), R, T, K, vec, stream)
     _build.check(err, fn.__name__)
-    _count(K)
+    launches["gram"] += _count(K)
     return gram, rhs
 
 
@@ -78,14 +82,16 @@ def gathered_gram_cuda(fixed: torch.Tensor, idx: torch.Tensor,
                        val: torch.Tensor, mask: torch.Tensor, alpha, *,
                        acc=None, lam=None):
     """(alpha * gram + acc[0]) + lam (R, K, K) and alpha * rhs + acc[1]
-    (R, K), fp32, of the rows ``fixed[idx]`` (fixed (n_fixed, K) fp32,
-    idx (R, T) int32) with val and mask (R, T) fp32, all contiguous CUDA
-    tensors.  ``alpha`` is read on the device (a 0-d tensor, or a number
-    copied there); ``acc`` = (gram, rhs) is updated in place and
-    returned; ``lam`` (K, K) is added at each place's own index.  An idx
-    outside [0, n_fixed) reads as a row of zeros (no host sync checks
-    it)."""
-    _check("fixed", fixed, (torch.float32,))
+    (R, K), fp32, of the rows ``fixed[idx]`` (fixed (n_fixed, K) fp32 or
+    bf16, idx (R, T) int32) with val and mask (R, T) fp32, all contiguous
+    CUDA tensors.  A bf16 ``fixed`` runs ``gram_gathered_bf16``: the masked
+    rows and ``val * mask`` rounded to bf16, the products and sums in fp32,
+    as ``ref.gram_ref``'s bf16 branch.  ``alpha`` is read on the device (a
+    0-d tensor, or a number copied there); ``acc`` = (gram, rhs) is updated
+    in place and returned; ``lam`` (K, K) is added at each place's own
+    index.  An idx outside [0, n_fixed) reads as a row of zeros (no host
+    sync checks it)."""
+    _check("fixed", fixed, (torch.float32, torch.bfloat16))
     n_fixed, K = fixed.shape
     _check("idx", idx, (torch.int32,))
     R, T = idx.shape
@@ -110,7 +116,9 @@ def gathered_gram_cuda(fixed: torch.Tensor, idx: torch.Tensor,
         _check("lam", lam, (torch.float32,), (K, K))
         tensors.append(lam)
     _same_device(*tensors)
-    fn = _build.load("gram").gram_gathered_f32
+    bf16 = fixed.dtype == torch.bfloat16
+    entry = "gram_gathered_bf16" if bf16 else "gram_gathered_f32"
+    fn = getattr(_build.load("gram"), entry)
     acc_g, acc_r = (out_g.data_ptr(), out_r.data_ptr()) if acc is not None \
         else (None, None)
     with torch.cuda.device(dev):
@@ -119,6 +127,6 @@ def gathered_gram_cuda(fixed: torch.Tensor, idx: torch.Tensor,
                  mask.data_ptr(), alpha.data_ptr(), acc_g, acc_r,
                  None if lam is None else lam.data_ptr(), out_g.data_ptr(),
                  out_r.data_ptr(), R, T, K, n_fixed, stream)
-    _build.check(err, "gram_gathered_f32")
-    _count(K)
+    _build.check(err, entry)
+    launches[entry if bf16 else "gram"] += _count(K)
     return out_g, out_r

@@ -6,12 +6,19 @@ Pallas kernel and the jnp oracle with a ``use_pallas`` flag, here the
 device decides: a CUDA tensor launches the hand-written kernel (or the
 wrapper raises), a CPU tensor runs the plain version of ``ref.py``.
 There is no fallback from the kernel to the plain version.  The CUDA
-kernels mask ragged edges themselves, so no padding happens here.
+kernels mask ragged edges themselves, so no padding happens here.  The
+operands' dtypes pick the kernel's entry inside each wrapper: fp32, or
+the bf16 copies of the reference's ``bf16_gather`` sweep (gram's
+gathered entry, every sddmm entry, fp32 u against bf16 rows at probit's
+padded slots, topk_score).  A bf16 CUDA tensor reaches a bf16 entry or
+the wrapper raises; nothing is widened here to reach an fp32 kernel.
 
 ``KERNELS`` lists each kernel with its probe shapes: the ``ops.KERNELS``
 envelope of the reference (gram's probes with their dtypes; fp32 probes
-of sddmm and topk_score, whose bf16 branches are a later slice; flash's
-probes with their dtypes).  ``gathered_gram_and_rhs``,
+of sddmm and topk_score; flash's probes with their dtypes), and the
+port's own ``sddmm_bf16`` and ``topk_score_bf16`` probes, the shapes of
+sddmm's and topk_score's run in bf16 (the reference registers bf16
+probes for gram and flash alone).  ``gathered_gram_and_rhs``,
 ``gathered_sddmm`` and ``gathered_sddmm_padded`` are the port's own
 entries: the sweep's gather, Gram, alpha and Lambda_p in one launch,
 and the predictions at gathered rows (or at every slot of a padded
@@ -49,10 +56,10 @@ def gathered_gram_and_rhs(fixed: torch.Tensor, idx: torch.Tensor,
     """The sweep's alpha-weighted Gram of gathered rows; see
     kernels/gram.py.
 
-    fixed (n_fixed, K), idx (R, T) int32, val and mask (R, T), alpha a
-    0-d tensor -> gram (R, K, K) = (alpha * g + acc[0]) + lam and rhs
-    (R, K) = alpha * b + acc[1], where g and b are ``gram_and_rhs`` of
-    ``fixed[idx]``.  ``acc`` = (gram, rhs) is updated in place and
+    fixed (n_fixed, K) fp32 or bf16, idx (R, T) int32, val and mask (R, T)
+    fp32, alpha a 0-d tensor -> gram (R, K, K) = (alpha * g + acc[0]) + lam
+    and rhs (R, K) = alpha * b + acc[1], where g and b are ``gram_and_rhs``
+    of ``fixed[idx]``.  ``acc`` = (gram, rhs) is updated in place and
     returned; ``lam`` (K, K) is added at each place's own index.  On the
     card the kernel gathers in its loads; on the CPU the plain version
     gathers the (R, T, K) slab.
@@ -75,7 +82,8 @@ def sddmm(ug: torch.Tensor, vg: torch.Tensor) -> torch.Tensor:
 def gathered_sddmm(U: torch.Tensor, V: torch.Tensor, i: torch.Tensor,
                    j: torch.Tensor) -> torch.Tensor:
     """pred (E,) with pred[e] = U[i[e]] . V[j[e]]; see kernels/sddmm.py.
-    U (n_u, K), V (n_v, K) fp32, i and j (E,) int32.  On the card one
+    U (n_u, K), V (n_v, K) both fp32 or both bf16, i and j (E,) int32,
+    pred fp32.  On the card one
     launch reads the rows in its loads; on the CPU the plain version
     gathers them."""
     if U.is_cuda:
@@ -88,7 +96,9 @@ def gathered_sddmm_padded(u: torch.Tensor, fixed: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
     """pred (R, T) with pred[r, t] = u[r] . fixed[idx[r, t]], row r of u
     serving the T slots of idx[r]: ``gathered_sddmm`` at every slot of a
-    padded layout, counted under ``sddmm_gathered``; see
+    padded layout, counted under ``sddmm_gathered`` (fp32 x fp32,
+    bf16 x bf16 under ``sddmm_gathered_bf16``), or fp32 u against bf16
+    fixed (the bf16 sweep's probit) under ``sddmm_padded_mixed``; see
     kernels/sddmm.py."""
     if u.is_cuda:
         return _sddmm.sddmm_padded_cuda(u.contiguous(), fixed.contiguous(),
@@ -100,8 +110,10 @@ def topk_score(us: torch.Tensor, v: torch.Tensor, k: int, *,
                exclude: Optional[torch.Tensor] = None):
     """Batched posterior scoring + top-K; see kernels/topk_score.py.
 
-    us (B, S, K) user rows per sample, v (S, N, K) item factor stack,
-    ``exclude`` (B, N) truthy = leave out of the ranking ->
+    us (B, S, K) user rows per sample, v (S, N, K) item factor stack
+    (both fp32 or both bf16 on the card; the plain version widens any
+    other pair, as the reference does), ``exclude`` (B, N) truthy =
+    leave out of the ranking ->
     (ids (B, k') int32, mean (B, k') f32, std (B, k') f32) with
     k' = min(k, N).  Slots past the number of rankable (non-excluded)
     items of a row carry id -1 and NaN mean/std, on both paths.
@@ -196,23 +208,22 @@ def finalize_topk(ids, mean, ex2, excl):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of each CUDA kernel since the last reset."""
-    return {"gram": _gram.launches, "sddmm": _sddmm.launches,
-            "sddmm_gathered": _sddmm.gathered_launches,
-            "topk_score": _topk.launches, "flash": _flash.launches,
-            "flash_bwd": _flash_bwd.launches}
+    """Launches of each CUDA kernel since the last reset, the bf16
+    entries apart: ``gram`` (the fp32 entries and the pre-gathered bf16
+    one), ``gram_gathered_bf16``, ``sddmm`` / ``sddmm_bf16`` (pre-gathered),
+    ``sddmm_gathered`` (the fp32 gathered and padded entries),
+    ``sddmm_gathered_bf16``, ``sddmm_padded_bf16``, ``sddmm_padded_mixed``
+    (fp32 u against bf16 rows), ``topk_score`` / ``topk_score_bf16``."""
+    return {**_gram.launches, **_sddmm.launches, **_topk.launches,
+            "flash": _flash.launches, "flash_bwd": _flash_bwd.launches}
 
 
 def reset_launch_counts() -> None:
-    _gram.launches = 0
-    _sddmm.launches = 0
-    _sddmm.gathered_launches = 0
-    _topk.launches = 0
+    for counts in (_gram.launches, _sddmm.launches, _topk.launches,
+                   _flash.design_launches, _flash_bwd.design_launches):
+        counts.update(dict.fromkeys(counts, 0))
     _flash.launches = 0
     _flash_bwd.launches = 0
-    _flash.design_launches.update(dict.fromkeys(_flash.design_launches, 0))
-    _flash_bwd.design_launches.update(
-        dict.fromkeys(_flash_bwd.design_launches, 0))
 
 
 # probe shapes of the reference's ops.KERNELS envelope (and of the
@@ -255,6 +266,11 @@ KERNELS = {
             (1, 130, 2, 8), (1, 130, 1, 8), torch.bfloat16,
             dict(causal=False))},
 }
+# the port's own bf16 probes: sddmm's and topk_score's shapes in bf16
+KERNELS["sddmm_bf16"] = {f"{label} bf16": shape
+                         for label, shape in KERNELS["sddmm"].items()}
+KERNELS["topk_score_bf16"] = {f"{label} bf16": probe for label, probe
+                              in KERNELS["topk_score"].items()}
 # the backward's: flash's probes, then GQA groups of 3 at hd 64 (the LM
 # path's widths), causal from 0 and windowed from an offset
 KERNELS["flash_bwd"] = {

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels, in fp32.
+"""Plain PyTorch versions of the kernels, accumulating in fp32.
 
 The counterpart of ``gram_ref``, ``sddmm_ref``, ``topk_score_ref`` and
 ``attention_ref`` in ``repro/kernels/ref.py``.  ``kernels/ops.py`` runs these on CPU
@@ -8,9 +8,11 @@ tensors, the CPU tests hold them against the JAX package, and
 ``gathered_sddmm_padded_ref`` are the plain versions of the port's own
 fused entries, and ``attention_bwd_ref`` that of the attention
 backward (``flash_bwd.py``), which has no Pallas kernel in the
-reference.  Of the reference's bf16 branches only
-``gram_ref``'s is ported; the others belong to the ``bf16_gather`` slice
-(ROADMAP).
+reference.  Each keeps the reference's bf16 branch, the operands of its
+``bf16_gather`` sweep: ``gram_ref`` rounds the masked rows and
+``val * mask`` to bf16; ``sddmm_ref`` and ``topk_score_ref`` take bf16 x
+bf16, whose products are exact in fp32, with fp32 sums; a bf16 operand
+against an fp32 one is the fp32 product JAX's promotion gives.
 """
 from __future__ import annotations
 
@@ -52,11 +54,13 @@ def gathered_gram_ref(fixed: torch.Tensor, idx: torch.Tensor,
                       val: torch.Tensor, mask: torch.Tensor, alpha, *,
                       acc=None, lam=None):
     """The sweep's alpha-weighted Gram of gathered rows, in the float
-    program of separate ops: ``fixed.index_select`` over ``idx`` (the
-    (R, T, K) slab), ``gram_ref``, ``* alpha``, then ``acc + x`` and
-    ``x + lam``, each rounded apart.  ``acc`` = (gram, rhs) is updated in
-    place and returned.  An idx outside [0, n_fixed) raises here (the
-    kernel reads zeros there)."""
+    program of separate ops: ``fixed.index_select`` over ``idx`` (the (R, T,
+    K) slab), ``gram_ref``, ``* alpha``, then ``acc + x`` and ``x + lam``,
+    each rounded apart.  A bf16 ``fixed`` (the ``bf16_gather`` sweep's copy)
+    gathers a bf16 slab and takes ``gram_ref``'s bf16 program, which rounds
+    ``val * mask`` to bf16 before the rhs product; alpha, acc and lam stay
+    fp32.  ``acc`` = (gram, rhs) is updated in place and returned.  An idx
+    outside [0, n_fixed) raises here (the kernel reads zeros there)."""
     R, T = idx.shape
     vg = fixed.index_select(0, idx.reshape(-1)).reshape(R, T,
                                                          fixed.shape[1])
@@ -73,7 +77,13 @@ def gathered_gram_ref(fixed: torch.Tensor, idx: torch.Tensor,
 
 
 def sddmm_ref(ug: torch.Tensor, vg: torch.Tensor) -> torch.Tensor:
-    """Gathered-operand SDDMM: pred[e] = ug[e] . vg[e] -> (E,) fp32."""
+    """Gathered-operand SDDMM: pred[e] = ug[e] . vg[e] -> (E,) fp32.
+
+    Both of the reference's branches are one program here: bf16 x bf16
+    (``einsum`` with ``preferred_element_type=float32``) widens each
+    operand exactly, so every product is exact in fp32 and the sum is
+    fp32; any other pair is cast to fp32 first (a bf16 operand against
+    an fp32 one: JAX's promotion)."""
     return torch.einsum("ek,ek->e", ug.to(torch.float32),
                         vg.to(torch.float32))
 
@@ -96,7 +106,9 @@ def gathered_sddmm_padded_ref(u: torch.Tensor, fixed: torch.Tensor,
                               idx: torch.Tensor) -> torch.Tensor:
     """pred (R, T) with pred[r, t] = u[r] . fixed[idx[r, t]]: the
     gathered SDDMM at every slot of a padded layout, over the vector of
-    slot rows."""
+    slot rows.  fp32 ``u`` against a bf16 ``fixed`` (probit in the
+    ``bf16_gather`` sweep) is the fp32 product of the widened rows, as
+    the reference's ``einsum`` promotes it."""
     R, T = idx.shape
     return gathered_sddmm_ref(u, fixed, slot_rows(R, T, idx.device),
                               idx.reshape(-1)).reshape(R, T)
@@ -122,8 +134,11 @@ def topk_score_ref(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor,
 
     us (B, S, K), v (S, N, K), excl (B, N) with 1.0 = excluded, k <= N
     -> ids (B, k) int32, mean (B, k) f32, ex2 (B, k) f32.  The std is
-    finalized by ``ops.topk_score``.  fp32 only; the reference's bf16
-    operands are a later slice.
+    finalized by ``ops.topk_score``.  us and v both bf16 are the
+    reference's bf16 branch, one program with the fp32 one here: the
+    scores are products of bf16 values, exact in fp32, summed in fp32
+    (``preferred_element_type``), so the operands are widened exactly;
+    any other pair is cast to fp32 first, as the reference does.
     """
     S = v.shape[0]
     us = us.to(torch.float32)

@@ -5,7 +5,11 @@ The kernel (``csrc/topk_score.cu``) replaces the Pallas-TPU kernel
 bounds it on the card and how its two passes answer that.  Its plain
 version is ``ref.topk_score_ref``.
 
-``launches`` counts the calls that launched the kernel, one per call.
+It takes us and v both fp32 (``topk_score_f32``) or both bf16
+(``topk_score_bf16``: the reference's bf16 branch, whose scores are
+products of bf16 values summed in fp32); excl is fp32.  ``launches``
+counts the calls that launched the kernel, one per call, under
+``ops.launch_counts()``'s keys ``topk_score`` and ``topk_score_bf16``.
 A call launches ``2 + merges`` CUDA kernels when k <= 1,024 (scoring,
 the first selecting round over chunks, the later rounds over their
 lists) and ``3 + merges`` above (scoring, the radix select, the tile
@@ -22,7 +26,7 @@ import torch
 
 from . import _build
 
-launches = 0
+launches = {"topk_score": 0, "topk_score_bf16": 0}
 GROUP = 8             # users a scoring block serves
 SELECT_CAP = 1024     # largest k of the chunk route; above, radix select
 SEGMENT = 8192        # keys a selecting block holds
@@ -92,12 +96,16 @@ def _check(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor, k: int):
         if not x.is_cuda:
             raise ValueError(f"topk_score_cuda: {name} is not a CUDA "
                              "tensor")
-        if x.dtype != torch.float32:
-            raise TypeError(f"topk_score_cuda: {name} is {x.dtype}; the "
-                            "kernel takes float32 (bf16 is not ported "
-                            "yet)")
         if not x.is_contiguous():
             raise ValueError(f"topk_score_cuda: {name} is not contiguous")
+    if (us.dtype, v.dtype) not in ((torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16)):
+        raise TypeError(f"topk_score_cuda: us is {us.dtype} and v "
+                        f"{v.dtype}; the kernel takes float32 x float32 or "
+                        "bfloat16 x bfloat16")
+    if excl.dtype != torch.float32:
+        raise TypeError(f"topk_score_cuda: excl is {excl.dtype}; the "
+                        "kernel takes float32")
     if us.dim() != 3 or v.dim() != 3:
         raise ValueError(f"topk_score_cuda: us {tuple(us.shape)} must be "
                          f"(B, S, K) and v {tuple(v.shape)} (S, N, K)")
@@ -136,26 +144,30 @@ def launch(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor, k: int,
     B, S, N, K, p = _check(us, v, excl, k)
     ids, mean, ex2, scratch = (buffers(B, N, k, p, us.device)
                                if bufs is None else bufs)
-    tma = int(K % 4 == 0 and us.data_ptr() % 16 == 0
+    bf16 = us.dtype == torch.bfloat16
+    # TMA: rows of a whole number of 16 bytes, operands on 16 bytes
+    tma = int(K % (8 if bf16 else 4) == 0 and us.data_ptr() % 16 == 0
               and v.data_ptr() % 16 == 0)
-    fn = _build.load("topk_score").topk_score_f32
+    entry = "topk_score_bf16" if bf16 else "topk_score_f32"
+    fn = getattr(_build.load("topk_score"), entry)
     with torch.cuda.device(us.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(us.data_ptr(), v.data_ptr(), excl.data_ptr(),
                  ids.data_ptr(), mean.data_ptr(), ex2.data_ptr(),
                  scratch.data_ptr(), scratch.numel(), B, S, N, K, k, p.tn,
                  p.chunk, p.group, tma, passes, stream)
-    _build.check(err, "topk_score_f32")
+    _build.check(err, entry)
     return ids, mean, ex2, scratch
 
 
 def topk_score_cuda(us: torch.Tensor, v: torch.Tensor, excl: torch.Tensor,
                     k: int):
-    """ids (B, k) int32, mean (B, k), ex2 (B, k) of fp32 contiguous CUDA
-    tensors us (B, S, K), v (S, N, K), excl (B, N) (1.0 = excluded),
-    for 1 <= k <= N.  Raises on anything the kernel does not take: a
-    CPU tensor, bf16, or a tensor that is not contiguous."""
-    global launches
+    """ids (B, k) int32, mean (B, k), ex2 (B, k) fp32 of contiguous CUDA
+    tensors us (B, S, K) and v (S, N, K), both fp32 or both bf16, and
+    excl (B, N) fp32 (1.0 = excluded), for 1 <= k <= N.  Raises on
+    anything the kernel does not take: a CPU tensor, a mixed pair, or a
+    tensor that is not contiguous."""
     ids, mean, ex2, _ = launch(us, v, excl, k)
-    launches += 1
+    launches["topk_score_bf16" if us.dtype == torch.bfloat16
+             else "topk_score"] += 1
     return ids, mean, ex2

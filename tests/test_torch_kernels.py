@@ -85,9 +85,20 @@ def test_cpu_dispatch_launches_no_kernel():
     tops.gathered_sddmm_padded(*_t(*_sddmm_inputs(5, 4)),
                                *_t(np.array([[0, 4], [2, 2], [1, 3],
                                              [0, 0], [4, 1]], np.int32)))
-    assert tops.launch_counts() == {"gram": 0, "sddmm": 0,
-                                    "sddmm_gathered": 0, "topk_score": 0,
-                                    "flash": 0, "flash_bwd": 0}
+    # the bf16 operands of the bf16_gather sweep take the plain version
+    # on the CPU too
+    u, v = (x.bfloat16() for x in _t(*_sddmm_inputs(5, 4)))
+    i, j = _t(np.array([0, 4, 2], np.int32), np.array([1, 1, 3], np.int32))
+    tops.sddmm(u, v)
+    tops.gathered_sddmm(u, v, i, j)
+    tops.gathered_sddmm_padded(u.float(), v, i.reshape(3, 1))
+    tops.gathered_gram_and_rhs(v, i.reshape(1, 3), torch.ones(1, 3),
+                               torch.ones(1, 3), torch.tensor(2.0))
+    assert tops.launch_counts() == {
+        "gram": 0, "gram_gathered_bf16": 0, "sddmm": 0, "sddmm_bf16": 0,
+        "sddmm_gathered": 0, "sddmm_gathered_bf16": 0,
+        "sddmm_padded_bf16": 0, "sddmm_padded_mixed": 0, "topk_score": 0, "topk_score_bf16": 0,
+        "flash": 0, "flash_bwd": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -110,8 +121,15 @@ def test_probe_envelope_mirrors_reference():
     arguments).  ``sddmm_gathered`` is the port's own entry: its
     production probe is sddmm's production shape.  ``flash_bwd`` is the
     port's own too (the reference has no Pallas backward): flash's
-    probes, then GQA groups of 3 at hd 64."""
+    probes, then GQA groups of 3 at hd 64.  ``sddmm_bf16`` and
+    ``topk_score_bf16`` are the port's own: sddmm's and topk_score's
+    probes, run in bf16."""
     for name, probes in tops.KERNELS.items():
+        if name in ("sddmm_bf16", "topk_score_bf16"):
+            fp32 = tops.KERNELS[name[:-len("_bf16")]]
+            assert probes == {f"{label} bf16": p
+                              for label, p in fp32.items()}
+            continue
         if name == "flash_bwd":
             own = {label: p for label, p in probes.items()
                    if label not in tops.KERNELS["flash"]}

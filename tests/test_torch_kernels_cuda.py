@@ -62,11 +62,11 @@ def cuda():
                                    (5, 1, 128), (6, 17, 64)])
 def test_gram_kernel_matches_plain(cuda, R, T, K):
     vg, val, mask = _t(*_gram_inputs(R, T, K), device=cuda)
-    before = tgram.launches
+    before = tgram.launches["gram"]
     g, r = tops.gram_and_rhs(vg, val, mask)
     torch.cuda.synchronize()
     # one kernel for the diagonal tiles, one more for those below them
-    assert tgram.launches == before + (1 if K <= tgram.TILE else 2)
+    assert tgram.launches["gram"] == before + (1 if K <= tgram.TILE else 2)
     gw, rw = tref.gram_ref(vg, val, mask)
     torch.testing.assert_close(g, gw, **GRAM_TOL)
     torch.testing.assert_close(r, rw, **GRAM_TOL)
@@ -76,32 +76,46 @@ def test_gram_kernel_matches_plain(cuda, R, T, K):
 @pytest.mark.parametrize("E,K", [(1, 3), (4096, 128), (1025, 200)])
 def test_sddmm_kernel_matches_plain(cuda, E, K):
     u, v = _t(*_sddmm_inputs(E, K), device=cuda)
-    before = tsddmm.launches
+    before = tsddmm.launches["sddmm"]
     p = tops.sddmm(u, v)
     torch.cuda.synchronize()
-    assert tsddmm.launches == before + 1
+    assert tsddmm.launches["sddmm"] == before + 1
     torch.testing.assert_close(p, tref.sddmm_ref(u, v), **SDDMM_TOL)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["gram", "sddmm"])
 def test_kernels_refuse_bf16(cuda, kernel):
-    """sddmm's bf16 branch is not ported: it refuses bf16 operands.
-    gram takes them now (the reference's bf16 probe, and a K that is
-    not a multiple of 8, whose rows the kernel loads element-wise) and
-    matches the bf16 branch of its plain version."""
+    """Both take bf16 operands now, the reference's bf16 branches, and
+    refuse the pairs no reference path makes.  sddmm: bf16 x bf16 at
+    its probe shapes and a K that is not a multiple of 4, one launch of
+    ``sddmm_bf16`` a call, matching its plain version and bitwise the
+    fp32 kernel on the widened operands (the same columns a lane, in
+    the same order); bf16 against fp32 raises.  gram: the reference's
+    bf16 probe, and a K that is not a multiple of 8, whose rows the
+    kernel loads element-wise, against the bf16 branch of its plain
+    version."""
     if kernel == "sddmm":
-        u, v = _t(*_sddmm_inputs(5, 4), device=cuda)
-        with pytest.raises(TypeError, match="float32"):
-            tsddmm.sddmm_cuda(u.bfloat16(), v.bfloat16())
+        for E, K in (*tops.KERNELS["sddmm_bf16"].values(), (37, 9)):
+            u, v = (x.bfloat16() for x in
+                    _t(*_sddmm_inputs(E, K), device=cuda))
+            before = tsddmm.launches["sddmm_bf16"]
+            p = tops.sddmm(u, v)
+            torch.cuda.synchronize()
+            assert tsddmm.launches["sddmm_bf16"] == before + 1
+            torch.testing.assert_close(p, tref.sddmm_ref(u, v),
+                                       **SDDMM_TOL)
+            assert _same_bits(p, tsddmm.sddmm_cuda(u.float(), v.float()))
+        with pytest.raises(TypeError, match="float32 x float32"):
+            tsddmm.sddmm_cuda(u, v.float())
         return
     for R, T, K in ((16, 130, 32), (5, 37, 9)):
         vg, val, mask = (x.bfloat16() for x in
                          _t(*_gram_inputs(R, T, K), device=cuda))
-        before = tgram.launches
+        before = tgram.launches["gram"]
         g, r = tops.gram_and_rhs(vg, val, mask)
         torch.cuda.synchronize()
-        assert tgram.launches == before + 1
+        assert tgram.launches["gram"] == before + 1
         assert g.dtype == r.dtype == torch.float32
         gw, rw = tref.gram_ref(vg, val, mask)
         torch.testing.assert_close(g, gw, **GRAM_TOL)
@@ -154,11 +168,11 @@ def test_gathered_gram_kernel_matches_plain(cuda, R, T, K, n_fixed, empty):
     a1 = torch.tensor(1.7, device=cuda)
     a2 = torch.tensor(0.45, device=cuda)
     lam = torch.randn(K, K, device=cuda)
-    before = tgram.launches
+    before = tgram.launches["gram"]
     acc = tops.gathered_gram_and_rhs(f1, i1, v1, m1, a1)
     g, r = tops.gathered_gram_and_rhs(f2, i2, v2, m2, a2, acc=acc, lam=lam)
     torch.cuda.synchronize()
-    assert tgram.launches == before + 2 * (1 if K <= tgram.TILE else 2)
+    assert tgram.launches["gram"] == before + 2 * (1 if K <= tgram.TILE else 2)
     assert g.data_ptr() == acc[0].data_ptr()
     w1 = tref.gathered_gram_ref(f1.cpu(), i1.cpu(), v1.cpu(), m1.cpu(),
                                 a1.cpu())
@@ -301,10 +315,10 @@ def test_gathered_sddmm_matches_plain_and_the_pipeline_bitwise(
     and the runs of i."""
     prev = _first_design("sddmm_v1")
     U, V, i, j = tops.gathered_sddmm_probe(E, K, n_u, n_v, runs, cuda)
-    before = tsddmm.gathered_launches
+    before = tsddmm.launches["sddmm_gathered"]
     p = tops.gathered_sddmm(U, V, i, j)
     torch.cuda.synchronize()
-    assert tsddmm.gathered_launches == before + 1
+    assert tsddmm.launches["sddmm_gathered"] == before + 1
     assert p.shape == (E,)
     torch.testing.assert_close(p, tref.gathered_sddmm_ref(U, V, i, j),
                                **SDDMM_TOL)
@@ -387,10 +401,10 @@ def test_gathered_sddmm_padded_is_the_gathered_entry_bitwise(cuda, R, T, K,
     idx = torch.randint(0, n, (R, T), generator=g, dtype=torch.int32)
     idx[::7, ::3] = n + 5
     idx = idx.to(cuda)
-    before = tsddmm.gathered_launches
+    before = tsddmm.launches["sddmm_gathered"]
     p = tops.gathered_sddmm_padded(u, fixed, idx)
     torch.cuda.synchronize()
-    assert tsddmm.gathered_launches == before + 1
+    assert tsddmm.launches["sddmm_gathered"] == before + 1
     assert p.shape == (R, T)
     rows, flat = tref.slot_rows(R, T, cuda), idx.reshape(-1)
     assert _same_bits(p.reshape(-1), tops.gathered_sddmm(u, fixed, rows,
@@ -419,6 +433,9 @@ def test_gathered_sddmm_padded_refuses_what_it_does_not_take(cuda):
         tsddmm.sddmm_padded_cuda(u, fixed, idx.cpu())
     with pytest.raises(TypeError, match="float32"):
         tsddmm.sddmm_padded_cuda(u, fixed.double(), idx)
+    # bf16 u against fp32 rows: no sweep makes it
+    with pytest.raises(TypeError, match="float32 x bfloat16"):
+        tsddmm.sddmm_padded_cuda(u.bfloat16(), fixed, idx)
     with pytest.raises(TypeError, match="int32"):
         tsddmm.sddmm_padded_cuda(u, fixed, idx.long())
     with pytest.raises(ValueError, match="differ in K"):
@@ -443,6 +460,8 @@ def test_gathered_sddmm_refuses_what_it_does_not_take(cuda):
         tsddmm.sddmm_gathered_cuda(U.cpu(), V, i, j)
     with pytest.raises(TypeError, match="float32"):
         tsddmm.sddmm_gathered_cuda(U.bfloat16(), V, i, j)
+    with pytest.raises(TypeError, match="float32"):
+        tsddmm.sddmm_gathered_cuda(U, V.bfloat16(), i, j)
     with pytest.raises(TypeError, match="int32"):
         tsddmm.sddmm_gathered_cuda(U, V, i.long(), j)
     with pytest.raises(ValueError, match="differ in K"):
@@ -482,10 +501,10 @@ def _topk_inputs(B, S, N, K, seed=0, excl_frac=0.0):
 def test_topk_kernel_matches_plain(cuda, B, S, N, K, k, excl_frac):
     us, v, excl = _t(*_topk_inputs(B, S, N, K, excl_frac=excl_frac),
                      device=cuda)
-    before = ttopk.launches
+    before = ttopk.launches["topk_score"]
     got = tops.topk_score(us, v, k, exclude=excl)
     torch.cuda.synchronize()
-    assert ttopk.launches == before + 1
+    assert ttopk.launches["topk_score"] == before + 1
     tops.reset_launch_counts()
     want = tops.topk_score(us.cpu(), v.cpu(), k, exclude=excl.cpu())
     assert tops.launch_counts()["topk_score"] == 0
@@ -552,6 +571,10 @@ def test_topk_kernel_refuses_what_it_does_not_take(cuda):
     us, v, excl = _t(*_topk_inputs(2, 4, 3000, 8), device=cuda)
     with pytest.raises(TypeError, match="float32"):
         ttopk.topk_score_cuda(us.bfloat16(), v, excl, 5)
+    with pytest.raises(TypeError, match="bfloat16 x bfloat16"):
+        ttopk.topk_score_cuda(us, v.bfloat16(), excl, 5)
+    with pytest.raises(TypeError, match="excl"):
+        ttopk.topk_score_cuda(us, v, excl.bfloat16(), 5)
     with pytest.raises(ValueError, match="not contiguous"):
         ttopk.topk_score_cuda(us.transpose(1, 2), v, excl, 5)
     with pytest.raises(ValueError, match=r"must be in \[1, N=3000\]"):
@@ -568,10 +591,10 @@ def test_topk_kernel_answers_k_above_1024(cuda, k):
     one count, whatever number of kernels it launches."""
     us, v, excl = _t(*_topk_inputs(3, 6, 3000, 24, excl_frac=0.05),
                      device=cuda)
-    before = ttopk.launches
+    before = ttopk.launches["topk_score"]
     got = tops.topk_score(us, v, k, exclude=excl)
     torch.cuda.synchronize()
-    assert ttopk.launches == before + 1
+    assert ttopk.launches["topk_score"] == before + 1
     want = tops.topk_score(us.cpu(), v.cpu(), k, exclude=excl.cpu())
     tref.check_topk_score([x.cpu() for x in got], want, us.cpu(), v.cpu())
     assert ttopk.plan(3, 3000, k).route == "radix"
@@ -584,11 +607,11 @@ def test_topk_kernel_passes_run_apart(cuda):
     us, v, excl = _t(*_topk_inputs(8, 16, 5000, 64, excl_frac=0.02),
                      device=cuda)
     want = ttopk.topk_score_cuda(us, v, excl, 100)
-    before = ttopk.launches
+    before = ttopk.launches["topk_score"]
     bufs = ttopk.launch(us, v, excl, 100, passes=1)
     bufs[0].fill_(-7)
     ttopk.launch(us, v, excl, 100, passes=2, bufs=bufs)
-    assert ttopk.launches == before
+    assert ttopk.launches["topk_score"] == before
     for x, y in zip(bufs[:3], want):
         assert torch.equal(x, y)
 
@@ -1241,3 +1264,250 @@ def test_flash_bwd_refuses_what_it_does_not_take(cuda):
                                   g.transpose(1, 2).contiguous()
                                   .transpose(1, 2), causal=True)
     assert tflash_bwd.design_launches == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 entries of the bf16_gather sweep
+# ---------------------------------------------------------------------------
+
+# (R, T, K, n_fixed, empty rows): K = 9 (element-wise row loads), 32, 33,
+# 128 (the sweep's width) and 256 (the tiled path)
+GRAM_BF16_CASES = [(3, 5, 9, 4, 1), (16, 130, 32, 40, 2),
+                   (13, 257, 33, 50, 3), (300, 70, 128, 1000, 5),
+                   (4, 40, 256, 30, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T,K,n_fixed,empty", GRAM_BF16_CASES)
+def test_gathered_gram_bf16_matches_plain_and_its_pipeline(
+        cuda, R, T, K, n_fixed, empty):
+    """``gram_gathered_bf16`` (a bf16 fixed factor): two blocks' order,
+    the second with acc and a Lambda_p that is not symmetric, against
+    ``ref.gathered_gram_ref``'s bf16 program at GRAM_TOL, counted under
+    ``gram_gathered_bf16`` (the fp32 count does not move); with
+    alpha 1 and neither acc nor lam, bitwise ``gram_bf16`` on the
+    ``index_select``ed slab, the pipeline it replaces."""
+    f1, i1, v1, m1 = _gathered_inputs(R, T, K, n_fixed, empty, cuda, 0)
+    f2, i2, v2, m2 = _gathered_inputs(R, T + 3, K, n_fixed, 0, cuda, 1)
+    f1, f2 = f1.bfloat16(), f2.bfloat16()
+    a1 = torch.tensor(1.7, device=cuda)
+    a2 = torch.tensor(0.45, device=cuda)
+    lam = torch.randn(K, K, device=cuda)
+    before, fp32 = tgram.launches["gram_gathered_bf16"], tgram.launches["gram"]
+    acc = tops.gathered_gram_and_rhs(f1, i1, v1, m1, a1)
+    g, r = tops.gathered_gram_and_rhs(f2, i2, v2, m2, a2, acc=acc, lam=lam)
+    torch.cuda.synchronize()
+    n = 1 if K <= tgram.TILE else 2
+    assert tgram.launches["gram_gathered_bf16"] == before + 2 * n
+    assert tgram.launches["gram"] == fp32
+    w1 = tref.gathered_gram_ref(f1.cpu(), i1.cpu(), v1.cpu(), m1.cpu(),
+                                a1.cpu())
+    gw, rw = tref.gathered_gram_ref(f2.cpu(), i2.cpu(), v2.cpu(), m2.cpu(),
+                                    a2.cpu(), acc=w1, lam=lam.cpu())
+    torch.testing.assert_close(g.cpu(), gw, **GRAM_TOL)
+    torch.testing.assert_close(r.cpu(), rw, **GRAM_TOL)
+    one = torch.tensor(1.0, device=cuda)
+    got = tgram.gathered_gram_cuda(f1, i1, v1, m1, one)
+    vg = f1.index_select(0, i1.reshape(-1)).reshape(R, T, K)
+    want = tgram.gram_cuda(vg, v1, m1)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+# (E, K, n_u, n_v, runs): the sddmm_gathered probes and ragged cases
+SDDMM_BF16_CASES = [*tops.KERNELS["sddmm_gathered"].values(),
+                    (0, 128, 5, 5, None), (1, 1, 1, 1, None),
+                    (3000, 33, 7, 3000, None), (2049, 130, 50, 40, None),
+                    (3000, 520, 200, 50, (1, 70)),
+                    (64 * 129, 128, 129, 8192, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,K,n_u,n_v,runs", SDDMM_BF16_CASES)
+def test_gathered_sddmm_bf16_is_its_pipelines_bits(cuda, E, K, n_u, n_v,
+                                                   runs):
+    """``sddmm_gathered_bf16`` (U and V bf16): bitwise ``sddmm_bf16`` on
+    the ``index_select``ed rows (the pipeline it replaces) and the fp32
+    gathered entry on the widened factors, within SDDMM_TOL of its
+    plain version, counted under ``sddmm_gathered_bf16``."""
+    U, V, i, j = (x.to(cuda) for x in tops.gathered_sddmm_probe(
+        E, K, n_u, n_v, runs, "cpu", seed=E + K))
+    U, V = U.bfloat16(), V.bfloat16()
+    before, fp32 = tsddmm.launches["sddmm_gathered_bf16"], tsddmm.launches["sddmm_gathered"]
+    p = tops.gathered_sddmm(U, V, i, j)
+    torch.cuda.synchronize()
+    assert tsddmm.launches["sddmm_gathered_bf16"] == before + 1
+    assert tsddmm.launches["sddmm_gathered"] == fp32
+    assert _same_bits(p, tsddmm.sddmm_cuda(U.index_select(0, i),
+                                           V.index_select(0, j)))
+    assert _same_bits(p, tsddmm.sddmm_gathered_cuda(U.float(), V.float(),
+                                                    i, j))
+    torch.testing.assert_close(p, tref.gathered_sddmm_ref(U, V, i, j),
+                               **SDDMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16],
+                         ids=["mixed", "bf16"])
+@pytest.mark.parametrize("R,T,K,n", [
+    (3000, 1, 128, 500), (2048, 64, 128, 8192), (131, 70, 33, 100),
+    (8192, 0, 128, 5), (50, 9, 6, 40)])
+def test_gathered_sddmm_padded_bf16_entries(cuda, u_dtype, R, T, K, n):
+    """The padded entry on bf16 fixed rows, with fp32 u
+    (``sddmm_padded_mixed``: probit's predictions in the bf16 sweep) or
+    bf16 u (``sddmm_padded_bf16``: the distributed sweep's residuals):
+    bitwise the fp32 padded entry on the widened operands, within
+    SDDMM_TOL of the plain version, each counted under its own count;
+    an idx out of range reads a zero row."""
+    g = torch.Generator().manual_seed(R + T)
+    u = torch.randn(R, K, generator=g).to(cuda, u_dtype)
+    fixed = torch.randn(n, K, generator=g).to(cuda, torch.bfloat16)
+    idx = torch.randint(0, n, (R, T), generator=g, dtype=torch.int32)
+    idx[::7, ::3] = n + 5
+    idx = idx.to(cuda)
+    mixed = u_dtype == torch.float32
+    counts = tops.launch_counts()
+    p = tops.gathered_sddmm_padded(u, fixed, idx)
+    torch.cuda.synchronize()
+    key = "sddmm_padded_mixed" if mixed else "sddmm_padded_bf16"
+    after = tops.launch_counts()
+    assert after[key] == counts[key] + 1
+    assert after["sddmm_gathered"] == counts["sddmm_gathered"]
+    assert p.shape == (R, T) and p.dtype == torch.float32
+    assert _same_bits(p, tops.gathered_sddmm_padded(u.float(),
+                                                    fixed.float(), idx))
+    ok = idx < n
+    safe = torch.where(ok, idx, 0).int()
+    want = tref.gathered_sddmm_padded_ref(u, fixed, safe)
+    torch.testing.assert_close(p[ok], want[ok], **SDDMM_TOL)
+    assert torch.equal(p[~ok], torch.zeros_like(p[~ok]))
+
+
+# (B, S, N, K, k, excl): the topk probes in bf16, K that TMA takes in bf16
+# (K % 8 == 0) and that it does not (plain-load staging: 4, 12, 36), k
+# above 1,024 (radix select), more users than a group of 8
+TOPK_BF16_CASES = [
+    *[(us[0], us[1], v[1], us[2], k, 0.0) for us, v, k
+      in tops.KERNELS["topk_score_bf16"].values()],
+    (8, 32, 8192, 128, 100, 0.01), (2, 512, 3000, 128, 100, 0.0),
+    (3, 8, 5000, 16, 2048, 0.3), (2, 3, 777, 36, 777, 0.2),
+    (9, 4, 3000, 12, 100, 0.1), (11, 3, 1000, 4, 750, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,N,K,k,excl_frac", TOPK_BF16_CASES)
+def test_topk_bf16_matches_plain_and_the_fp32_kernel(cuda, B, S, N, K, k,
+                                                     excl_frac):
+    """``topk_score_bf16``: held against the plain version's bf16
+    branch by ``ref.check_topk_score``; bitwise the fp32 kernel on the
+    widened operands (the same fmaf chain over the same k order, the
+    bf16 map's 64-byte rows and swizzle or the plain-load staging
+    feeding it); a batched call bitwise B single-user calls; counted
+    under ``topk_score_bf16``."""
+    us, v, excl = _t(*_topk_inputs(B, S, N, K, excl_frac=excl_frac),
+                     device=cuda)
+    us, v = us.bfloat16(), v.bfloat16()
+    before, fp32 = ttopk.launches["topk_score_bf16"], ttopk.launches["topk_score"]
+    got = tops.topk_score(us, v, k, exclude=excl)
+    torch.cuda.synchronize()
+    assert ttopk.launches["topk_score_bf16"] == before + 1 and ttopk.launches["topk_score"] == fp32
+    want = tops.topk_score(us.cpu(), v.cpu(), k, exclude=excl.cpu())
+    tref.check_topk_score([x.cpu() for x in got], want, us.cpu().float(),
+                          v.cpu().float())
+    wide = tops.topk_score(us.float(), v.float(), k, exclude=excl)
+    for x, y in zip(got, wide):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    for b in range(min(B, 3)):
+        one = tops.topk_score(us[b:b + 1], v, k, exclude=excl[b:b + 1])
+        for x, y in zip(got, one):
+            assert torch.equal(x[b:b + 1].view(torch.int32),
+                               y.view(torch.int32))
+
+
+def _state_to(st, device):
+    def move(x):
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(move(v) for v in x)
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+    return type(st)(*(move(x) for x in st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gaussian", "gaussian_fixed", "probit",
+                                  "macau", "dense_full", "dense_masked",
+                                  "gfa"])
+def test_bf16_gather_sweep_of_each_model_kind(cuda, name, monkeypatch):
+    """``ModelBuilder(bf16_gather=True)`` on the card for every model
+    kind (``test_torch_bf16_gather.build``): one sweep from the CPU's
+    initial state.  Every factor and metric finite, the first entity's
+    update against the CPU plain path's within 2e-4 (the same bf16
+    copies; the card's kernels, Cholesky and solves sum in other
+    orders), and the launches on the bf16 entries alone: gram's and the
+    gathered sddmm's a sparse block, probit's mixed padded entry, none
+    of the fp32 gathered entries.  Probit's latents differ between the
+    card and the CPU by ULPs even on the same predictions (``erf_inv``'s
+    ``log1p`` and ``sqrt``), and the card's own latents carried its
+    update past 2e-4; so under probit the card's update is fed the
+    CPU's latents, call by call, and held from there, while the first
+    call's predictions (the mixed padded entry's, or the dense block's
+    product) are held against the CPU's, and the card's own latents on
+    the CPU's predictions are printed beside the CPU's (``-s``)."""
+    from test_torch_bf16_gather import build
+    from repro_torch import core as tc
+    from repro_torch.core import noise as tnoise
+    cm, cd = build(tc, name, device="cpu")
+    gm, gd = build(tc, name, device=cuda)
+    st = tc.init_state(cm, cd, seed=0)
+    real = tnoise.ProbitNoise.augment
+    seen = []       # the CPU's (pred, latents), in call order
+
+    def record(self, key, state, pred, vals, mask, row_offset=0):
+        out = real(self, key, state, pred, vals, mask, row_offset)
+        seen.append((pred, out[0]))
+        return out
+
+    monkeypatch.setattr(tnoise.ProbitNoise, "augment", record)
+    want, _ = tc.gibbs_step(cm, cd, st)
+    fed = []
+
+    def replay(self, key, state, pred, vals, mask, row_offset=0):
+        cpu_pred, cpu_z = seen[len(fed)]
+        own = real(self, key, state, cpu_pred.to(cuda), vals, mask,
+                   row_offset)[0]
+        fed.append((pred, cpu_pred, own, cpu_z))
+        return cpu_z.to(cuda), state["alpha"]
+
+    monkeypatch.setattr(tnoise.ProbitNoise, "augment", replay)
+    tops.reset_launch_counts()
+    got, metrics = tc.gibbs_step(gm, gd, _state_to(st, cuda))
+    torch.cuda.synchronize()
+    counts = tops.launch_counts()
+    assert len(fed) == len(seen)
+    if fed:
+        pred, cpu_pred, own, cpu_z = fed[0]
+        torch.testing.assert_close(pred.cpu(), cpu_pred, rtol=1e-5,
+                                   atol=1e-4)
+        diff = (own.cpu() - cpu_z).abs()
+        print(f"\n{name}: the card's latents on the CPU's predictions "
+              f"against the CPU's: {int((diff > 0).sum())} of "
+              f"{diff.numel()} differ, max |diff| {float(diff.max()):.3e}"
+              f"; predictions max |diff| "
+              f"{float((pred.cpu() - cpu_pred).abs().max()):.3e}")
+        assert bool(torch.isfinite(own).all())
+    torch.testing.assert_close(got.factors[0].cpu(), want.factors[0],
+                               rtol=2e-4, atol=2e-4)
+    assert all(bool(torch.isfinite(f).all()) for f in got.factors)
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    sparse = sum(b.sparse for b in gm.blocks)
+    halves = sum(len([1 for b in gm.blocks if b.sparse and e in
+                      (b.row_entity, b.col_entity)])
+                 for e in range(len(gm.entities))
+                 if type(gm.entities[e].prior).__name__
+                 != "SpikeAndSlabPrior")
+    probit = 2 * sum(b.sparse and type(b.noise).__name__ == "ProbitNoise"
+                     for b in gm.blocks)
+    assert counts["gram_gathered_bf16"] == halves
+    assert counts["sddmm_gathered_bf16"] == sparse
+    assert counts["sddmm_padded_mixed"] == probit
+    assert counts["gram"] == counts["sddmm_gathered"] == 0
