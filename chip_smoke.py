@@ -166,7 +166,30 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     one flash_bwd launch a layer a step, all on ``flash_bwd_sm90``'s
     192/128 instance, the flash forward's on ``flash_sm90``; step ms,
     tokens/s, the peak; one step twice from one state bitwise; a
-    profiled step (flash_bwd's device time beside MoE routing's).
+    profiled step (flash_bwd's device time beside MoE routing's);
+19. ssm: Mamba2-130M at full width and depth (24 layers, d 768, 24 SSD
+    heads of 64, state 128; random bf16 weights from the seed):
+    ``forward`` at 8 x 4,096 (ms, tokens/s, peak, the five leading
+    device operations of one profiled forward), ``generate`` over 8
+    prompts of 128 + 32 and ``BatchedServer`` (16 requests through 8
+    slots), each bitwise a fresh replay; decode held against forward in
+    fp32 (argmax agreement above 0.99; bf16's printed); 10 AdamW steps
+    of 8 x 4,096 tokens through ``train`` with remat (the loss falls),
+    and a run restarted from the step-5 checkpoint after a lost device
+    bitwise the uninterrupted one.  The SSD scan is PyTorch on tensors
+    (the reference has no Pallas kernel for it): no kernel launches;
+20. jamba: the windowed flash (``flash_sm90``, window 4,096) at Jamba's
+    shape (1 x 8,192, 32/8 heads of 128) against its plain version,
+    timed beside the unwindowed call, SDPA with the window as a mask and
+    the plain version; Jamba-v0.1's ``config(long_context=True)`` at
+    full width cut to one period of 8 layers (13.26B parameters, 26.5 GB
+    of random bf16 weights): ``forward`` at 1 x 8,192 through the
+    windowed kernel, ``generate`` and ``BatchedServer`` at 4 x 128 + 16;
+    then the ring buffer: the window cut to 128, the model in fp32 at
+    capacity_factor E/k, 4 prompts of 160 tokens replayed and 32 decoded
+    through a cache of 128 rows (it wraps), decode's argmax a maximiser
+    of one forward's logits at the same window in more than 0.99 of the
+    positions.
 
 Every failed check raises, so the exit code is not 0.  The last two
 lines are the ``kernels`` JSON and the device JSON.  Without a CUDA
@@ -3020,15 +3043,16 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS = 8, 512, 16
 LM_TOL = dict(rtol=0.08, atol=0.08)   # decode vs forward, test_models.py
 
 
-def flash_bound(q_shape, kv_shape, hdv=None):
+def flash_bound(q_shape, kv_shape, hdv=None, window=0):
     """(ms, by, operations) of one causal bf16 call from position 0, v
-    ``hdv`` wide (default: q and k's width hd): q, k, v read once, out
+    ``hdv`` wide (default: q and k's width hd), a query seeing the
+    ``window`` keys up to its own (0: all): q, k, v read once, out
     written once; 2 (hd + hdv) operations per visible (query, key) pair
     and head, at the tensor cores' bf16 rate."""
     B, Sq, H, hd = q_shape
     Sk, KVH = kv_shape[1], kv_shape[2]
     hdv = hd if hdv is None else hdv
-    pairs = sum(min(Sk, s + 1) for s in range(Sq))
+    pairs = sum(min(Sk, s + 1, window or Sk) for s in range(Sq))
     n_bytes = 2 * (B * Sq * H * (hd + hdv) + B * Sk * KVH * (hd + hdv))
     n_ops = 2 * B * H * (hd + hdv) * pairs
     return bound(n_bytes, n_ops, PEAK_BF16_FLOPS) + (n_ops,)
@@ -4529,6 +4553,514 @@ def phase_train_mla(seed: int, entry):
     return entry
 
 
+# the SSM family: Mamba2-130M uncut (configs/mamba2_130m.py), served and
+# trained; Jamba-v0.1 (configs/jamba_v01_52b.py) with the long-context
+# window at full width, its depth cut to one period of 8 layers
+SSM_ARCH = "mamba2_130m"
+SSM_PREFILL = (8, 4096)     # sequences x tokens: train_4k's length
+SSM_TRAIN_STEPS = 10
+SSM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=SSM_TRAIN_STEPS)
+SSM_RESTART = (5, 7)        # save_every, the step a device is lost
+# decode vs forward in fp32: the recurrence against the chunked scan,
+# the same function up to fp32 summation order; a bf16 decode rounds its
+# state to bf16 every step, as the reference does, so its agreement is
+# printed and not held (tests/test_models.py holds it at 0.9 on the CPU)
+SSM_FP32_AGREE = 0.99
+JAMBA_LAYERS = 8            # one period: 1 attention, 7 Mamba2, 4 MoE
+JAMBA_PREFILL = (1, 8192)   # the window (4,096) cuts its attention
+JAMBA_GEN = (4, 128, 16)    # prompts, prompt tokens, new tokens
+# the ring buffer on the card: the window cut to 128, prompts of 160
+# tokens replayed and 32 decoded (the buffer of 128 rows wraps), in fp32
+# at capacity_factor E/k (no group drops a token)
+JAMBA_RING = (4, 160, 32, 128)   # prompts, prompt tokens, decoded, window
+JAMBA_RING_LAYERS = 8
+JAMBA_FP32_AGREE = 0.99
+
+
+def leading_ops(fn, label, top=5):
+    """fn() under torch.profiler: the ``top`` aten operations by the
+    device time of the kernels each launched itself (self device time,
+    so that nested operations count once), each with its share of the
+    busy time; returns the busy ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof.events())
+    if not 0 < busy <= wall:
+        raise AssertionError(f"{label} profile: busy {busy} of {wall} ms")
+    opsl = [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")
+            and e.self_device_time_total > 0]
+    opsl.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"  profile, {label}: {wall:.1f} ms wall (profiler on), device "
+          f"busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}; the "
+          f"{top} leading operations by their kernels' device time:")
+    for e in opsl[:top]:
+        ms = e.self_device_time_total / 1e3
+        print(f"  {ms:9.3f} ms  {ms / busy:.3f} of busy  x{e.count:<5d} "
+              f"{e.key[:80]}")
+    return busy
+
+
+def phase_ssm(seed: int) -> int:
+    """Mamba2-130M at its published width and depth (24 layers, d 768,
+    24 SSD heads of 64, state 128, chunk 256), random weights from the
+    seed: ``forward`` at ``SSM_PREFILL`` in bf16 (ms, tokens/s, peak, the
+    leading device operations of one profiled forward); ``generate`` over
+    ``LM_GEN``'s prompts and ``BatchedServer`` (16 requests through 8
+    slots), each bitwise a fresh replay of the same calls, and the 8
+    prompts admitted together bitwise ``generate``'s tokens; decode
+    against forward in fp32 (argmax agreement above ``SSM_FP32_AGREE``)
+    and in bf16 (printed); ``train`` for ``SSM_TRAIN_STEPS`` AdamW steps
+    of ``SSM_PREFILL`` tokens with remat (the loss falls), and a run that
+    loses its device and restarts from the step-5 checkpoint ending on
+    the uninterrupted run's bits.  The SSD scan is PyTorch on tensors (the
+    reference has no Pallas kernel for it): the path launches no
+    hand-written kernel, and the launch counts say so."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import forward, init_model, param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FailureSim
+
+    cfg = get_config(SSM_ARCH)
+    model = init_model(cfg, seed=seed, device="cuda")
+    held = sum(t.numel() * t.element_size() for t in model.parameters())
+    print(f"model {cfg.name}: {cfg.n_layers} Mamba2 layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner_ssm}, {cfg.ssm_heads} SSD "
+          f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, conv {cfg.conv_width}, vocab {cfg.vocab_size} "
+          f"(tied); {param_count(cfg)[0]:,} parameters, {held / 1e9:.3f} GB "
+          f"held (bf16, dt_bias/A_log/D and the norms fp32); random weights "
+          f"from seed {seed}; fp32 matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    stream = TokenStream(cfg.vocab_size, seed)
+    ops.reset_launch_counts()
+
+    # forward: the first call, then three timed
+    B, S = SSM_PREFILL
+    toks = torch.from_numpy(stream.batch(0, B, S)[:, :S]).cuda()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, aux = forward(model, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) \
+            or logits.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(logits).all()) or float(aux) != 0.0:
+        raise AssertionError(f"ssm forward: logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, aux {float(aux)}")
+    del logits
+    fwd_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, _ = forward(model, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        del logits
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(fwd_ms)
+    print(f"ssm forward B={B} S={S}: first {first_ms:.1f} ms, then "
+          + ", ".join(f"{t:.1f}" for t in fwd_ms) + f" ms (median {med:.1f}"
+          f" ms, {B * S / med * 1e3:.0f} tokens/s); peak device memory "
+          f"{peak / 1e9:.2f} GB")
+    leading_ops(lambda: forward(model, cfg, {"tokens": toks}),
+                f"one Mamba2-130M forward B={B} S={S}")
+    del toks
+
+    # generate, and a fresh replay of the same call
+    nb, s0, max_new = LM_GEN
+    prompts = stream.batch(1, nb, s0)[:, :s0]
+    t0 = time.perf_counter()
+    gen_toks = tserve.generate(cfg, model, prompts, max_new=max_new)
+    gen_s = time.perf_counter() - t0
+    again = tserve.generate(cfg, model, prompts, max_new=max_new)
+    if gen_toks.shape != (nb, s0 + max_new) or not np.array_equal(
+            gen_toks, again):
+        raise AssertionError("ssm generate: a fresh replay differs")
+    caches = tserve.init_serve_cache(model, cfg, nb, s0 + max_new,
+                                     prefilled=s0)
+    step1 = gen_toks[:, s0:s0 + 1]
+    step_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tserve.serve_step(model, cfg, caches, step1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del caches
+    print(f"ssm generate B={nb}, {s0} prompt + {max_new} new tokens: "
+          f"{gen_s:.2f} s, a fresh replay the same tokens bitwise; "
+          f"serve_step median {statistics.median(step_ms):.2f} ms at B={nb} "
+          f"({nb / statistics.median(step_ms) * 1e3:.0f} tokens/s)")
+    srv = tserve.BatchedServer(cfg, model, slots=LM_SLOTS,
+                               max_len=LM_MAX_LEN)
+    ids = [srv.submit(p, max_new=max_new) for p in prompts]
+    done = {r["id"]: r for r in srv.run()}
+    if not np.array_equal(np.asarray([done[i]["generated"] for i in ids]),
+                          gen_toks[:, s0:]):
+        raise AssertionError("ssm BatchedServer: the prompts admitted "
+                             "together differ from generate's tokens")
+    reqs = stream.batch(2, LM_REQUESTS, s0)[:, :s0]
+    answers, walls = [], []
+    for _ in range(2):
+        srv = tserve.BatchedServer(cfg, model, slots=LM_SLOTS,
+                                   max_len=LM_MAX_LEN)
+        ids = [srv.submit(p, max_new=max_new) for p in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = {r["id"]: r for r in srv.run()}
+        walls.append(time.perf_counter() - t0)
+        answers.append([done[i]["generated"] for i in ids])
+    n_new = sum(len(a) for a in answers[0])
+    if answers[0] != answers[1] or n_new != LM_REQUESTS * max_new:
+        raise AssertionError("ssm BatchedServer: a fresh replay of the 16 "
+                             "requests differs")
+    print(f"ssm BatchedServer, {LM_REQUESTS} requests of {s0} + {max_new} "
+          f"tokens through {LM_SLOTS} slots: {walls[0]:.2f} s, "
+          f"{n_new / walls[0]:.1f} generated tokens/s; a fresh replay the "
+          f"same tokens bitwise; the {nb} prompts admitted together answer "
+          "generate's tokens bitwise (a slot's next request starts from "
+          "the state its predecessor left, as in the reference)")
+    del srv
+
+    # decode against forward: bf16 (printed), then the model in fp32
+    def replay(m, c):
+        par, _ = forward(m, c, {"tokens": prompts})
+        caches = tserve.init_serve_cache(m, c, nb, s0)
+        dec = []
+        for i in range(s0):
+            lg, caches = tserve.serve_step(m, c, caches, prompts[:, i:i + 1])
+            dec.append(lg[:, 0])
+        return torch.stack(dec, 1), par
+
+    decode_agreement(*replay(model, cfg), f"ssm bf16 decode vs forward at "
+                     f"all {nb} x {s0} prompt positions (printed, not held: "
+                     "a bf16 decode rounds its state every step)")
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"ssm: launch counts {counts}, want none")
+    print(f"ssm path launches {counts}: the SSD scan, the conv and decode "
+          "are PyTorch on tensors (the reference has no Pallas kernel "
+          "there), so the path launches no hand-written kernel")
+    del model
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = init_model(cfg32, seed=seed, device="cuda")
+    agree = decode_agreement(*replay(model32, cfg32), f"ssm fp32 decode vs "
+                             f"forward at all {nb} x {s0} prompt positions")
+    if not agree > SSM_FP32_AGREE:
+        raise AssertionError(f"ssm fp32 decode vs forward: argmax agreement "
+                             f"{agree} (want > {SSM_FP32_AGREE})")
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training, and a restart from the step-5 checkpoint
+    opt = AdamWConfig(**SSM_TRAIN_OPT)
+    spans = []
+    orig = ttrain.make_train_step
+
+    def timed_make(*a, **kw):
+        step = orig(*a, **kw)
+
+        def timed(*x):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = step(*x)
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t)
+            return r
+        return timed
+
+    torch.cuda.reset_peak_memory_stats()
+    every, lost = SSM_RESTART
+    with tempfile.TemporaryDirectory() as d:
+        ttrain.make_train_step = timed_make
+        try:
+            t0 = time.perf_counter()
+            run = ttrain.train(cfg, steps=SSM_TRAIN_STEPS, batch=B, seq=S,
+                               opt_cfg=opt, seed=seed, log_every=0)
+            wall = time.perf_counter() - t0
+        finally:
+            ttrain.make_train_step = orig
+        peak = torch.cuda.max_memory_allocated()
+        sim = FailureSim(fail_at=[lost])
+        cut = ttrain.train(cfg, steps=SSM_TRAIN_STEPS, batch=B, seq=S,
+                           opt_cfg=opt, seed=seed, log_every=0, ckpt_dir=d,
+                           save_every=every, failure_sim=sim)
+    losses = run["losses"]
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if len(losses) != SSM_TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or not last < first:
+        raise AssertionError(f"ssm train: losses {losses}")
+    if sim.failures != 1 or cut["final_step"] != SSM_TRAIN_STEPS \
+            or len(cut["losses"]) != SSM_TRAIN_STEPS + lost - every:
+        raise AssertionError(f"ssm restart: {sim.failures} failures, "
+                             f"{len(cut['losses'])} steps run")
+    _same_training_state((cut["params"], cut["opt_state"]),
+                         (run["params"], run["opt_state"]),
+                         "ssm restart after FailureSim")
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"ssm train: launch counts {counts}")
+    step_med = statistics.median(spans[1:])
+    print(f"ssm train: {SSM_TRAIN_STEPS} steps of {B} x {S} tokens, remat "
+          f"on, in {wall:.1f} s wall; step ms "
+          + " ".join(f"{t * 1e3:.1f}" for t in spans)
+          + f"; median after the first {step_med * 1e3:.1f} ms, "
+          f"{B * S / step_med:.0f} tokens/s; peak device memory "
+          f"{peak / 1e9:.2f} GB; loss {first:.4f} -> {last:.4f} (means of "
+          "the first and last three): " + " ".join(f"{x:.4f}"
+                                                    for x in losses))
+    print(f"ssm train: a device lost at step {lost}, resumed from step "
+          f"{lost // every * every}'s checkpoint ({len(cut['losses'])} steps "
+          "run), ends on the uninterrupted run's bits (params, m, v, step)")
+    del run, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash"]
+
+
+def phase_jamba(seed: int, gen):
+    """Jamba-v0.1's long-context config (attention with a 4,096-token
+    window) at full width, cut to one period of ``JAMBA_LAYERS`` layers,
+    random bf16 weights from the seed.  First, before the model, the
+    windowed flash kernel at Jamba's shape (``JAMBA_PREFILL``, 32/8 heads
+    of 128, causal) against its plain version, timed in turns beside the
+    same call without the window, SDPA with the window as a mask, and
+    the plain version.  Then ``forward`` at ``JAMBA_PREFILL`` (ms,
+    tokens/s, peak; flash launched once a forward, on ``flash_sm90``),
+    ``generate`` at ``JAMBA_GEN`` (a fresh replay bitwise) and
+    ``BatchedServer`` (the prompts admitted together: generate's tokens
+    bitwise).  Last, the ring buffer: the window cut to 128, the model
+    in fp32 at capacity_factor E/k, ``JAMBA_RING``'s prompts replayed and
+    decoded through a cache of 128 rows that wraps, held against one
+    forward at the same window.  Returns (the flash launches of the
+    main path, the windowed call's entry)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import jamba_v01_52b
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import forward, init_model, param_count
+
+    full = jamba_v01_52b.config(long_context=True).validate()
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    window = max(s.window for s in cfg.pattern)
+    B, S = JAMBA_PREFILL
+    bf16 = torch.bfloat16
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    # the windowed flash at Jamba's shape
+    q, k, v = (torch.randn(*s, device="cuda", generator=gen).to(bf16)
+               for s in ((B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd)))
+    out = kflash.launch("flash_sm90", q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    err = ref.check_attention(out, q, k, v, causal=True, window=window,
+                              what=f"flash window {window}")
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) \
+        & (pos[None, :] > pos[:, None] - window)
+
+    def sdpa_window():
+        import torch.nn.functional as F
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    lib_err = (sdpa_window().float()
+               - ref.attention_ref(q, k, v, causal=True, window=window)
+               .float()).abs().max().item()
+    fns = {"window": lambda: kflash.launch("flash_sm90", q, k, v,
+                                           causal=True, window=window),
+           "no window": lambda: kflash.launch("flash_sm90", q, k, v,
+                                              causal=True),
+           "SDPA (mask)": sdpa_window,
+           "plain": lambda: ref.attention_ref(q, k, v, causal=True,
+                                              window=window)}
+    times = {n: [] for n in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for n in order:
+            times[n].append(time_ms(fns[n], n=3 if n == "plain" else 20))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    b_ms, b_by, n_ops = flash_bound(q.shape, k.shape, window=window)
+    nb_ms = flash_bound(q.shape, k.shape)[0]
+    print(f"flash_sm90 at Jamba's shape b{B} s{S} h{H}/{KVH} hd{hd} bf16 "
+          f"causal, window {window}: max abs err {err:.3e} against the plain "
+          f"version (SDPA with the window as a mask: {lib_err:.3e}); bound "
+          f"{b_ms:.3f} ms by {b_by} ({n_ops / 1e9:.1f} GFLOP; without the "
+          f"window {nb_ms:.3f}); two rounds in turns, mean:")
+    for n, t in times.items():
+        print(f"    {n}: {ms[n]:.3f} ms ({', '.join(f'{x:.3f}' for x in t)})")
+    print(f"  windowed / unwindowed {ms['window'] / ms['no window']:.3f} "
+          f"(visible pairs {b_ms / nb_ms:.3f}), windowed / SDPA "
+          f"{ms['window'] / ms['SDPA (mask)']:.3f}")
+    entry = {"shape": f"b{B} s{S} h{H}/{KVH} hd{hd} bf16 causal window "
+             f"{window}", "max_abs_err": err, "ms": ms["window"],
+             "unwindowed_ms": ms["no window"], "plain_ms": ms["plain"],
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": ms["SDPA (mask)"],
+             "library_note": "SDPA with the window as a boolean mask"}
+    del q, k, v, out, mask, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the model: one period at full width, bf16
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in model.parameters())
+    print(f"model {cfg.name}, config(long_context=True) at full width: d_model "
+          f"{cfg.d_model}, {H}/{KVH} heads of {hd} with a window of {window}"
+          f", d_ff {cfg.d_ff}, {cfg.n_experts} experts top-{cfg.top_k} (d_ff "
+          f"{cfg.d_ff_expert}), Mamba2 with {cfg.ssm_heads} SSD heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab "
+          f"{cfg.vocab_size}; depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers (one period: attention at 3, Mamba2 "
+          f"elsewhere, MoE on the odd layers): {param_count(cfg)[0]:,} "
+          f"parameters of {param_count(full)[0]:,}, {held / 1e9:.2f} GB of "
+          f"random bf16 weights from seed {seed}, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stream = TokenStream(cfg.vocab_size, seed)
+    toks = torch.from_numpy(stream.batch(0, B, S)[:, :S]).cuda()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, aux = forward(model, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()) \
+            or not (torch.isfinite(aux) and float(aux) > 0):
+        raise AssertionError(f"jamba forward: logits {tuple(logits.shape)}, "
+                             f"aux {float(aux)}")
+    del logits
+    fwd_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, _ = forward(model, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        del logits
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern) * cfg.repeats
+    med = statistics.median(fwd_ms)
+    print(f"jamba forward B={B} S={S}: first {first_ms:.1f} ms, then "
+          + ", ".join(f"{t:.1f}" for t in fwd_ms) + f" ms (median {med:.1f} "
+          f"ms, {B * S / med * 1e3:.0f} tokens/s); aux {float(aux):.4f}; "
+          f"peak device memory {peak / 1e9:.2f} GB; flash launches "
+          f"{ops.launch_counts()['flash']} in 4 forwards, by source "
+          f"{kflash.design_launches}")
+    leading_ops(lambda: forward(model, cfg, {"tokens": toks}),
+                f"one Jamba forward B={B} S={S}")
+    del toks
+
+    nb, s0, max_new = JAMBA_GEN
+    prompts = stream.batch(1, nb, s0)[:, :s0]
+    t0 = time.perf_counter()
+    gen_toks = tserve.generate(cfg, model, prompts, max_new=max_new)
+    gen_s = time.perf_counter() - t0
+    if gen_toks.shape != (nb, s0 + max_new) or not np.array_equal(
+            gen_toks, tserve.generate(cfg, model, prompts, max_new=max_new)):
+        raise AssertionError("jamba generate: a fresh replay differs")
+    srv = tserve.BatchedServer(cfg, model, slots=nb, max_len=LM_MAX_LEN)
+    ids = [srv.submit(p, max_new=max_new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = {r["id"]: r for r in srv.run()}
+    srv_s = time.perf_counter() - t0
+    if not np.array_equal(np.asarray([done[i]["generated"] for i in ids]),
+                          gen_toks[:, s0:]):
+        raise AssertionError("jamba BatchedServer: the prompts admitted "
+                             "together differ from generate's tokens")
+    print(f"jamba generate B={nb}, {s0} prompt + {max_new} new tokens: "
+          f"{gen_s:.2f} s, a fresh replay the same tokens bitwise; "
+          f"BatchedServer ({nb} slots, the same prompts): {srv_s:.2f} s "
+          f"({(s0 + max_new) / srv_s:.1f} steps/s), generate's tokens "
+          "bitwise")
+    del srv
+    counts = ops.launch_counts()
+    # four timed forwards, the profiled one and generate's two prefills,
+    # one launch each of the period's attention layer; decode runs no
+    # flash kernel
+    want = {**dict.fromkeys(counts, 0), "flash": n_attn * (5 + 2)}
+    if counts != want or kflash.design_launches["flash_sm90"] != \
+            want["flash"]:
+        raise AssertionError(f"jamba: launch counts {counts} "
+                             f"({kflash.design_launches} by source), want "
+                             f"{want}, all flash on flash_sm90")
+    print(f"jamba path launches {counts}: flash_sm90 (windowed) once a "
+          "forward (four timed, one profiled, generate's two prefills); "
+          "decode reads the ring buffer in PyTorch")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the ring buffer on the card, in fp32 without drops
+    rb, rs0, rnew, rwin = JAMBA_RING
+    ring = _windowed_cfg(dataclasses.replace(
+        cfg, n_layers=JAMBA_RING_LAYERS, dtype="float32",
+        capacity_factor=cfg.n_experts / cfg.top_k), rwin)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(ring, seed=seed, device="cuda")
+    prompts = stream.batch(2, rb, rs0)[:, :rs0]
+    caches = tserve.init_serve_cache(model, ring, rb, rs0 + rnew)
+    rows = caches["stack"][3]["mixer"]["k"].shape[1]
+    dec, fed = [], prompts
+    lg = None
+    for i in range(rs0 + rnew):
+        tok = prompts[:, i:i + 1] if i < rs0 else \
+            lg[:, -1].argmax(-1, keepdim=True).cpu().numpy()
+        if i >= rs0:
+            fed = np.concatenate([fed, tok], axis=1)
+        lg, caches = tserve.serve_step(model, ring, caches, tok)
+        dec.append(lg[:, 0])
+    par, _ = forward(model, ring, {"tokens": fed})
+    torch.cuda.synchronize()
+    if rows != rwin or caches["pos"] != rs0 + rnew:
+        raise AssertionError(f"jamba ring: {rows} rows, position "
+                             f"{caches['pos']}")
+    agree = decode_agreement(
+        torch.stack(dec, 1), par,
+        f"jamba ring buffer, fp32, window {rwin} ({rows} cache rows), "
+        f"{ring.n_layers} layers, capacity_factor {ring.capacity_factor}: "
+        f"decode vs forward at {rb} x {rs0 + rnew} positions ({rs0} "
+        f"replayed, {rnew} decoded)")
+    print(f"  fp32 model {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"peak; {time.perf_counter() - t0:.1f} s")
+    if not agree > JAMBA_FP32_AGREE:
+        raise AssertionError(f"jamba ring buffer: argmax agreement {agree} "
+                             f"(want > {JAMBA_FP32_AGREE})")
+    del model, caches, par, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash"], entry
+
+
+def _windowed_cfg(cfg, window):
+    """cfg with its attention layers' window set to ``window``."""
+    return dataclasses.replace(cfg, pattern=tuple(
+        dataclasses.replace(s, window=window if s.mixer == "attn" else 0)
+        for s in cfg.pattern))
+
+
 def busy_ms(events) -> float:
     """Time in ms that at least one device activity of ``events`` (the
     profiler's FunctionEvents) was running: the union of their
@@ -4717,6 +5249,17 @@ def main(argv=None) -> int:
            f"{MLA_TRAIN_LAYERS} layers, through the two-width flash "
            "backward")
     bwd_mla = phase_train_mla(args.seed, bwd_mla)
+    gc.collect()
+    torch.cuda.empty_cache()
+    header("== ssm: Mamba2-130M forward, generate, BatchedServer, fp32 "
+           "decode, training, restart")
+    flash["ssm_launches"] = phase_ssm(args.seed)
+    header(f"== jamba: the windowed flash, Jamba's period ({JAMBA_LAYERS} "
+           "layers, window 4,096) forward, generate, BatchedServer, the ring "
+           "buffer")
+    flash["jamba_launches"], flash["window"] = phase_jamba(args.seed, gen)
+    flash["note"] += (", ssm_launches and jamba_launches the ssm and jamba "
+                      "phases (window: the windowed call at Jamba's shape)")
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]

@@ -31,6 +31,7 @@ from .models import layers as L
 from .models.config import LayerSpec, ModelConfig
 from .models.mla import MLA
 from .models.moe import MoE
+from .models.ssm import FP32_LEAVES, Mamba2
 from .models.transformer import Layer, Transformer, check_supported
 from .optim import OptState
 
@@ -122,9 +123,13 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
     reference's fp32 masters with ``requires_grad=True``; norm scales
     and MoE routers (read in fp32 by the reference) stay fp32.  An MLA
     layer's ``attn`` leaves (``wq``, ``kv_a``, ``kv_norm``, ``kv_b``,
-    ``wo``) make an ``MLA``, a ``moe`` subtree (``router``,
-    ``experts_*``, ``shared_*``) a ``MoE``, in training as in serving.
-    Raises for the families the port does not run yet."""
+    ``wo``) make an ``MLA``, a ``mixer`` subtree (``ssm_in``,
+    ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``, ``ssm_D``,
+    ``gate_norm``, ``ssm_out``) a ``Mamba2`` (its ``dt_bias``,
+    ``A_log`` and ``ssm_D`` in fp32), a ``moe`` subtree (``router``,
+    ``experts_*``, ``shared_*``) a ``MoE``, in training as in serving;
+    a layer without ``norm2`` (``mlp="none"``) has no MLP.  Raises for
+    the families the port does not run yet."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = L.held_dtype(cfg, train)
@@ -149,21 +154,31 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
             attn.q_norm, attn.k_norm = norm(a["q_norm"]), norm(a["k_norm"])
         return attn
 
+    def mamba(m):
+        f32 = {k: w(m[k], torch.float32) for k in FP32_LEAVES}
+        return Mamba2(dense(m["ssm_in"]), w(m["conv_w"]), w(m["conv_b"]),
+                      f32["dt_bias"], f32["A_log"], f32["ssm_D"],
+                      norm(m["gate_norm"]), dense(m["ssm_out"]))
+
     def layer(p, spec: LayerSpec):
-        attn = mixer(p["attn"], spec)
+        mix = mamba(p["mixer"]) if spec.mixer == "mamba2" \
+            else mixer(p["attn"], spec)
+        ffn = {}
         if spec.mlp == "moe":
             m = p["moe"]
             shared = [dense(m[k]) if k in m else None
                       for k in ("shared_gate", "shared_in", "shared_down")]
-            return Layer(norm(p["norm1"]), attn, norm(p["norm2"]),
-                         moe=MoE(dense(m["router"], torch.float32),
-                                 dense(m["experts_gate"]),
-                                 dense(m["experts_in"]),
-                                 dense(m["experts_down"]), *shared))
-        m = p["mlp"]
-        return Layer(norm(p["norm1"]), attn, norm(p["norm2"]),
-                     L.MLP(dense(m["wi"]), dense(m["wdown"]),
-                           dense(m["wg"]) if "wg" in m else None))
+            ffn = dict(moe=MoE(dense(m["router"], torch.float32),
+                               dense(m["experts_gate"]),
+                               dense(m["experts_in"]),
+                               dense(m["experts_down"]), *shared))
+        elif spec.mlp == "dense":
+            m = p["mlp"]
+            ffn = dict(mlp=L.MLP(dense(m["wi"]), dense(m["wdown"]),
+                                 dense(m["wg"]) if "wg" in m else None))
+        if ffn:
+            ffn["norm2"] = norm(p["norm2"])
+        return Layer(norm(p["norm1"]), mix, window=spec.window, **ffn)
 
     def repeat(tree, r):
         if isinstance(tree, dict):

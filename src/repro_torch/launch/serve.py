@@ -174,12 +174,14 @@ class BatchedServer(SlotServer):
     greedily until ``max_new`` tokens.  Every step runs the whole slot
     batch (free slots feed token 0) through ``serve_step``.
 
-    As in the reference, one position counter serves every slot: a
-    request admitted into a slot that served before starts at the
-    server's current position and attends to the cache rows its slot's
-    earlier requests left there, and past ``max_len`` each step
-    overwrites the cache's last row.  Both are the reference's
-    behaviour, reproduced on purpose (ROADMAP, queue C).
+    As in the reference, one position counter serves every slot and
+    nothing is reset on admission: a request admitted into a slot that
+    served before starts at the server's current position and attends
+    to the cache rows its slot's earlier requests left there (a Mamba2
+    layer: starts from the SSM state and conv window they left), and
+    past ``max_len`` each step overwrites the cache's last row (a
+    windowed layer's ring buffer wraps instead).  These are the
+    reference's behaviour, reproduced on purpose (ROADMAP, queue C).
     """
 
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,

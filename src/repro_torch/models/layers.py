@@ -26,10 +26,13 @@ card where the reference runs ``chunked_attention`` -- without autograd
 ``kernels.ops.flash_attention``, and under autograd ``attention_fn``,
 whose backward is the flash_bwd kernel; and a decode step against a KV
 cache, which stays plain PyTorch, as the reference's
-``decode_attention`` is outside any Pallas kernel.  MLA and MoE blocks
-live in ``mla.py`` and ``moe.py``.  Sliding windows (the ring-buffer
-decode), cross-attention and SSM blocks are not ported yet (ROADMAP
-A10): ``models.transformer.check_supported`` refuses their configs.
+``decode_attention`` is outside any Pallas kernel.  A sliding window
+(``window > 0``, Jamba's long-context attention) runs the same kernels
+with the window in the prefill, and decodes against a ring buffer of
+``min(window, max_len)`` rows.  MLA, MoE and Mamba2 blocks live in
+``mla.py``, ``moe.py`` and ``ssm.py``.  Cross-attention is not ported
+yet (ROADMAP A10): ``models.transformer.check_supported`` refuses its
+configs.
 """
 from __future__ import annotations
 
@@ -233,18 +236,23 @@ def attention_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
-                    cache: Optional[Params] = None
+                    cache: Optional[Params] = None, window: int = 0
                     ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One causal self-attention layer with RoPE.
+    """One causal self-attention layer with RoPE; with ``window > 0`` a
+    query sees the ``window`` positions up to its own.
 
     cache: {"k", "v" (B, Smax, KVH, hd), "len" int} -- decode mode.  The
     new K/V rows are written into the cache's tensors in place (the
     reference returns new arrays; updating in place saves a copy of the
     cache a step) at slot ``min(len, Smax - S)``: past the end the
     reference's ``dynamic_update_slice`` clamps its start, so the last
-    row is overwritten, and so is it here.  Returns (y, new cache) with
-    ``len + 1``.  Without a cache: the whole sequence from position 0,
-    through ``attention_fn``.
+    row is overwritten, and so is it here.  With a window the cache is
+    a ring buffer: the slot is ``len mod Smax`` and the step sees
+    ``min(len + 1, Smax)`` rows; RoPE has rotated each row by its
+    absolute position before the write, so a wrapped buffer needs no
+    other mask.  Returns (y, new cache) with ``len + 1``.  Without a
+    cache: the whole sequence from position 0, through
+    ``attention_fn`` with the window.
     """
     dt = cdtype(cfg)
     B, S, _ = x.shape
@@ -263,9 +271,11 @@ def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
         kc, vc = cache["k"], cache["v"]
-        slot = max(0, min(cur, kc.shape[1] - S))
+        slot = cur % kc.shape[1] if window > 0 else cur
+        slot = max(0, min(slot, kc.shape[1] - S))
         kc[:, slot:slot + S] = k.to(kc.dtype)
         vc[:, slot:slot + S] = v.to(vc.dtype)
+        # sees min(cur + 1, Smax) rows: a ring buffer's every row once full
         out = decode_attention(q, kc, vc, cur + 1)
         new_cache = {"k": kc, "v": vc, "len": cur + 1}
     else:
@@ -273,15 +283,18 @@ def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                            device=x.device)[None].expand(B, S)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        out = attention_fn(q, k, v, causal=True)
+        out = attention_fn(q, k, v, causal=True, window=window)
 
     y = torch.matmul(out.reshape(B, S, H * hd), p.wo.w.to(dt))
     return y, new_cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
-                    device=None) -> Params:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+                    window: int = 0, device=None) -> Params:
+    """Zeroed {"k", "v", "len": 0}: ``max_len`` rows, or with a window
+    ``min(window, max_len)`` (the ring buffer)."""
+    size = min(window, max_len) if window > 0 else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     kw = dict(dtype=cdtype(cfg), device=device)
     return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
             "len": 0}

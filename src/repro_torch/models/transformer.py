@@ -1,33 +1,39 @@
 """Transformer assembly for a decoder-only LM: forward, loss and decode.
 
 The counterpart of ``repro/models/transformer.py`` for ``attn`` (GQA
-with RoPE) and ``mla`` mixers with ``dense`` or ``moe`` MLPs.  The
-reference stacks its pattern repeats on a leading axis and scans them;
-here the layers are one module each, in the same order: the prologue
-layers, then pattern x repeats (repeat major).  ``init_serve_cache``
-keeps the reference's ``{"stack", "pro", "pos"}`` layout with one
-position counter ``pos`` for the whole batch (a Python int), and
-``caches["stack"][i]`` is layer i's ``{"mixer": ...}``, of its mixer's
-kind: ``{"k", "v"}`` for attention, ``{"c_kv", "k_rope"}`` for MLA.
+with RoPE, optionally a sliding window), ``mla`` and ``mamba2`` mixers,
+each followed by a ``dense`` or ``moe`` MLP or by none (``mlp="none"``:
+Mamba2-130M's layers).  The reference stacks its pattern repeats on a
+leading axis and scans them; here the layers are one module each, in
+the same order: the prologue layers, then pattern x repeats (repeat
+major).  ``init_serve_cache`` keeps the reference's ``{"stack", "pro",
+"pos"}`` layout with one position counter ``pos`` for the whole batch
+(a Python int), and ``caches["stack"][i]`` is layer i's ``{"mixer":
+...}``, of its mixer's kind: ``{"k", "v"}`` for attention (a ring
+buffer of ``min(window, max_len)`` rows with a window), ``{"c_kv",
+"k_rope"}`` for MLA, ``{"conv", "state"}`` for Mamba2, which carries no
+position.
 
 MoE layers return the reference's aux losses; ``forward`` returns their
 sum over the layers (``lb_loss + 1e-3 z_loss`` each) and ``loss_fn``
-adds 1e-2 of it.  MLA and MoE models train as the dense ones do: MLA's
+adds 1e-2 of it.  Every family trains as the dense ones do: MLA's
 prefill attention takes its gradient from the two-width flash backward
-(q/k nope + rope wide, v ``v_head_dim``).  Mamba2, sliding windows (the ring-buffer
-decode), cross-attention, encoder-decoder models, modality frontends
-and the LayerNorm / sinusoidal-position variant belong to later slices
-(ROADMAP A10) and raise ``NotImplementedError`` when a model is built;
-so does ``encode``, the encoder path.
+(q/k nope + rope wide, v ``v_head_dim``), a windowed layer's from the
+flash backward with its window, and Mamba2's from autograd through its
+PyTorch scan.  Cross-attention, encoder-decoder models, modality
+frontends and the LayerNorm / sinusoidal-position variant belong to
+later slices (ROADMAP A10) and raise ``NotImplementedError`` when a
+model is built; so does ``encode``, the encoder path.
 
 ``forward`` and ``serve_step`` serve, under ``torch.no_grad``, on a
 serving model or on a training model (``for_serving`` makes the former
 from the latter).
 ``loss_fn`` trains: it runs the grad-enabled ``_forward``, in which,
 with ``remat``, each stacked layer runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
-scan body, one layer for the dense configs), so that backward
-recomputes the layer, flash forward included.
+``torch.utils.checkpoint`` (the reference checkpoints its scan body,
+one pattern repeat; the recompute is the same, layer by layer), so
+that backward recomputes the layer, flash forward or SSD scan
+included.
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ from .layers import (Attention, Embed, MLP, Params, RMSNorm,
                      init_mlp, init_rmsnorm, rms_norm, unembed)
 from .mla import MLA, apply_mla, init_mla, init_mla_cache
 from .moe import MoE, apply_moe, init_moe
+from .ssm import FP32_LEAVES, Mamba2, apply_mamba2, init_mamba2, \
+    init_mamba2_cache
 
 A10 = "not ported yet (ROADMAP A10)"
 
@@ -54,16 +62,14 @@ A10 = "not ported yet (ROADMAP A10)"
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming ROADMAP A10, for what the port
     does not run yet: every layer must be causal self-attention with
-    RoPE and no window (``attn``) or MLA, followed by a dense or MoE
-    MLP."""
+    RoPE (``attn``, with or without a window), MLA or Mamba2, followed
+    by a dense or MoE MLP or by none."""
     what = []
     for spec in cfg.prologue + cfg.pattern:
-        if spec.mixer not in ("attn", "mla"):
+        if spec.mixer not in ("attn", "mla", "mamba2"):
             what.append(f"the {spec.mixer} mixer")
-        if spec.mlp not in ("dense", "moe"):
+        if spec.mlp not in ("dense", "moe", "none"):
             what.append(f"{spec.mlp} MLP layers")
-        if spec.window > 0:
-            what.append("sliding-window attention (ring-buffer decode)")
         if spec.cross:
             what.append("cross-attention")
     if cfg.is_encoder_decoder:
@@ -78,16 +84,26 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """``norm1``, ``attn`` (an ``Attention`` or an ``MLA``, under the
-    reference's key for both), ``norm2``, and ``mlp`` or ``moe``."""
+    """``norm1``; the mixer under the reference's key: ``attn`` (an
+    ``Attention`` or an ``MLA``) or ``mixer`` (a ``Mamba2``); then
+    ``norm2`` and ``mlp`` or ``moe``, or neither (``mlp="none"``).
+    ``window`` is an attention layer's sliding window (0: none)."""
 
-    def __init__(self, norm1: RMSNorm, attn: nn.Module, norm2: RMSNorm,
-                 mlp: Optional[MLP] = None, moe: Optional[MoE] = None):
+    def __init__(self, norm1: RMSNorm, mix: nn.Module,
+                 norm2: Optional[RMSNorm] = None, mlp: Optional[MLP] = None,
+                 moe: Optional[MoE] = None, *, window: int = 0):
         super().__init__()
-        if (mlp is None) == (moe is None):
-            raise ValueError("a layer holds an mlp or a moe")
-        self.norm1, self.attn, self.norm2 = norm1, attn, norm2
-        self.mlp, self.moe = mlp, moe
+        if mlp is not None and moe is not None:
+            raise ValueError("a layer holds an mlp or a moe, not both")
+        if (norm2 is None) != (mlp is None and moe is None):
+            raise ValueError("norm2 comes with an mlp or a moe")
+        self.norm1 = norm1
+        if isinstance(mix, Mamba2):
+            self.attn, self.mixer = None, mix
+        else:
+            self.attn, self.mixer = mix, None
+        self.norm2, self.mlp, self.moe = norm2, mlp, moe
+        self.window = int(window)
 
 
 class Transformer(nn.Module):
@@ -115,13 +131,18 @@ class Transformer(nn.Module):
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                 device, dtype) -> Layer:
-    init_mixer = init_mla if spec.mixer == "mla" else init_attention
-    attn = init_mixer(gen, cfg, device, dtype)
-    norm1, norm2 = (init_rmsnorm(cfg.d_model, device) for _ in range(2))
+    init_mixer = {"mla": init_mla, "mamba2": init_mamba2}.get(
+        spec.mixer, init_attention)
+    mix = init_mixer(gen, cfg, device, dtype)
+    ffn = {}
     if spec.mlp == "moe":
-        return Layer(norm1, attn, norm2, moe=init_moe(gen, cfg, device, dtype))
-    return Layer(norm1, attn, norm2,
-                 init_mlp(gen, cfg, device=device, dtype=dtype))
+        ffn = dict(moe=init_moe(gen, cfg, device, dtype))
+    elif spec.mlp == "dense":
+        ffn = dict(mlp=init_mlp(gen, cfg, device=device, dtype=dtype))
+    if ffn:
+        ffn["norm2"] = init_rmsnorm(cfg.d_model, device)
+    return Layer(init_rmsnorm(cfg.d_model, device), mix, window=spec.window,
+                 **ffn)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, *,
@@ -133,7 +154,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, *,
     1/sqrt(fan_in), norm scales 1, biases 0.  Weights are held in the
     compute dtype, frozen, or with ``train`` as fp32 masters with
     ``requires_grad=True`` (the values a serving model of the same seed
-    holds before its cast); norm scales and MoE routers in fp32.  Raises
+    holds before its cast); norm scales, MoE routers and Mamba2's
+    ``dt_bias``, ``A_log`` and ``ssm_D`` in fp32.  Raises
     for the families the port does not run yet, before drawing
     anything."""
     check_supported(cfg)
@@ -156,11 +178,16 @@ def _apply_layer(lay: Layer, cfg: ModelConfig, x: torch.Tensor, *,
     """-> (x, the mixer's new cache, the layer's aux ``lb_loss + 1e-3
     z_loss`` (None without a MoE))."""
     h = rms_norm(lay.norm1, x, cfg.norm_eps)
-    if isinstance(lay.attn, MLA):
+    if lay.mixer is not None:
+        mix, new_cache = apply_mamba2(lay.mixer, cfg, h, cache=cache)
+    elif isinstance(lay.attn, MLA):
         mix, new_cache = apply_mla(lay.attn, cfg, h, cache=cache)
     else:
-        mix, new_cache = apply_attention(lay.attn, cfg, h, cache=cache)
+        mix, new_cache = apply_attention(lay.attn, cfg, h, cache=cache,
+                                         window=lay.window)
     x = x + mix
+    if lay.norm2 is None:
+        return x, new_cache, None
     h = rms_norm(lay.norm2, x, cfg.norm_eps)
     if lay.moe is None:
         return x + apply_mlp(lay.mlp, cfg, h), new_cache, None
@@ -248,15 +275,16 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: Dict[str, Any],
 
 @torch.no_grad()
 def for_serving(params: Transformer) -> Transformer:
-    """A frozen serving copy of a training model: projection and
-    embedding weights cast to the compute dtype once, norm scales and
-    MoE routers fp32.
+    """A frozen serving copy of a training model: projection, embedding
+    and conv weights cast to the compute dtype once; norm scales, MoE
+    routers and Mamba2's ``dt_bias``, ``A_log`` and ``ssm_D`` fp32.
     ``forward`` and decode give the bits they give on ``params``, whose
     applies cast the fp32 masters on every read."""
     cfg = params.cfg
     serving = copy.deepcopy(params).requires_grad_(False)
     for name, p in serving.named_parameters():
-        if not name.endswith((".scale", ".router.w")):
+        if not name.endswith((".scale", ".router.w")
+                             + tuple(f".{n}" for n in FP32_LEAVES)):
             p.data = p.data.to(cdtype(cfg))
     return serving
 
@@ -264,15 +292,19 @@ def for_serving(params: Transformer) -> Transformer:
 def init_serve_cache(params: Transformer, cfg: ModelConfig, batch: int,
                      max_len: int, prefilled: int = 0) -> Params:
     """Zeroed decode caches for every layer, in the compute dtype:
-    {"stack": [{"mixer": {"k", "v"}} for attention, {"mixer": {"c_kv",
-    "k_rope"}} for MLA] per stacked layer, "pro": the same per prologue
-    layer, "pos": ``prefilled``}."""
+    {"stack": [{"mixer": {"k", "v"}} for attention (``min(window,
+    max_len)`` rows with a window), {"mixer": {"c_kv", "k_rope"}} for
+    MLA, {"mixer": {"conv", "state"}} for Mamba2] per stacked layer,
+    "pro": the same per prologue layer, "pos": ``prefilled``}."""
     dev = params.device
 
     def one_layer(lay: Layer) -> Params:
-        init = init_mla_cache if isinstance(lay.attn, MLA) \
-            else init_attn_cache
-        c = init(cfg, batch, max_len, device=dev)
+        if lay.mixer is not None:
+            return {"mixer": init_mamba2_cache(cfg, batch, device=dev)}
+        if isinstance(lay.attn, MLA):
+            c = init_mla_cache(cfg, batch, max_len, device=dev)
+        else:
+            c = init_attn_cache(cfg, batch, max_len, lay.window, device=dev)
         c.pop("len")        # the position lives once, in caches["pos"]
         return {"mixer": c}
 
@@ -288,9 +320,10 @@ def serve_step(params: Transformer, cfg: ModelConfig, caches: Params,
 
     Every row of the batch is at position ``caches["pos"]``: one counter
     serves all rows, as in the reference, and a MoE layer routes the B
-    tokens of the step as one group.  The cache tensors of ``caches``
-    are updated in place and carried into the returned dict, whose
-    ``pos`` is one more.
+    tokens of the step as one group.  Attention and MLA layers read the
+    position (``len``); a Mamba2 layer carries its state and needs none.
+    The cache tensors of ``caches`` are updated in place and carried
+    into the returned dict, whose ``pos`` is one more.
     """
     dev = params.device
     x = embed_tokens(params.tok, cfg, _tokens(tokens, dev))

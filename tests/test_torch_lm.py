@@ -40,11 +40,24 @@ from repro_torch.models import (forward, init_model, init_serve_cache,
 from repro_torch.models import layers as tL
 
 DENSE = ["smollm_135m", "qwen3_4b", "yi_6b"]
-UNPORTED = ["jamba_v01_52b", "mamba2_130m", "internvl2_2b",
-            "whisper_medium"]
+UNPORTED = ["internvl2_2b", "whisper_medium"]
 DTYPES = ["float32", "bfloat16"]
+# whole models: the dense decoders, Mamba2 (attention-free) and Jamba's
+# hybrid period (Mamba2, attention, MoE); Jamba's bf16 forward is held
+# in test_torch_jamba.py, where its MoE's near-tie flips are explained
+LM_CASES = [(a, dt) for a in DENSE + ["mamba2_130m"] for dt in DTYPES] \
+    + [("jamba_v01_52b", "float32")]
+SCALED = {"jamba_v01_52b"}      # held at SCALED_ATOL in fp32
 FP32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=0.08, atol=0.08)
+# fp32, deep hybrid models (Jamba's period of 8 layers: Mamba2,
+# attention, MoE): each layer adds its fp32 roundings (XLA's and
+# PyTorch's exp differ by an ulp, the scan and the MoE sum in another
+# order), so near 0 an element is held at 1e-4 of the largest |value|
+# instead of FP32_TOL's 1e-5: seen 2.6e-5 on decode logits up to 3.8
+# against the reference, 7.4e-5 on logits up to 5.1 decode against the
+# port's forward, 4.9e-5 on an embedding gradient whose largest is 2.0
+SCALED_ATOL = 1e-4
 
 
 def _cfgs(arch, dtype):
@@ -66,12 +79,16 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-def _close(got, want, dtype, argmax=False):
+def _close(got, want, dtype, argmax=False, scaled=False):
+    """``scaled``: fp32 at ``SCALED_ATOL`` of want's largest |value|."""
     got, want = _np(got), _np(want)
     assert got.shape == want.shape
     assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, **(FP32_TOL if dtype == "float32"
-                                             else BF16_TOL))
+    tol = FP32_TOL if dtype == "float32" else BF16_TOL
+    if scaled and dtype == "float32":
+        tol = dict(tol, atol=max(tol["atol"],
+                                 SCALED_ATOL * float(np.abs(want).max())))
+    np.testing.assert_allclose(got, want, **tol)
     if argmax:
         agree = (got.argmax(-1) == want.argmax(-1)).mean()
         assert agree > (0.999 if dtype == "float32" else 0.95), agree
@@ -165,24 +182,30 @@ def test_apply_mlp_matches_reference(gelu, dtype):
     _close(tL.apply_mlp(tp, tc, tx), jL.apply_mlp(jp, jc, jx), dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch,dtype", LM_CASES)
 def test_forward_matches_reference(arch, dtype):
     jc, tc, params, model = _models(arch, dtype)
     toks = np.random.default_rng(10).integers(0, jc.vocab_size, (2, 24))
     want, jaux = jforward(params, jc, {"tokens": jnp.asarray(toks)},
                           remat=False)
     got, aux = forward(model, tc, {"tokens": toks})
-    assert got.dtype == tL.cdtype(tc) and float(aux) == float(jaux) == 0.0
-    _close(got, want, dtype, argmax=True)
+    assert got.dtype == tL.cdtype(tc)
+    if tc.n_experts:
+        assert float(aux) > 0.0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    else:
+        assert float(aux) == float(jaux) == 0.0
+    _close(got, want, dtype, argmax=True, scaled=arch in SCALED)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch,dtype", LM_CASES)
 def test_serve_step_matches_reference(arch, dtype):
     """Six decode steps of 4 rows from a cache pre-filled to position 3
-    (rows of zeros, as the reference's ``prefilled``); the argmax
-    agreement is counted over all 24 rows."""
+    (rows of zeros, as the reference's ``prefilled``; a Mamba2 layer's
+    state and conv window start at zeros); the argmax agreement is
+    counted over all 24 rows, and every layer's cache is held to the
+    reference's (stacked layer i is repeat i // len(pattern) of
+    ``l{i % len(pattern)}``)."""
     jc, tc, params, model = _models(arch, dtype)
     toks = np.random.default_rng(11).integers(0, jc.vocab_size, (4, 6))
     jc_ = jcache(params, jc, 4, 12, prefilled=3)
@@ -193,12 +216,15 @@ def test_serve_step_matches_reference(arch, dtype):
         tlg, tc_ = serve_step(model, tc, tc_, toks[:, t:t + 1])
         got.append(_np(tlg))
         want.append(_np(jlg))
-    _close(np.concatenate(got), np.concatenate(want), dtype, argmax=True)
+    _close(np.concatenate(got), np.concatenate(want), dtype, argmax=True,
+           scaled=arch in SCALED)
     assert tc_["pos"] == int(jc_["pos"]) == 9
+    P = len(tc.pattern)
     for i, layer in enumerate(tc_["stack"]):
-        for name in ("k", "v"):
-            _close(layer["mixer"][name],
-                   jc_["stack"]["l0"]["mixer"][name][i], dtype)
+        want_c = jc_["stack"][f"l{i % P}"]["mixer"]
+        assert set(layer["mixer"]) == set(want_c)
+        for name, t in layer["mixer"].items():
+            _close(t, want_c[name][i // P], dtype, scaled=arch in SCALED)
 
 
 @pytest.mark.parametrize("arch", DENSE)
