@@ -189,7 +189,24 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     capacity_factor E/k, 4 prompts of 160 tokens replayed and 32 decoded
     through a cache of 128 rows (it wraps), decode's argmax a maximiser
     of one forward's logits at the same window in more than 0.99 of the
-    positions.
+    positions;
+21. whisper: the non-causal flash forward and backward at Whisper's
+    encoder shape (8 x 1,500, 16 heads of 64) and cross shape (8 x 448
+    queries over 1,500 keys) against their plain versions and SDPA's,
+    timed; Whisper-medium at full width and depth (24 + 24 layers,
+    random bf16 weights): ``forward`` at 8 x (1,500 frames + 448
+    tokens) (72 flash launches a forward, all on ``flash_sm90``),
+    ``encode`` -> ``init_serve_cache(enc_out=)`` -> 32 ``serve_step``s;
+    in fp32 the card against the CPU at 2 + 2 layers and decode against
+    forward at full depth; ``train`` for 10 steps with remat (144 flash
+    and 72 flash_bwd launches a step, the loss falls); at full width cut
+    to 2 + 2 layers a restart after a lost device, bitwise;
+22. internvl2: InternVL2-2B at full width and depth (random bf16
+    weights): ``forward`` at 4 x (256 patch embeddings + 3,840 tokens),
+    ``generate`` and ``BatchedServer`` text-only; in fp32 the card
+    against the CPU at 2 layers with patches; ``train`` at full width cut
+    to 8 layers, 10 steps of 2 x (256 + 3,840), flash_bwd's share of a
+    profiled step.
 
 Every failed check raises, so the exit code is not 0.  The last two
 lines are the ``kernels`` JSON and the device JSON.  Without a CUDA
@@ -198,6 +215,7 @@ device, or outside a checkout, it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -3043,28 +3061,38 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS = 8, 512, 16
 LM_TOL = dict(rtol=0.08, atol=0.08)   # decode vs forward, test_models.py
 
 
-def flash_bound(q_shape, kv_shape, hdv=None, window=0):
-    """(ms, by, operations) of one causal bf16 call from position 0, v
-    ``hdv`` wide (default: q and k's width hd), a query seeing the
-    ``window`` keys up to its own (0: all): q, k, v read once, out
-    written once; 2 (hd + hdv) operations per visible (query, key) pair
-    and head, at the tensor cores' bf16 rate."""
+def visible_pairs(Sq, Sk, causal=True, window=0):
+    """The (query, key) pairs a call computes: every one without the
+    causal mask, else from position 0 a query's keys up to its own (the
+    ``window`` of them; 0: all)."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(Sk, s + 1, window or Sk) for s in range(Sq))
+
+
+def flash_bound(q_shape, kv_shape, hdv=None, window=0, causal=True):
+    """(ms, by, operations) of one bf16 call (causal from position 0
+    unless ``causal`` is False), v ``hdv`` wide (default: q and k's
+    width hd), a query seeing the ``window`` keys up to its own (0:
+    all): q, k, v read once, out written once; 2 (hd + hdv) operations
+    per visible (query, key) pair and head, at the tensor cores' bf16
+    rate."""
     B, Sq, H, hd = q_shape
     Sk, KVH = kv_shape[1], kv_shape[2]
     hdv = hd if hdv is None else hdv
-    pairs = sum(min(Sk, s + 1, window or Sk) for s in range(Sq))
+    pairs = visible_pairs(Sq, Sk, causal, window)
     n_bytes = 2 * (B * Sq * H * (hd + hdv) + B * Sk * KVH * (hd + hdv))
     n_ops = 2 * B * H * (hd + hdv) * pairs
     return bound(n_bytes, n_ops, PEAK_BF16_FLOPS) + (n_ops,)
 
 
-def sdpa(q, k, v):
+def sdpa(q, k, v, causal=True):
     """PyTorch's fused attention on the same inputs, the yardstick
-    (causal from position 0, Sq = Sk, GQA)."""
+    (causal from position 0 with Sq = Sk, or without a mask; GQA)."""
     import torch.nn.functional as F
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True).transpose(1, 2)
+        is_causal=causal, enable_gqa=True).transpose(1, 2)
 
 
 def phase_flash(gen):
@@ -3680,32 +3708,34 @@ BWD_MLA_TRAIN = ((2, 4096, 16, 192), (2, 4096, 16, 192))
 MICRO_TOL = dict(loss_rtol=1e-3, grad_rtol=2.0 ** -6)
 
 
-def flash_bwd_bound(q_shape, kv_shape, hdv=None):
-    """(ms, by, operations) of one causal bf16 backward from position 0,
-    v ``hdv`` wide (default q's width): q, k, v, out, dout and lse read
-    once, dq, dk, dv written once; five products per visible (query,
-    key) pair and head, S, dK and dQ of 2 hd operations and dP and dV of
-    2 hdv, at the tensor cores' bf16 rate."""
+def flash_bwd_bound(q_shape, kv_shape, hdv=None, causal=True):
+    """(ms, by, operations) of one bf16 backward (causal from position 0
+    unless ``causal`` is False), v ``hdv`` wide (default q's width): q,
+    k, v, out, dout and lse read once, dq, dk, dv written once; five
+    products per visible (query, key) pair and head, S, dK and dQ of 2
+    hd operations and dP and dV of 2 hdv, at the tensor cores' bf16
+    rate."""
     B, Sq, H, hd = q_shape
     Sk, KVH = kv_shape[1], kv_shape[2]
     hdv = hd if hdv is None else hdv
-    pairs = sum(min(Sk, s + 1) for s in range(Sq))
+    pairs = visible_pairs(Sq, Sk, causal)
     n_bytes = 2 * (2 * B * Sq * H * (hd + hdv) + 2 * B * Sk * KVH
                    * (hd + hdv)) + 4 * B * H * Sq
     n_ops = 2 * (3 * hd + 2 * hdv) * B * H * pairs
     return bound(n_bytes, n_ops, PEAK_BF16_FLOPS) + (n_ops,)
 
 
-def sdpa_bwd(q, k, v, dout):
+def sdpa_bwd(q, k, v, dout, causal=True):
     """PyTorch's fused attention backward alone on the same inputs (the
-    yardstick; v and dout may be narrower than q and k): a function
-    running torch.autograd.grad of one SDPA forward, kept for every
-    call.  Raises what SDPA raises on inputs it refuses."""
+    yardstick; v and dout may be narrower than q and k; causal from
+    position 0, or without a mask): a function running
+    torch.autograd.grad of one SDPA forward, kept for every call.
+    Raises what SDPA raises on inputs it refuses."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                        enable_gqa=True)
     g = dout.transpose(1, 2)
     return lambda: torch.autograd.grad(o, (qt, kt, vt), g,
@@ -4771,32 +4801,14 @@ def phase_ssm(seed: int) -> int:
 
     # training, and a restart from the step-5 checkpoint
     opt = AdamWConfig(**SSM_TRAIN_OPT)
-    spans = []
-    orig = ttrain.make_train_step
-
-    def timed_make(*a, **kw):
-        step = orig(*a, **kw)
-
-        def timed(*x):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = step(*x)
-            torch.cuda.synchronize()
-            spans.append(time.perf_counter() - t)
-            return r
-        return timed
-
     torch.cuda.reset_peak_memory_stats()
     every, lost = SSM_RESTART
     with tempfile.TemporaryDirectory() as d:
-        ttrain.make_train_step = timed_make
-        try:
+        with timed_steps() as spans:
             t0 = time.perf_counter()
             run = ttrain.train(cfg, steps=SSM_TRAIN_STEPS, batch=B, seq=S,
                                opt_cfg=opt, seed=seed, log_every=0)
             wall = time.perf_counter() - t0
-        finally:
-            ttrain.make_train_step = orig
         peak = torch.cuda.max_memory_allocated()
         sim = FailureSim(fail_at=[lost])
         cut = ttrain.train(cfg, steps=SSM_TRAIN_STEPS, batch=B, seq=S,
@@ -5061,6 +5073,667 @@ def _windowed_cfg(cfg, window):
         for s in cfg.pattern))
 
 
+WHISPER_ARCH = "whisper_medium"
+# prompts x decoder tokens, each over the encoder's 1,500 frames: the
+# config's decoder length (configs/whisper_medium.py DECODER_LEN)
+WHISPER_PREFILL = (8, 448)
+WHISPER_DECODE_STEPS = 32
+WHISPER_TRAIN_STEPS = 10
+WHISPER_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2,
+                         total_steps=WHISPER_TRAIN_STEPS)
+WHISPER_RESTART = (5, 7)    # save_every, the step a device is lost
+WHISPER_RESTART_LAYERS = 2  # encoder and decoder layers of the restart
+# the fp32 checks: full width cut to 2 encoder + 2 decoder layers on the
+# card against the port's CPU forward (1 prompt of 448 tokens over 1,500
+# frames); decode against forward at full depth (prompts, tokens)
+WHISPER_FP32_LAYERS = 2
+WHISPER_FP32_DECODE = (4, 64)
+WHISPER_FP32_AGREE = 0.99
+VL_ARCH = "internvl2_2b"
+# prompts x text tokens, 256 patch embeddings before each: 4,096
+# positions, train_4k's length
+VL_PREFILL = (4, 3840)
+VL_FP32_LAYERS = 2
+VL_FP32_TEXT = 64
+# training: full width, depth cut to 8 of 24 layers (full depth needs
+# about 30 GB of fp32 training state plus AdamW's six fp32 copies of the
+# parameters at its peak), 2 x (256 + 3,840) positions a step
+VL_TRAIN_LAYERS = 8
+VL_TRAIN = (2, 3840)
+VL_TRAIN_STEPS = 10
+VL_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=VL_TRAIN_STEPS)
+# fp32 on the card against the port's fp32 CPU forward on the same
+# weights: the kernels' fp32 attention and cuBLAS sum in other orders
+# than the plain versions and MKL, about 1e-6 relative an operation,
+# grown through a few layers and a 1,024- or 2,048-wide LayerNorm or
+# RMSNorm; held at 1e-4 relative plus 1e-4 of the largest |logit|
+CARD_CPU_TOL = dict(rtol=1e-4, atol_of_max=1e-4)
+
+
+def card_vs_cpu(cfg, batch, seed, label):
+    """``cfg`` (fp32) built from ``seed`` on the CPU and copied to the
+    card: the card's ``forward`` against the CPU's on ``batch`` (numpy
+    arrays), within ``CARD_CPU_TOL``; returns the max |diff|."""
+    import copy
+    import torch
+    from repro_torch.models import forward, init_model
+    cpu = init_model(cfg, seed=seed, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    t0 = time.perf_counter()
+    want, _ = forward(cpu, cfg, batch)
+    cpu_s = time.perf_counter() - t0
+    got, _ = forward(card, cfg, batch)
+    got = got.float().cpu()
+    diff = (got - want).abs()
+    top = float(want.abs().max())
+    tol = CARD_CPU_TOL["rtol"] * want.abs() + CARD_CPU_TOL["atol_of_max"] * top
+    print(f"{label}: fp32 forward on the card against the port's CPU forward "
+          f"on the same weights ({cpu_s:.1f} s on the CPU): max |diff| "
+          f"{float(diff.max()):.3e} (largest |logit| {top:.3f}), argmax "
+          f"agreement {float((got.argmax(-1) == want.argmax(-1)).float().mean()):.4f}"
+          f"; tolerance {CARD_CPU_TOL}")
+    if not bool(torch.isfinite(got).all()) or bool((diff > tol).any()):
+        raise AssertionError(f"{label}: the card's fp32 forward is outside "
+                             f"{CARD_CPU_TOL} of the CPU's")
+    del cpu, card
+    return float(diff.max())
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """Within the block, every step that ``launch.train``'s
+    ``make_train_step`` builds is timed on the host clock between two
+    synchronizations; yields the list its seconds are appended to."""
+    import torch
+    from repro_torch.launch import train as ttrain
+    spans = []
+    orig = ttrain.make_train_step
+
+    def timed_make(*a, **kw):
+        step = orig(*a, **kw)
+
+        def timed(*x):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = step(*x)
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t)
+            return r
+        return timed
+
+    ttrain.make_train_step = timed_make
+    try:
+        yield spans
+    finally:
+        ttrain.make_train_step = orig
+
+
+def noncausal_kernels(gen, q_shape, kv_shape, label):
+    """The non-causal flash forward and backward at one shape (bf16,
+    G = 1): each against its plain version, the forward's SDPA (no mask)
+    and the backward's SDPA backward checked too, then timed in two
+    rounds in turns beside them.  Returns ({forward's numbers},
+    {backward's numbers})."""
+    import torch
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import flash_bwd as kbwd
+    from repro_torch.kernels import ref
+    bf16 = torch.bfloat16
+
+    def rand(shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(bf16)
+
+    q, k, v, g = rand(q_shape), rand(kv_shape), rand(kv_shape), \
+        rand(q_shape)
+    src = kflash.design(bf16, q_shape[3])
+    bsrc = kbwd.design(bf16, q_shape[3], kv_shape[3])
+    lse = torch.empty(q_shape[0], q_shape[2], q_shape[1], device="cuda")
+    out = kflash.launch(src, q, k, v, causal=False, lse=lse)
+    torch.cuda.synchronize()
+    err = ref.check_attention(out, q, k, v, causal=False,
+                              what=f"flash {label}")
+    lib_err = (sdpa(q, k, v, causal=False).float()
+               - ref.attention_ref(q, k, v, causal=False).float()
+               ).abs().max().item()
+    grads = kbwd.launch(bsrc, q, k, v, out, lse, g, causal=False)
+    torch.cuda.synchronize()
+    berr = ref.check_attention_bwd(grads, q, k, v, out, lse, g,
+                                   causal=False, what=f"flash_bwd {label}")
+    lib_bwd = sdpa_bwd(q, k, v, g, causal=False)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, g, causal=False)
+    # SDPA's gradients come in its (B, H, S, hd) layout
+    lib_berr = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                   for a, b in zip(lib_bwd(), want))
+    del grads, want
+    print(f"  {label} q {tuple(q_shape)} kv {tuple(kv_shape)} bf16 "
+          f"non-causal: flash on {src} max abs err {err:.3e} (SDPA without "
+          f"a mask {lib_err:.3e}); flash_bwd on {bsrc} {berr:.3e} (SDPA's "
+          f"backward {lib_berr:.3e}); SDPA's backward ran "
+          f"{device_kernels(lib_bwd, 2)}")
+    fwd = {src: lambda: kflash.launch(src, q, k, v, causal=False),
+           "SDPA": lambda: sdpa(q, k, v, causal=False),
+           "plain": lambda: ref.attention_ref(q, k, v, causal=False)}
+    bwd = {bsrc: lambda: kbwd.launch(bsrc, q, k, v, out, lse, g,
+                                     causal=False),
+           "SDPA backward": lib_bwd,
+           "plain": lambda: ref.attention_bwd_ref(q, k, v, out, lse, g,
+                                                  causal=False)}
+    res = []
+    for what, fns, bound_fn in (
+            ("flash", fwd, flash_bound), ("flash_bwd", bwd, flash_bwd_bound)):
+        times = {n: [] for n in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for n in order:
+                times[n].append(time_ms(fns[n], n=5 if n == "plain"
+                                        else 20))
+        ms = {n: sum(t) / len(t) for n, t in times.items()}
+        b_ms, b_by, n_ops = bound_fn(q_shape, kv_shape, causal=False)
+        kern = src if what == "flash" else bsrc
+        print(f"  {what} {label}: bound {b_ms:.3f} ms by {b_by} "
+              f"({n_ops / 1e9:.1f} GFLOP); two rounds in turns, mean: "
+              + ", ".join(f"{n} {ms[n]:.3f} ms ("
+                          + ", ".join(f"{x:.3f}" for x in t) + ")"
+                          for n, t in times.items())
+              + f"; {kern} {n_ops / ms[kern] / 1e9:.1f} TFLOP/s, "
+              f"{b_ms / ms[kern]:.3f} of the bound, "
+              f"{ms[kern] / ms[[n for n in ms if n.startswith('SDPA')][0]]:.3f}"
+              " of SDPA's time")
+        lib = [n for n in ms if n.startswith("SDPA")][0]
+        res.append({"shape": f"q {tuple(q_shape)} kv {tuple(kv_shape)} "
+                    "bf16 non-causal", "max_abs_err": err if what == "flash"
+                    else berr, "ms": ms[kern], "plain_ms": ms["plain"],
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": ms[lib]})
+    del q, k, v, g, out, lse, fwd, bwd, lib_bwd
+    torch.cuda.empty_cache()
+    return res[0], res[1]
+
+
+def phase_whisper(seed: int, gen):
+    """Whisper-medium at its published width and depth (24 encoder + 24
+    decoder layers, d 1,024, 16 heads of 64, d_ff 4,096, vocab 51,872,
+    1,500 encoder frames), random bf16 weights from the seed.  First the
+    non-causal flash forward and backward at the encoder's shape (8 x
+    1,500, 16 heads of 64, self) and the cross blocks' (8 x 448 queries
+    over 1,500 keys) against their plain versions and SDPA's, timed.
+    Then ``forward`` at ``WHISPER_PREFILL`` over 1,500 frames (ms,
+    tokens/s, peak, the leading device operations; 72 flash launches a
+    forward: 24 encoder, 24 decoder self, 24 cross), ``encode`` ->
+    ``init_serve_cache(enc_out=)`` -> ``WHISPER_DECODE_STEPS``
+    ``serve_step``s; the fp32 checks (the card's forward at full width
+    cut to 2 + 2 layers against the CPU's; decode against forward at
+    full depth); ``train`` for ``WHISPER_TRAIN_STEPS`` AdamW steps of
+    ``WHISPER_PREFILL`` tokens with remat (144 flash and 72 flash_bwd
+    launches a step; the loss falls); and at full width cut to
+    ``WHISPER_RESTART_LAYERS`` + ``WHISPER_RESTART_LAYERS`` layers a run
+    restarted after a lost device, bitwise the uninterrupted one.
+    Returns (the non-causal
+    forward's kernels-line entry, the backward's)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_lm_batch
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import flash_bwd as kbwd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import (encode, forward, init_model,
+                                    init_serve_cache, param_count,
+                                    serve_step)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FailureSim
+
+    cfg = get_config(WHISPER_ARCH)
+    B, S = WHISPER_PREFILL
+    Te, H, hd = cfg.encoder_frames, cfg.n_heads, cfg.head_dim
+    enc_f, enc_b = noncausal_kernels(gen, (B, Te, H, hd), (B, Te, H, hd),
+                                     f"encoder b{B} s{Te} h{H} hd{hd}")
+    cross_f, cross_b = noncausal_kernels(gen, (B, S, H, hd), (B, Te, H, hd),
+                                         f"cross b{B} sq{S} sk{Te} h{H} "
+                                         f"hd{hd}")
+
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in model.parameters())
+    print(f"model {cfg.name}: {cfg.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers (self, cross, GELU MLP), d_model "
+          f"{cfg.d_model}, {H} heads of {hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, LayerNorm, sinusoidal positions; "
+          f"{param_count(cfg)[0]:,} parameters, {held / 1e9:.2f} GB held "
+          f"(bf16, the norms fp32); random weights from seed {seed} drawn "
+          f"in {time.perf_counter() - t0:.1f} s; fp32 matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    stream = TokenStream(cfg.vocab_size, seed)
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    toks = torch.from_numpy(stream.batch(0, B, S)[:, :S]).cuda()
+    frames = torch.randn(B, Te, cfg.d_model, device="cuda", generator=gen)
+    batch = {"tokens": toks, "enc_frames": frames}
+    ops.reset_launch_counts()
+    before = dict(kflash.design_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, aux = forward(model, cfg, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) \
+            or logits.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(logits).all()) or float(aux) != 0.0:
+        raise AssertionError(f"whisper forward: logits "
+                             f"{tuple(logits.shape)} {logits.dtype}")
+    del logits
+    fwd_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, _ = forward(model, cfg, batch)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        del logits
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(fwd_ms)
+    sm90 = kflash.design_launches["flash_sm90"] - before["flash_sm90"]
+    if ops.launch_counts()["flash"] != 4 * n_attn or sm90 != 4 * n_attn:
+        raise AssertionError(f"whisper forward: {ops.launch_counts()} "
+                             f"({sm90} on flash_sm90) in 4 forwards, want "
+                             f"{n_attn} each, all on flash_sm90")
+    print(f"whisper forward B={B}, {Te} frames + {S} tokens: first "
+          f"{first_ms:.1f} ms, then " + ", ".join(f"{t:.1f}" for t in fwd_ms)
+          + f" ms (median {med:.1f} ms, {B * S / med * 1e3:.0f} decoder "
+          f"tokens/s beside {B * Te / med * 1e3:.0f} frames/s); peak device "
+          f"memory {peak / 1e9:.2f} GB; flash launches {n_attn} a forward "
+          f"({cfg.n_encoder_layers} encoder, {cfg.n_layers} decoder self, "
+          f"{cfg.n_layers} cross), all on flash_sm90")
+    leading_ops(lambda: forward(model, cfg, batch),
+                f"one Whisper-medium forward B={B}, {Te} frames + {S} tokens")
+
+    # decode: encode, the cross K/V once, then greedy steps at B
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encode(model, cfg, frames)
+    caches = init_serve_cache(model, cfg, B, S, enc_out=enc)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    tok = toks[:, :1]
+    step_ms = []
+    for _ in range(WHISPER_DECODE_STEPS):
+        t0 = time.perf_counter()
+        lg, caches = serve_step(model, cfg, caches, tok)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if caches["pos"] != WHISPER_DECODE_STEPS \
+            or not bool(torch.isfinite(lg.float()).all()):
+        raise AssertionError(f"whisper decode: position {caches['pos']}")
+    dec_med = statistics.median(step_ms[1:])
+    print(f"whisper decode B={B}: encode + init_serve_cache(enc_out=) "
+          f"{setup_ms:.1f} ms ({cfg.n_layers} cross K/V of {Te} rows), then "
+          f"{WHISPER_DECODE_STEPS} greedy serve_steps: median "
+          f"{dec_med:.2f} ms ({B / dec_med * 1e3:.0f} tokens/s; first "
+          f"{step_ms[0]:.2f} ms)")
+    del caches, enc, lg
+    counts = ops.launch_counts()
+    if counts["flash"] != 5 * n_attn + cfg.n_encoder_layers:
+        raise AssertionError(f"whisper: {counts}, want "
+                             f"{5 * n_attn + cfg.n_encoder_layers} flash "
+                             "launches (5 forwards, one encode; decode "
+                             "none)")
+    print(f"whisper serving path launches {counts}: {n_attn} a forward (4 "
+          f"timed, 1 profiled), {cfg.n_encoder_layers} in encode; decode's "
+          "self and cross attention are PyTorch, as the reference's")
+    serve_launches = counts["flash"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32: the card against the CPU at 2 + 2 layers, then decode
+    # against forward at full depth
+    rng = np.random.default_rng(seed)
+    c2 = dataclasses.replace(cfg, dtype="float32",
+                             n_layers=WHISPER_FP32_LAYERS,
+                             n_encoder_layers=WHISPER_FP32_LAYERS)
+    card_vs_cpu(c2, {"tokens": stream.batch(3, 1, S)[:, :S],
+                     "enc_frames": rng.normal(size=(1, Te, cfg.d_model))
+                     .astype(np.float32)}, seed,
+                f"whisper {WHISPER_FP32_LAYERS} + {WHISPER_FP32_LAYERS} "
+                f"layers at full width, 1 x ({Te} frames + {S} tokens)")
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = init_model(c32, seed=seed, device="cuda")
+    nb, s0 = WHISPER_FP32_DECODE
+    ptoks = stream.batch(4, nb, s0)[:, :s0]
+    pframes = torch.randn(nb, Te, cfg.d_model, device="cuda", generator=gen)
+    par, _ = forward(m32, c32, {"tokens": ptoks, "enc_frames": pframes})
+    caches = init_serve_cache(m32, c32, nb, s0,
+                              enc_out=encode(m32, c32, pframes))
+    dec = []
+    for i in range(s0):
+        lg, caches = serve_step(m32, c32, caches, ptoks[:, i:i + 1])
+        dec.append(lg[:, 0])
+    agree = decode_agreement(torch.stack(dec, 1), par,
+                             f"whisper fp32 decode vs forward at all {nb} x "
+                             f"{s0} positions over {Te} frames, full depth")
+    if not agree > WHISPER_FP32_AGREE:
+        raise AssertionError(f"whisper fp32 decode vs forward: argmax "
+                             f"agreement {agree} (want > "
+                             f"{WHISPER_FP32_AGREE})")
+    del m32, caches, par, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training, and a restart from the step-5 checkpoint
+    opt = AdamWConfig(**WHISPER_TRAIN_OPT)
+    ops.reset_launch_counts()
+    bwd_before = dict(kbwd.design_launches)
+    torch.cuda.reset_peak_memory_stats()
+    with timed_steps() as spans:
+        t0 = time.perf_counter()
+        run = ttrain.train(cfg, steps=WHISPER_TRAIN_STEPS, batch=B, seq=S,
+                           opt_cfg=opt, seed=seed, log_every=0)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    bwd_sm90 = kbwd.design_launches["flash_bwd_sm90"] \
+        - bwd_before["flash_bwd_sm90"]
+    losses = run["losses"]
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if len(losses) != WHISPER_TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or not last < first:
+        raise AssertionError(f"whisper train: losses {losses}")
+    want = {"flash": 2 * n_attn * WHISPER_TRAIN_STEPS,
+            "flash_bwd": n_attn * WHISPER_TRAIN_STEPS}
+    if counts["flash"] != want["flash"] or counts["flash_bwd"] != \
+            want["flash_bwd"] or bwd_sm90 != want["flash_bwd"]:
+        raise AssertionError(f"whisper train: launches {counts} "
+                             f"({bwd_sm90} flash_bwd on flash_bwd_sm90), "
+                             f"want {want}")
+    step_med = statistics.median(spans[1:])
+    print(f"whisper train: {WHISPER_TRAIN_STEPS} steps of {B} x ({Te} "
+          f"frames + {S} tokens), remat on, in {wall:.1f} s wall; step ms "
+          + " ".join(f"{t * 1e3:.1f}" for t in spans)
+          + f"; median after the first {step_med * 1e3:.1f} ms, "
+          f"{B * S / step_med:.0f} decoder tokens/s; peak device memory "
+          f"{peak / 1e9:.2f} GB; launches a step: flash "
+          f"{counts['flash'] // WHISPER_TRAIN_STEPS} (forward and the "
+          f"remat recompute), flash_bwd "
+          f"{counts['flash_bwd'] // WHISPER_TRAIN_STEPS}, all on "
+          f"flash_bwd_sm90; loss {first:.4f} -> {last:.4f} (means of the "
+          "first and last three): " + " ".join(f"{x:.4f}" for x in losses))
+
+    # the restart at full width, cut in depth: at 24 + 24 layers each of
+    # its two checkpoints writes 9.7 GB (about 45 s of the phase)
+    cr = dataclasses.replace(cfg, n_layers=WHISPER_RESTART_LAYERS,
+                             n_encoder_layers=WHISPER_RESTART_LAYERS)
+    every, lost = WHISPER_RESTART
+    kw = dict(steps=WHISPER_TRAIN_STEPS, batch=B, seq=S, opt_cfg=opt,
+              seed=seed, log_every=0)
+    whole = ttrain.train(cr, **kw)
+    sim = FailureSim(fail_at=[lost])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cut = ttrain.train(cr, ckpt_dir=d, save_every=every,
+                           failure_sim=sim, **kw)
+    cut_s = time.perf_counter() - t0
+    if sim.failures != 1 or cut["final_step"] != WHISPER_TRAIN_STEPS \
+            or len(cut["losses"]) != WHISPER_TRAIN_STEPS + lost - every:
+        raise AssertionError(f"whisper restart: {sim.failures} failures, "
+                             f"{len(cut['losses'])} steps run")
+    _same_training_state((cut["params"], cut["opt_state"]),
+                         (whole["params"], whole["opt_state"]),
+                         "whisper restart after FailureSim")
+    print(f"whisper train at full width, {cr.n_encoder_layers} + "
+          f"{cr.n_layers} layers: a device lost at step {lost}, resumed from "
+          f"step {lost // every * every}'s checkpoint ({len(cut['losses'])} "
+          f"steps run in {cut_s:.1f} s, saves included), ends on the "
+          "uninterrupted run's bits (params, m, v, step)")
+    del cut, whole
+    step = ttrain.make_train_step(cfg, opt)
+    b = make_lm_batch(TokenStream(cfg.vocab_size, seed), WHISPER_TRAIN_STEPS,
+                      B, S, d_model=cfg.d_model, enc_frames=Te,
+                      device="cuda")
+    bwd_ms = dict.fromkeys(("dkdv_kernel", "dq_kernel", "stats_kernel"))
+    busy = profile_once(lambda: step(run["params"], run["opt_state"], b),
+                        f"one Whisper-medium train step B={B}", sums=bwd_ms)
+    print(f"whisper train: flash_bwd's device time a step "
+          f"{sum(bwd_ms.values()):.1f} ms of {busy:.1f} busy ("
+          f"{sum(bwd_ms.values()) / busy:.3f}; "
+          + ", ".join(f"{k} {v:.1f}" for k, v in bwd_ms.items())
+          + f"); idle share against the median unprofiled step "
+          f"{1 - busy / (step_med * 1e3):.3f}")
+    del run, step, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def entry(name, src, replaces, enc_part, cross_part, launches, note):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(enc_part["max_abs_err"],
+                                   cross_part["max_abs_err"]),
+                "ms": enc_part["ms"], "plain_ms": enc_part["plain_ms"],
+                "bound_ms": enc_part["bound_ms"],
+                "bound_by": enc_part["bound_by"],
+                "library_ms": enc_part["library_ms"],
+                "shape": enc_part["shape"], "cross": cross_part,
+                "launches_note": note}
+
+    n_nc = cfg.n_encoder_layers + cfg.n_layers
+    fwd = entry("flash (non-causal: Whisper's encoder and cross-attention)",
+                "src/repro_torch/kernels/csrc/flash_sm90.cu",
+                "src/repro/kernels/flash.py:129", enc_f, cross_f,
+                serve_launches + want["flash"],
+                f"all flash launches of the whisper phase's model path "
+                f"(serving {serve_launches}, training {want['flash']}); "
+                f"{n_nc} of each forward's {n_attn} are non-causal")
+    bwd = entry("flash_bwd (non-causal: Whisper's encoder and "
+                "cross-attention)",
+                "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
+                "src/repro/models/layers.py:245", enc_b, cross_b,
+                want["flash_bwd"],
+                f"the training run's; {n_nc} of each step's {n_attn} are "
+                "non-causal")
+    return fwd, bwd
+
+
+def phase_internvl2(seed: int, gen):
+    """InternVL2-2B at its published width and depth (24 layers, d
+    2,048, 16/8 heads of 128, d_ff 8,192, vocab 92,560, 256 patch
+    embeddings prepended), random bf16 weights from the seed:
+    ``forward`` at ``VL_PREFILL`` with the patches (ms, positions/s,
+    peak, the leading device operations; one flash launch a layer, on
+    ``flash_sm90``), ``generate`` text-only over ``LM_GEN``'s prompts and
+    ``BatchedServer`` (the same prompts admitted together bitwise
+    generate's tokens; then 16 requests through 8 slots); the fp32
+    forward at full width cut to ``VL_FP32_LAYERS`` layers with patches,
+    the card against the CPU; ``train`` at full width cut to
+    ``VL_TRAIN_LAYERS`` layers, ``VL_TRAIN_STEPS`` steps of
+    ``VL_TRAIN`` text tokens after the patches, remat on (the loss
+    falls; 2 flash and 1 flash_bwd launches a layer a step; flash_bwd's
+    share of a profiled step's device time).  Returns the flash and
+    flash_bwd launches: {"serving", "train", "train_bwd"}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_lm_batch
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import flash_bwd as kbwd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import forward, init_model, param_count
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config(VL_ARCH)
+    B, S = VL_PREFILL
+    Tf = cfg.n_frontend_tokens
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in model.parameters())
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {Tf} patch embeddings "
+          f"prepended; {param_count(cfg)[0]:,} parameters, "
+          f"{held / 1e9:.2f} GB of random bf16 weights from seed {seed}, "
+          f"drawn in {time.perf_counter() - t0:.1f} s")
+    stream = TokenStream(cfg.vocab_size, seed)
+    toks = torch.from_numpy(stream.batch(0, B, S)[:, :S]).cuda()
+    front = torch.randn(B, Tf, cfg.d_model, device="cuda", generator=gen)
+    batch = {"tokens": toks, "frontend": front}
+    ops.reset_launch_counts()
+    before = dict(kflash.design_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, _ = forward(model, cfg, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"internvl2 forward: logits "
+                             f"{tuple(logits.shape)}")
+    del logits
+    fwd_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, _ = forward(model, cfg, batch)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        del logits
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(fwd_ms)
+    sm90 = kflash.design_launches["flash_sm90"] - before["flash_sm90"]
+    if ops.launch_counts()["flash"] != 4 * cfg.n_layers \
+            or sm90 != 4 * cfg.n_layers:
+        raise AssertionError(f"internvl2 forward: {ops.launch_counts()} "
+                             f"({sm90} on flash_sm90) in 4 forwards")
+    n_pos = B * (Tf + S)
+    print(f"internvl2 forward B={B}, {Tf} patches + {S} tokens: first "
+          f"{first_ms:.1f} ms, then " + ", ".join(f"{t:.1f}" for t in fwd_ms)
+          + f" ms (median {med:.1f} ms, {n_pos / med * 1e3:.0f} positions/s "
+          f"over {n_pos}); peak device memory {peak / 1e9:.2f} GB; flash "
+          f"launches {cfg.n_layers} a forward, all on flash_sm90")
+    leading_ops(lambda: forward(model, cfg, batch),
+                f"one InternVL2-2B forward B={B}, {Tf} + {S}")
+    del toks, front, batch
+
+    # generate and BatchedServer, text-only as the reference serves it
+    nb, s0, max_new = LM_GEN
+    prompts = stream.batch(1, nb, s0)[:, :s0]
+    t0 = time.perf_counter()
+    gen_toks = tserve.generate(cfg, model, prompts, max_new=max_new)
+    gen_s = time.perf_counter() - t0
+    srv = tserve.BatchedServer(cfg, model, slots=LM_SLOTS,
+                               max_len=LM_MAX_LEN)
+    ids = [srv.submit(p, max_new=max_new) for p in prompts]
+    done = {r["id"]: r for r in srv.run()}
+    if gen_toks.shape != (nb, s0 + max_new) or not np.array_equal(
+            np.asarray([done[i]["generated"] for i in ids]),
+            gen_toks[:, s0:]):
+        raise AssertionError("internvl2 BatchedServer: the prompts admitted "
+                             "together differ from generate's tokens")
+    reqs = stream.batch(2, LM_REQUESTS, s0)[:, :s0]
+    srv = tserve.BatchedServer(cfg, model, slots=LM_SLOTS,
+                               max_len=LM_MAX_LEN)
+    for p in reqs:
+        srv.submit(p, max_new=max_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = srv.run()
+    wall = time.perf_counter() - t0
+    n_new = sum(len(r["generated"]) for r in done)
+    if len(done) != LM_REQUESTS or n_new != LM_REQUESTS * max_new:
+        raise AssertionError(f"internvl2 BatchedServer: {len(done)} done")
+    print(f"internvl2 generate B={nb}, {s0} prompt + {max_new} new tokens "
+          f"(text-only): {gen_s:.2f} s; BatchedServer: the {nb} prompts "
+          f"admitted together answer generate's tokens bitwise; "
+          f"{LM_REQUESTS} requests through {LM_SLOTS} slots in {wall:.2f} s, "
+          f"{n_new / wall:.1f} generated tokens/s")
+    counts = ops.launch_counts()
+    want = cfg.n_layers * (5 + 1)
+    if counts["flash"] != want or counts["flash_bwd"]:
+        raise AssertionError(f"internvl2 serving: {counts}, want {want} "
+                             "flash launches")
+    print(f"internvl2 serving path launches {counts}: {cfg.n_layers} a "
+          "forward (4 timed, 1 profiled, generate's prefill); decode none")
+    serve_launches = counts["flash"]
+    del model, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed)
+    c2 = dataclasses.replace(cfg, dtype="float32", n_layers=VL_FP32_LAYERS)
+    card_vs_cpu(c2, {"tokens": stream.batch(3, 1, VL_FP32_TEXT)
+                     [:, :VL_FP32_TEXT],
+                     "frontend": rng.normal(size=(1, Tf, cfg.d_model))
+                     .astype(np.float32)}, seed,
+                f"internvl2 {VL_FP32_LAYERS} layers at full width, 1 x ({Tf} "
+                f"patches + {VL_FP32_TEXT} tokens)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training at full width, depth cut
+    c8 = dataclasses.replace(cfg, n_layers=VL_TRAIN_LAYERS)
+    tb, ts = VL_TRAIN
+    opt = AdamWConfig(**VL_TRAIN_OPT)
+    ops.reset_launch_counts()
+    bwd_before = dict(kbwd.design_launches)
+    torch.cuda.reset_peak_memory_stats()
+    with timed_steps() as spans:
+        t0 = time.perf_counter()
+        run = ttrain.train(c8, steps=VL_TRAIN_STEPS, batch=tb, seq=ts,
+                           opt_cfg=opt, seed=seed, log_every=0)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    bwd_sm90 = kbwd.design_launches["flash_bwd_sm90"] \
+        - bwd_before["flash_bwd_sm90"]
+    losses = run["losses"]
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if len(losses) != VL_TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or not last < first:
+        raise AssertionError(f"internvl2 train: losses {losses}")
+    want = {"flash": 2 * c8.n_layers * VL_TRAIN_STEPS,
+            "flash_bwd": c8.n_layers * VL_TRAIN_STEPS}
+    if counts["flash"] != want["flash"] or counts["flash_bwd"] != \
+            want["flash_bwd"] or bwd_sm90 != want["flash_bwd"]:
+        raise AssertionError(f"internvl2 train: launches {counts} "
+                             f"({bwd_sm90} on flash_bwd_sm90), want {want}")
+    step_med = statistics.median(spans[1:])
+    print(f"internvl2 train: {c8.n_layers} of {cfg.n_layers} layers at full "
+          f"width ({param_count(c8)[0]:,} parameters), {VL_TRAIN_STEPS} "
+          f"steps of {tb} x ({Tf} patches + {ts} tokens), remat on, in "
+          f"{wall:.1f} s wall; step ms " + " ".join(f"{t * 1e3:.1f}"
+                                                    for t in spans)
+          + f"; median after the first {step_med * 1e3:.1f} ms, "
+          f"{tb * (Tf + ts) / step_med:.0f} positions/s; peak device memory "
+          f"{peak / 1e9:.2f} GB; launches a step: flash "
+          f"{counts['flash'] // VL_TRAIN_STEPS}, flash_bwd "
+          f"{counts['flash_bwd'] // VL_TRAIN_STEPS} (all on flash_bwd_sm90); "
+          f"loss {first:.4f} -> {last:.4f}: "
+          + " ".join(f"{x:.4f}" for x in losses))
+    step = ttrain.make_train_step(c8, opt)
+    b = make_lm_batch(TokenStream(c8.vocab_size, seed), VL_TRAIN_STEPS, tb,
+                      ts, frontend_tokens=Tf, d_model=c8.d_model,
+                      device="cuda")
+    bwd_ms = dict.fromkeys(("dkdv_kernel", "dq_kernel", "stats_kernel"))
+    busy = profile_once(lambda: step(run["params"], run["opt_state"], b),
+                        f"one InternVL2 train step ({c8.n_layers} layers) "
+                        f"B={tb}", sums=bwd_ms)
+    print(f"internvl2 train: flash_bwd's device time a step "
+          f"{sum(bwd_ms.values()):.1f} ms of {busy:.1f} busy ("
+          f"{sum(bwd_ms.values()) / busy:.3f}; "
+          + ", ".join(f"{k} {v:.1f}" for k, v in bwd_ms.items())
+          + f"); idle share against the median unprofiled step "
+          f"{1 - busy / (step_med * 1e3):.3f}")
+    del run, step, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serving": serve_launches, "train": want["flash"],
+            "train_bwd": want["flash_bwd"]}
+
+
 def busy_ms(events) -> float:
     """Time in ms that at least one device activity of ``events`` (the
     profiler's FunctionEvents) was running: the union of their
@@ -5260,6 +5933,20 @@ def main(argv=None) -> int:
     flash["jamba_launches"], flash["window"] = phase_jamba(args.seed, gen)
     flash["note"] += (", ssm_launches and jamba_launches the ssm and jamba "
                       "phases (window: the windowed call at Jamba's shape)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    header("== whisper: the non-causal flash and flash_bwd, Whisper-medium "
+           "forward, decode, fp32 checks, training, restart")
+    flash_nc, bwd_nc = phase_whisper(args.seed, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    header("== internvl2: InternVL2-2B forward with patches, generate, "
+           f"BatchedServer, fp32 check, training ({VL_TRAIN_LAYERS} layers)")
+    vl = phase_internvl2(args.seed, gen)
+    flash["internvl2_launches"] = vl["serving"] + vl["train"]
+    bwd["internvl2_launches"] = vl["train_bwd"]
+    flash["note"] += (", internvl2_launches the internvl2 phase's serving "
+                      "and training (hd 128, causal)")
 
     for name, entry in entries.items():
         entry["launches"] = counts[name]
@@ -5297,7 +5984,8 @@ def main(argv=None) -> int:
                                   bf16["sddmm_bf16"],
                                   bf16["sddmm_gathered_bf16"],
                                   bf16["sddmm_padded_mixed"], topk16,
-                                  flash, bwd, flash_mla, bwd_mla]}))
+                                  flash, bwd, flash_mla, bwd_mla,
+                                  flash_nc, bwd_nc]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,7 @@
 A copy of ``repro/configs`` (pure data).  One module per assigned
 architecture; each exposes ``config()`` (the exact published sizes) and
 ``smoke_config()`` (same family, tiny -- used by the CPU tests).  Every
-family is listed; ``models.init_model`` raises for the families the
-port does not run yet (ROADMAP A10).
+family listed runs in the port: ``models.init_model`` builds each.
 """
 from __future__ import annotations
 

@@ -32,7 +32,8 @@ from .models.config import LayerSpec, ModelConfig
 from .models.mla import MLA
 from .models.moe import MoE
 from .models.ssm import FP32_LEAVES, Mamba2
-from .models.transformer import Layer, Transformer, check_supported
+from .models.transformer import (ENCODER_SPEC, Encoder, Layer,
+                                 Transformer, check_supported)
 from .optim import OptState
 
 
@@ -128,8 +129,12 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
     ``gate_norm``, ``ssm_out``) a ``Mamba2`` (its ``dt_bias``,
     ``A_log`` and ``ssm_D`` in fp32), a ``moe`` subtree (``router``,
     ``experts_*``, ``shared_*``) a ``MoE``, in training as in serving;
-    a layer without ``norm2`` (``mlp="none"``) has no MLP.  Raises for
-    the families the port does not run yet."""
+    a layer without ``norm2`` (``mlp="none"``) has no MLP.  A norm with
+    a ``bias`` is a ``LayerNorm`` (scale and bias fp32), a layer's
+    ``norm_cross``/``cross`` its cross block, and an ``encoder``
+    subtree (``stack/l0`` with the ``n_encoder_layers`` on its leading
+    axis, ``final_norm``) the model's ``Encoder``.  Raises for a layer
+    kind the port does not know."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = L.held_dtype(cfg, train)
@@ -142,6 +147,9 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
                        w(p["bias"], dtype) if "bias" in p else None)
 
     def norm(p):
+        if "bias" in p:
+            return L.LayerNorm(w(p["scale"], torch.float32),
+                               w(p["bias"], torch.float32))
         return L.RMSNorm(w(p["scale"], torch.float32))
 
     def mixer(a, spec: LayerSpec):
@@ -164,19 +172,22 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
         mix = mamba(p["mixer"]) if spec.mixer == "mamba2" \
             else mixer(p["attn"], spec)
         ffn = {}
+        if spec.cross:
+            ffn = dict(norm_cross=norm(p["norm_cross"]),
+                       cross=mixer(p["cross"], ENCODER_SPEC))
         if spec.mlp == "moe":
             m = p["moe"]
             shared = [dense(m[k]) if k in m else None
                       for k in ("shared_gate", "shared_in", "shared_down")]
-            ffn = dict(moe=MoE(dense(m["router"], torch.float32),
-                               dense(m["experts_gate"]),
-                               dense(m["experts_in"]),
-                               dense(m["experts_down"]), *shared))
+            ffn["moe"] = MoE(dense(m["router"], torch.float32),
+                             dense(m["experts_gate"]),
+                             dense(m["experts_in"]),
+                             dense(m["experts_down"]), *shared)
         elif spec.mlp == "dense":
             m = p["mlp"]
-            ffn = dict(mlp=L.MLP(dense(m["wi"]), dense(m["wdown"]),
-                                 dense(m["wg"]) if "wg" in m else None))
-        if ffn:
+            ffn["mlp"] = L.MLP(dense(m["wi"]), dense(m["wdown"]),
+                               dense(m["wg"]) if "wg" in m else None)
+        if spec.mlp != "none":
             ffn["norm2"] = norm(p["norm2"])
         return Layer(norm(p["norm1"]), mix, window=spec.window, **ffn)
 
@@ -192,7 +203,14 @@ def lm_params_from_reference(params: Dict[str, Any], cfg: ModelConfig,
            for i, spec in enumerate(cfg.prologue)]
     stack = [layer(repeat(params["stack"][f"l{i}"], r), spec)
              for r in range(cfg.repeats) for i, spec in enumerate(cfg.pattern)]
-    model = Transformer(cfg, emb, pro, stack, norm(params["final_norm"]))
+    encoder = None
+    if cfg.is_encoder_decoder:
+        enc = params["encoder"]
+        encoder = Encoder([layer(repeat(enc["stack"]["l0"], r), ENCODER_SPEC)
+                           for r in range(cfg.n_encoder_layers)],
+                          norm(enc["final_norm"]))
+    model = Transformer(cfg, emb, pro, stack, norm(params["final_norm"]),
+                        encoder)
     return model.requires_grad_(train)
 
 
@@ -202,10 +220,14 @@ def reference_leaf(tree: Dict[str, Any], name: str,
     params, their gradients, AdamW's moments) that the port's parameter
     ``name`` stands for: ``stack.{j}.<path>`` is repeat ``j //
     len(pattern)`` of ``stack/l{j % len(pattern)}/<path>``,
-    ``pro.{i}.<path>`` is ``pro{i}/<path>``, the rest by its path."""
+    ``pro.{i}.<path>`` is ``pro{i}/<path>``, ``encoder.stack.{j}.<path>``
+    is repeat j of ``encoder/stack/l0/<path>``, the rest by its path."""
     parts = name.split(".")
     r = None
-    if parts[0] == "stack":
+    if parts[:2] == ["encoder", "stack"]:
+        r = int(parts[2])
+        parts = ["encoder", "stack", "l0"] + parts[3:]
+    elif parts[0] == "stack":
         j = int(parts[1])
         r, i = divmod(j, len(cfg.pattern))
         parts = ["stack", f"l{i}"] + parts[2:]

@@ -34,6 +34,19 @@ from ..models.config import ModelConfig
 from ..obs import Recorder, clock, integer_buckets
 
 
+def _decoder_only(cfg: ModelConfig, what: str) -> None:
+    """Raise ValueError for an encoder-decoder config: ``what`` builds
+    its caches without an encoder output, and a cross block has nothing
+    to attend to there.  The reference's ``generate`` fails on the
+    missing ``batch["enc_frames"]`` and its ``BatchedServer`` attends a
+    cross block's query to itself; the port names the route instead."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: {what} serves decoder-only models; an "
+            "encoder-decoder model decodes through models.encode -> "
+            "init_serve_cache(enc_out=) -> serve_step")
+
+
 def make_serve_step(cfg: ModelConfig):
     def step(params, caches, tokens):
         return serve_step(params, cfg, caches, tokens)
@@ -52,8 +65,11 @@ def generate(cfg: ModelConfig, params, prompts: np.ndarray,
     positions.  Greedy is argmax, first index on ties; ``temperature >
     0`` samples ``jax.random.categorical`` from the port's threefry
     stream (``random.categorical``, keys split from ``PRNGKey(seed)``
-    as the reference splits them) on fp32 logits / temperature.
+    as the reference splits them) on fp32 logits / temperature.  A
+    model with frontend tokens is served text-only, as the reference
+    does; an encoder-decoder model raises ValueError.
     """
+    _decoder_only(cfg, "generate")
     prompts = np.asarray(prompts)
     B, S0 = prompts.shape
     max_len = S0 + max_new
@@ -182,11 +198,13 @@ class BatchedServer(SlotServer):
     past ``max_len`` each step overwrites the cache's last row (a
     windowed layer's ring buffer wraps instead).  These are the
     reference's behaviour, reproduced on purpose (ROADMAP, queue C).
+    An encoder-decoder model raises ValueError (ROADMAP, queue C).
     """
 
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
                  max_len: int = 256,
                  recorder: Optional[Recorder] = None):
+        _decoder_only(cfg, "BatchedServer")
         super().__init__(slots, recorder=recorder)
         self.cfg = cfg
         self.params = params

@@ -13,7 +13,11 @@ straggler monitor, failure-restart.
 checkpoint is ``(params as a dict by parameter name, OptState)`` in the
 layout of ``checkpoint/ckpt.py``.  The reference's
 ``make_sharded_train_step`` (a jit over a TPU mesh) waits for the
-data-parallel slice over ``torch.distributed`` (ROADMAP A10.1b).
+data-parallel slice over ``torch.distributed`` (ROADMAP A10.1b).  Every
+config trains here: ``train``'s batches carry the stub ``frontend``
+patch embeddings and the encoder's ``enc_frames`` where the config has
+them, and the microbatch split slices every leaf of a batch along its
+first axis.
 """
 from __future__ import annotations
 

@@ -29,13 +29,18 @@ cache, which stays plain PyTorch, as the reference's
 ``decode_attention`` is outside any Pallas kernel.  A sliding window
 (``window > 0``, Jamba's long-context attention) runs the same kernels
 with the window in the prefill, and decodes against a ring buffer of
-``min(window, max_len)`` rows.  MLA, MoE and Mamba2 blocks live in
-``mla.py``, ``moe.py`` and ``ssm.py``.  Cross-attention is not ported
-yet (ROADMAP A10): ``models.transformer.check_supported`` refuses its
-configs.
+``min(window, max_len)`` rows.  Whisper's blocks run through the same
+code: bidirectional self-attention (``causal=False``) in the encoder,
+cross-attention (``kv_src=``: queries from the decoder, keys and values
+from the encoder output, ``Sq != Sk``) in a prefill or in training,
+attention without RoPE (``use_rope=False``; the model adds sinusoidal
+positions, ``sinusoid_pos``, to its inputs instead), LayerNorm and the
+GELU MLP with biases.  MLA, MoE and Mamba2 blocks live in ``mla.py``,
+``moe.py`` and ``ssm.py``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -90,8 +95,17 @@ class RMSNorm(nn.Module):
         self.scale = _frozen(scale)
 
 
+class LayerNorm(nn.Module):
+    """``scale`` and ``bias`` (d,), fp32."""
+
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.scale = _frozen(scale)
+        self.bias = _frozen(bias)
+
+
 # ---------------------------------------------------------------------------
-# norms / rope
+# norms / positions / rope
 # ---------------------------------------------------------------------------
 
 def init_rmsnorm(d: int, device=None) -> RMSNorm:
@@ -104,6 +118,50 @@ def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * p.scale
     return out.to(x.dtype)
+
+
+def init_layernorm(d: int, device=None) -> LayerNorm:
+    return LayerNorm(torch.ones((d,), dtype=torch.float32, device=device),
+                     torch.zeros((d,), dtype=torch.float32, device=device))
+
+
+def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """fp32 inside (the population variance), times the fp32 scale plus
+    the fp32 bias, then cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p.scale + p.bias
+    return out.to(x.dtype)
+
+
+def _sinusoid(start: int, seq: int, d: int) -> np.ndarray:
+    pos = np.arange(start, start + seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return emb.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(seq: int, d: int) -> np.ndarray:
+    """A table from position 0, computed once (Whisper's 1,500 x 1,024
+    takes tens of ms of host time in numpy), read-only."""
+    emb = _sinusoid(0, seq, d)
+    emb.setflags(write=False)
+    return emb
+
+
+def sinusoid_pos(seq: int, d: int, start: int = 0,
+                 device=None) -> torch.Tensor:
+    """(seq, d) fp32 absolute positions ``start .. start + seq - 1``:
+    sin then cos of pos / 10000^(2i/d), computed in float64 with numpy
+    and cast once, as the reference does, so a row is the same bits
+    whatever ``start`` and ``seq`` it was computed with (a decode step
+    computes its one row; tables from position 0 are cached)."""
+    emb = _sinusoid_table(seq, d) if start == 0 else \
+        _sinusoid(start, seq, d)
+    return torch.tensor(emb, device=device)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -236,10 +294,18 @@ def attention_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
-                    cache: Optional[Params] = None, window: int = 0
+                    cache: Optional[Params] = None, window: int = 0,
+                    causal: bool = True,
+                    kv_src: Optional[torch.Tensor] = None,
+                    use_rope: bool = True
                     ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One causal self-attention layer with RoPE; with ``window > 0`` a
-    query sees the ``window`` positions up to its own.
+    """One attention layer: causal self-attention with RoPE by default;
+    with ``window > 0`` a query sees the ``window`` positions up to its
+    own.  ``causal=False``: every query sees every key (Whisper's
+    encoder).  ``kv_src`` (B, Sk, D): cross-attention, keys and values
+    projected from ``kv_src`` (cast to the compute dtype), over the
+    whole sequence (the cache is not read; pass ``causal=False``).
+    ``use_rope=False``: no rotation, in a prefill and in decode.
 
     cache: {"k", "v" (B, Smax, KVH, hd), "len" int} -- decode mode.  The
     new K/V rows are written into the cache's tensors in place (the
@@ -251,25 +317,28 @@ def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     ``min(len + 1, Smax)`` rows; RoPE has rotated each row by its
     absolute position before the write, so a wrapped buffer needs no
     other mask.  Returns (y, new cache) with ``len + 1``.  Without a
-    cache: the whole sequence from position 0, through
-    ``attention_fn`` with the window.
+    cache, or with ``kv_src``: the whole sequence from position 0,
+    through ``attention_fn`` with ``causal`` and the window.
     """
     dt = cdtype(cfg)
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _proj(p.wq, x, H, hd, dt)
-    k = _proj(p.wk, x, KVH, hd, dt)
-    v = _proj(p.wv, x, KVH, hd, dt)
+    src = x if kv_src is None else kv_src.to(dt)
+    k = _proj(p.wk, src, KVH, hd, dt)
+    v = _proj(p.wv, src, KVH, hd, dt)
     if cfg.qk_norm:
         q = rms_norm(p.q_norm, q, cfg.norm_eps)
         k = rms_norm(p.k_norm, k, cfg.norm_eps)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and kv_src is None:
         cur = int(cache["len"])
-        pos = torch.full((B, S), cur, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+        if use_rope:
+            pos = torch.full((B, S), cur, dtype=torch.int32,
+                             device=x.device)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
         kc, vc = cache["k"], cache["v"]
         slot = cur % kc.shape[1] if window > 0 else cur
         slot = max(0, min(slot, kc.shape[1] - S))
@@ -279,11 +348,12 @@ def apply_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         out = decode_attention(q, kc, vc, cur + 1)
         new_cache = {"k": kc, "v": vc, "len": cur + 1}
     else:
-        pos = torch.arange(S, dtype=torch.int32,
-                           device=x.device)[None].expand(B, S)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-        out = attention_fn(q, k, v, causal=True, window=window)
+        if use_rope:
+            pos = torch.arange(S, dtype=torch.int32,
+                               device=x.device)[None].expand(B, S)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        out = attention_fn(q, k, v, causal=causal, window=window)
 
     y = torch.matmul(out.reshape(B, S, H * hd), p.wo.w.to(dt))
     return y, new_cache

@@ -1,0 +1,103 @@
+"""InternVL2 in the port against the JAX package's, on the CPU: a
+decoder whose inputs start with stub patch embeddings.
+
+The internvl2 smoke model (2 layers, d 64, 4/2 heads of 16, 8 patch
+embeddings prepended) starts from the reference's
+``init_model(PRNGKey(0), cfg)`` weights.  ``batch["frontend"]`` (B, 8,
+D) is cast to the compute dtype and prepended to the token embeddings,
+RoPE numbers the whole sequence from the first patch, and the patches'
+positions are cut from the logits after the final norm, as in the
+reference.  Both packages' ``generate`` and ``BatchedServer`` serve the
+model text-only (the reference's ``generate`` builds no frontend).
+
+Tolerances: ``test_torch_lm.py``'s for the forward (fp32 rtol 1e-4,
+atol 1e-5; bf16 0.08 with argmax agreement above 0.95);
+``test_torch_whisper_train.py``'s (``test_torch_train.py``'s) for the
+loss, the gradients and ``train``; the served tokens exactly, in fp32.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import test_torch_lm as lm
+import test_torch_whisper_train as wt
+from repro.data import TokenStream as JTokenStream
+from repro.launch import serve as jserve
+from repro.models import forward as jforward
+from repro_torch.data import TokenStream
+from repro_torch.launch import serve as tserve
+from repro_torch.models import forward
+from test_torch_ssm import _one_thread  # noqa: F401 (autouse)
+
+ARCH = "internvl2_2b"
+DTYPES = lm.DTYPES
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("front", [True, False], ids=["frontend", "text"])
+def test_forward_matches_reference(front, dtype):
+    """2 x (8 patches + 20 tokens), and the same tokens text-only: the
+    logits cover the tokens only, and the patches move them."""
+    jc, tc, params, model = lm._models(ARCH, dtype)
+    toks = np.random.default_rng(40).integers(0, jc.vocab_size, (2, 20))
+    batch = {"tokens": toks, **(lm._stubs(jc, 2, seed=41) if front else {})}
+    want, _ = jforward(params, jc, {k: jnp.asarray(v)
+                                    for k, v in batch.items()}, remat=False)
+    got, _ = forward(model, tc, batch)
+    assert got.shape == (2, 20, tc.vocab_size)
+    lm._close(got, want, dtype, argmax=dtype == "float32")
+    if dtype == "bfloat16":
+        # bf16 logits of 512 tokens tie exactly at some positions (an
+        # ulp at 3.0 is 2^-6), where the first-index argmax is an
+        # arbitrary pick: held is that the reference's choice is a
+        # maximiser of the port's logits (seen: 2 exact ties in 40 rows
+        # with patches, each between the two packages' choices)
+        g = lm._np(got)
+        top = np.take_along_axis(g, lm._np(want).argmax(-1)[..., None], -1)
+        assert (top[..., 0] == g.max(-1)).mean() > 0.95
+    if front:
+        text, _ = forward(model, tc, {"tokens": toks})
+        assert not np.allclose(lm._np(text), lm._np(got), atol=1e-2)
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "noremat"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_loss_and_gradients_match_reference(dtype, remat):
+    """The loss and every gradient leaf on a batch with patch
+    embeddings (``make_lm_batch(..., frontend_tokens=)``)."""
+    wt.check_loss_and_gradients(ARCH, dtype, remat)
+
+
+def test_three_train_steps_match_reference():
+    wt.check_three_steps(ARCH, 2, "float32")
+
+
+def test_generate_and_batched_server_match_reference():
+    """fp32, text-only as the reference serves it: ``generate`` and a
+    ``BatchedServer`` of 5 requests through 2 slots give the
+    reference's tokens."""
+    jc, tc, params, model = lm._models(ARCH, "float32")
+    prompts = JTokenStream(jc.vocab_size, 0).batch(0, 4, 7)[:, :7]
+    assert np.array_equal(prompts, TokenStream(tc.vocab_size, 0)
+                          .batch(0, 4, 7)[:, :7])
+    reqs = list(prompts) + [prompts[0][:4]]
+
+    def served(server):
+        ids = [server.submit(p, max_new=4) for p in reqs]
+        done = {r["id"]: r for r in server.run()}
+        return [done[i]["generated"] for i in ids]
+
+    with jax.threefry_partitionable(False):
+        want = jserve.generate(jc, params, prompts, max_new=5)
+        want_srv = served(jserve.BatchedServer(jc, params, slots=2,
+                                               max_len=64))
+    assert np.array_equal(tserve.generate(tc, model, prompts, max_new=5),
+                          want)
+    assert served(tserve.BatchedServer(tc, model, slots=2,
+                                       max_len=64)) == want_srv
+
+
+def test_train_loss_decreases():
+    """``train``'s batches carry the patch embeddings."""
+    wt.check_loss_decreases(ARCH)

@@ -13,6 +13,8 @@ held by ``ref.check_topk_score``, flash by ``ref.check_attention`` and
 Hopper design against its first design, ``csrc/flash_bwd.cu``,
 by ``ref.check_bwd_close``), whose comments state their tolerances.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -919,6 +921,96 @@ def test_mla_model_runs_the_two_width_kernel(cuda):
         assert bool(torch.isfinite(lg.float()).all())
     assert caches["pos"] == 24
     assert tops.launch_counts()["flash"] == cfg.n_layers
+
+
+def _on_card(arch, cuda):
+    """The arch's smoke model in fp32 from one seed, on the CPU and a
+    copy on the card."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    model = init_model(cfg, seed=0, device="cpu")
+    return cfg, model, copy.deepcopy(model).to(cuda)
+
+
+def _same(got, want, what):
+    """fp32 on the card against the CPU: the kernels' fp32 attention and
+    cuBLAS sum in another order than the plain versions on the CPU."""
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               want.detach().float().numpy(), rtol=1e-4,
+                               atol=1e-4, err_msg=what)
+
+
+@pytest.mark.cuda
+def test_whisper_model_on_the_card_matches_the_cpu(cuda):
+    """The whisper smoke model in fp32 on the card against the same
+    model on the CPU: ``forward`` (one flash launch an encoder layer,
+    two a decoder layer: self and cross), ``encode`` ->
+    ``init_serve_cache(enc_out=)`` -> 8 ``serve_step``s (encode launches
+    one a layer, decode none), and ``loss_fn``'s gradient (one flash_bwd launch an
+    attention call, no causal mask in the encoder and cross blocks)."""
+    from repro_torch.models import (encode, forward, init_serve_cache,
+                                    loss_fn, serve_step)
+    cfg, cpu, card = _on_card("whisper_medium", cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    frames = torch.from_numpy(rng.normal(size=(2, cfg.encoder_frames,
+                                               cfg.d_model))
+                              .astype(np.float32))
+    batch = {"tokens": toks, "enc_frames": frames}
+    tops.reset_launch_counts()
+    got, _ = forward(card, cfg, batch)
+    torch.cuda.synchronize()
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert tops.launch_counts()["flash"] == n_attn
+    _same(got, forward(cpu, cfg, batch)[0], "whisper forward")
+    caches = {m: init_serve_cache(m, cfg, 2, 8,
+                                  enc_out=encode(m, cfg, frames))
+              for m in (cpu, card)}
+    for t in range(8):
+        outs = []
+        for m in (cpu, card):
+            lg, caches[m] = serve_step(m, cfg, caches[m], toks[:, t:t + 1])
+            outs.append(lg)
+        _same(outs[1], outs[0], f"whisper decode step {t}")
+    # encode's layers on the card; decode launches no kernel
+    assert tops.launch_counts()["flash"] == n_attn + cfg.n_encoder_layers
+    card.requires_grad_(True)
+    cpu.requires_grad_(True)
+    batch["labels"] = toks
+    grads = []
+    for m in (cpu, card):
+        loss, _ = loss_fn(m, cfg, batch, remat=False)
+        grads.append(dict(zip([n for n, _ in m.named_parameters()],
+                              torch.autograd.grad(loss,
+                                                  list(m.parameters())))))
+    assert tops.launch_counts()["flash_bwd"] == n_attn
+    for name, g in grads[0].items():
+        _same(grads[1][name], g, name)
+
+
+@pytest.mark.cuda
+def test_internvl2_model_on_the_card_matches_the_cpu(cuda):
+    """The internvl2 smoke model in fp32 on the card against the CPU,
+    with patch embeddings prepended: ``forward`` (one flash launch a
+    layer over patches and tokens) and ``generate`` text-only (the same
+    tokens)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import forward
+    cfg, cpu, card = _on_card("internvl2_2b", cuda)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (2, 12))
+    batch = {"tokens": toks, "frontend": rng.normal(
+        size=(2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)}
+    tops.reset_launch_counts()
+    got, _ = forward(card, cfg, batch)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 12, cfg.vocab_size)
+    assert tops.launch_counts()["flash"] == cfg.n_layers
+    _same(got, forward(cpu, cfg, batch)[0], "internvl2 forward")
+    assert np.array_equal(generate(cfg, card, toks[:, :6], max_new=4),
+                          generate(cfg, cpu, toks[:, :6], max_new=4))
 
 
 # bf16 cases at the Hopper design's head widths (64, 128) that cross its

@@ -19,6 +19,11 @@ Tolerances:
   ``tests/test_models.py`` holds decode against forward to: rtol/atol
   0.08, and argmax agreement above 0.95;
 * configs and ``param_count``: exactly equal.
+
+Whisper's and InternVL2's forward take their stub inputs
+(``_stubs``: encoder frames, patch embeddings), and Whisper's decode
+reads cross-attention K/V that both packages project from the same
+encoder output, the reference's.
 """
 import dataclasses
 
@@ -33,20 +38,23 @@ from repro.models import (forward as jforward, init_model as jinit,
                           init_serve_cache as jcache, param_count as jcount,
                           serve_step as jstep)
 from repro.models import layers as jL
+from repro.models.transformer import encode as jencode
 from repro_torch import configs as tcfg
-from repro_torch.convert import lm_params_from_reference
-from repro_torch.models import (forward, init_model, init_serve_cache,
-                                param_count, serve_step)
+from repro_torch.convert import lm_params_from_reference, reference_leaf
+from repro_torch.models import (LayerSpec, forward, init_model,
+                                init_serve_cache, param_count, serve_step)
 from repro_torch.models import layers as tL
+from repro_torch.models import transformer as tT
 
 DENSE = ["smollm_135m", "qwen3_4b", "yi_6b"]
-UNPORTED = ["internvl2_2b", "whisper_medium"]
 DTYPES = ["float32", "bfloat16"]
-# whole models: the dense decoders, Mamba2 (attention-free) and Jamba's
+# whole models: the dense decoders, Mamba2 (attention-free), InternVL2
+# (patch embeddings prepended), Whisper (encoder-decoder) and Jamba's
 # hybrid period (Mamba2, attention, MoE); Jamba's bf16 forward is held
 # in test_torch_jamba.py, where its MoE's near-tie flips are explained
-LM_CASES = [(a, dt) for a in DENSE + ["mamba2_130m"] for dt in DTYPES] \
-    + [("jamba_v01_52b", "float32")]
+LM_CASES = [(a, dt) for a in DENSE + ["mamba2_130m", "internvl2_2b",
+                                      "whisper_medium"]
+            for dt in DTYPES] + [("jamba_v01_52b", "float32")]
 SCALED = {"jamba_v01_52b"}      # held at SCALED_ATOL in fp32
 FP32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=0.08, atol=0.08)
@@ -99,6 +107,21 @@ def _x(shape, dtype, seed=0):
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+def _stubs(cfg, B, seed=13):
+    """The stub modality inputs the config takes, as numpy arrays:
+    ``frontend`` (B, Tf, D) patch embeddings, ``enc_frames`` (B, Te, D)
+    encoder frames."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.n_frontend_tokens:
+        out["frontend"] = rng.normal(
+            size=(B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["enc_frames"] = rng.normal(
+            size=(B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _layer0(params):
@@ -186,9 +209,11 @@ def test_apply_mlp_matches_reference(gelu, dtype):
 def test_forward_matches_reference(arch, dtype):
     jc, tc, params, model = _models(arch, dtype)
     toks = np.random.default_rng(10).integers(0, jc.vocab_size, (2, 24))
-    want, jaux = jforward(params, jc, {"tokens": jnp.asarray(toks)},
+    batch = {"tokens": toks, **_stubs(jc, 2)}
+    want, jaux = jforward(params, jc, {k: jnp.asarray(v)
+                                       for k, v in batch.items()},
                           remat=False)
-    got, aux = forward(model, tc, {"tokens": toks})
+    got, aux = forward(model, tc, batch)
     assert got.dtype == tL.cdtype(tc)
     if tc.n_experts:
         assert float(aux) > 0.0
@@ -205,11 +230,17 @@ def test_serve_step_matches_reference(arch, dtype):
     state and conv window start at zeros); the argmax agreement is
     counted over all 24 rows, and every layer's cache is held to the
     reference's (stacked layer i is repeat i // len(pattern) of
-    ``l{i % len(pattern)}``)."""
+    ``l{i % len(pattern)}``).  Whisper's cross K/V are projected in
+    both packages from the reference's encoder output, and held too."""
     jc, tc, params, model = _models(arch, dtype)
     toks = np.random.default_rng(11).integers(0, jc.vocab_size, (4, 6))
-    jc_ = jcache(params, jc, 4, 12, prefilled=3)
-    tc_ = init_serve_cache(model, tc, 4, 12, prefilled=3)
+    enc = None
+    if jc.is_encoder_decoder:
+        enc = jencode(params, jc, jnp.asarray(_stubs(jc, 4)["enc_frames"]))
+    jc_ = jcache(params, jc, 4, 12, enc_out=enc, prefilled=3)
+    tc_ = init_serve_cache(model, tc, 4, 12, prefilled=3,
+                           enc_out=None if enc is None
+                           else torch.tensor(_np(enc)).to(tL.cdtype(tc)))
     got, want = [], []
     for t in range(6):
         jlg, jc_ = jstep(params, jc, jc_, jnp.asarray(toks[:, t:t + 1]))
@@ -225,6 +256,11 @@ def test_serve_step_matches_reference(arch, dtype):
         assert set(layer["mixer"]) == set(want_c)
         for name, t in layer["mixer"].items():
             _close(t, want_c[name][i // P], dtype, scaled=arch in SCALED)
+    assert ("stack_cross" in tc_) == ("stack_cross" in jc_)
+    for i, ck in enumerate(tc_.get("stack_cross", [])):
+        for name in ("k", "v"):
+            _close(ck[name], jc_["stack_cross"][f"l{i % P}"][name][i // P],
+                   dtype)
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -255,16 +291,37 @@ def test_configs_and_param_count_match_reference(arch):
         [dataclasses.asdict(s) for s in jcfg.SHAPES]
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", jcfg.ARCHS)
+def test_every_config_builds(arch):
+    """Every family of the reference runs in the port: its published
+    config passes ``check_supported``, and its smoke config builds
+    through ``init_model`` and through ``lm_params_from_reference``
+    with the same parameter names, shapes and dtypes, each the shape of
+    the reference leaf it stands for."""
+    tT.check_supported(tcfg.get_config(arch))
     cfg = tcfg.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        init_model(cfg, device="cpu")
+    own = init_model(cfg, device="cpu")
     with jax.threefry_partitionable(False):
         params = jinit(jax.random.PRNGKey(0), jcfg.get_smoke(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        lm_params_from_reference(jax.tree.map(np.asarray, params), cfg,
-                                 device="cpu")
+    tree = jax.tree.map(np.asarray, params)
+    carried = lm_params_from_reference(tree, cfg, device="cpu")
+    got = {n: (tuple(p.shape), p.dtype) for n, p in own.named_parameters()}
+    assert got == {n: (tuple(p.shape), p.dtype)
+                   for n, p in carried.named_parameters()}
+    for name, (shape, _) in got.items():
+        assert reference_leaf(tree, name, cfg).shape == shape, name
+    assert sum(np.prod(s) for s, _ in got.values()) == sum(
+        x.size for x in jax.tree.leaves(tree))
+    assert (own.encoder is not None) == cfg.is_encoder_decoder
+
+
+def test_check_supported_refuses_an_unknown_mixer():
+    cfg = dataclasses.replace(tcfg.get_smoke("qwen3_4b"),
+                              pattern=(LayerSpec(mixer="rwkv"),))
+    with pytest.raises(NotImplementedError, match="the rwkv mixer"):
+        tT.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="the rwkv mixer"):
+        init_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", DENSE)
