@@ -139,6 +139,24 @@ From the root of a checkout, on a machine with one NVIDIA H100:
     profiled step, ``generate`` on the trained model against its
     cast-once bf16 copy (bitwise), and a 12-step run restarted after a
     lost device at step 10 against the uninterrupted run (bitwise);
+16b. train dp: the same model and batch through
+    ``make_sharded_train_step(variant="dponly")`` (replicated fp32
+    parameters, ZeRO-1 moments, the batch split over the ranks): a world
+    of ``torch.cuda.device_count()`` NCCL ranks for 3 steps (at one rank
+    each bitwise the single-process step), then two gloo ranks on the
+    one card, 4 x 4,096 tokens each, for 6 steps (the ranks bitwise
+    equal after every step, each rank's ZeRO-1 update bitwise an
+    unsharded ``adamw_update`` fed the same all-reduced gradients, each
+    step's global loss (rtol 1e-3) and the first all-reduced gradient
+    (by relative norm) against the single-process run's, both shown to
+    refuse a planted fault (rank 1's rows dropped), the parameters
+    within test_torch_train.py's bf16 rule of it, 60 flash and 30
+    flash_bwd launches a step on each rank on ``flash_sm90`` /
+    ``flash_bwd_sm90``, a checkpoint's moment gather bitwise the
+    unsharded moments) and ``train(variant="dponly")`` restarted from a
+    checkpoint after a lost device, bitwise the uninterrupted run; step
+    ms, each rank's peak and a save's added device bytes, the
+    collectives' count and bytes a step;
 17. deepseek: holds the flash kernels at two widths (q and k 192
     wide, v 128: MLA's prefill) against their plain version, out and
     lse, bf16 on ``flash_sm90.cu``'s 192/128 instance and fp32 on
@@ -4338,6 +4356,499 @@ def phase_train(seed: int, bwd_entry):
     return bwd_entry, counts["flash"]
 
 
+# data-parallel training (the reference's make_sharded_train_step under
+# "dponly"): SmolLM-135M at full width and depth, TRAIN_OPT, the train
+# phase's global batch of TRAIN_SHAPE.  (a) NCCL ranks of device_count()
+# for DP_NCCL_STEPS steps, each beside the single-process step; (b) two
+# gloo ranks on the one card, each 4 x 4,096 rows, for DP_GLOO_STEPS
+# steps, then train(variant="dponly") with a checkpoint every
+# DP_RESTART[0] steps and a lost device at step DP_RESTART[1]
+DP_NCCL_STEPS = 3
+DP_GLOO_STEPS = 6
+DP_RESTART = (3, 4)         # save_every, the step a device is lost
+DP_FP32_TOL = dict(rtol=1e-4, atol=1e-5)   # test_torch_train.py's FP32_TOL
+DP_CANCELLED = 2.0 ** -16                  # and its CANCELLED
+# (b) against the single-process run: each step's global loss at
+# test_torch_train_dp.py's bf16 loss rule, and the first all-reduced
+# gradient (both from the same weights) by its relative norm: 3.6e-3 on
+# an NVIDIA H100 80GB HBM3 (2.1e-3 at the smoke size on the CPU), where
+# rank 1's rows dropped give 0.63 (and a loss 0.50 off)
+DP_LOSS_RTOL = 1e-3
+DP_GRAD_REL = 2e-2
+
+
+def _dp_setup(world, seed):
+    """(cfg, opt, step, plan, model, opt_state, stream) of a rank: the
+    weights and the stream of ``seed``, as ``train`` draws them."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import make_sharded_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_SHAPE
+    opt = AdamWConfig(**TRAIN_OPT)
+    mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+    step, plan = make_sharded_train_step(
+        cfg, opt, mesh, ShapeSpec("train_dp", S, B, "train"),
+        variant="dponly")
+    model = init_model(cfg, seed, train=True)
+    return cfg, opt, step, plan, model, step.init_opt_state(model), \
+        TokenStream(cfg.vocab_size, seed=seed)
+
+
+def _dp_batch(cfg, stream, i, step):
+    from repro_torch.data import make_lm_batch
+    from repro_torch.launch.specs import batch_shard
+    B, S = TRAIN_SHAPE
+    return batch_shard(make_lm_batch(stream, i, B, S), step.rank,
+                       step.world_size, step.n_micro)
+
+
+def _dp_launches(label, n_layers):
+    """Raise unless the counts since the last reset are one step's: the
+    forward and remat's recompute through flash_sm90, the backward
+    through flash_bwd_sm90."""
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import flash_bwd as kbwd
+    from repro_torch.kernels import ops
+    counts = ops.launch_counts()
+    want = {**dict.fromkeys(counts, 0), "flash": 2 * n_layers,
+            "flash_bwd": n_layers}
+    if counts != want or kflash.design_launches["flash_sm90"] != \
+            want["flash"] or kbwd.design_launches["flash_bwd_sm90"] != \
+            want["flash_bwd"]:
+        raise AssertionError(f"{label}: launches {counts} "
+                             f"({kflash.design_launches}, "
+                             f"{kbwd.design_launches}), want {want} on "
+                             "flash_sm90 / flash_bwd_sm90")
+    return counts
+
+
+def _dp_digest(model) -> str:
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_dp_nccl_rank(rank, world, out, seed):
+    """(a) ``DP_NCCL_STEPS`` sharded steps on NCCL ranks; at one rank
+    each bitwise the single-process ``make_train_step`` on the same
+    global batch from the same weights.  Rank 0 then carries the
+    single-process run on to ``DP_GLOO_STEPS`` steps and writes its
+    parameters and first gradients for (b)."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.optim import adamw_init
+    cfg, opt, step, plan, model, ost, stream = _dp_setup(world, seed)
+    B, S = TRAIN_SHAPE
+    single = copy.deepcopy(model)
+    sost = adamw_init(dict(single.named_parameters()))
+    single_step = ttrain.make_train_step(cfg, opt)
+    first = []
+    orig = ttrain.adamw_update
+
+    def spy(opt_cfg, params, g, state):
+        if not first:
+            first.append({n: x.detach().cpu() for n, x in g.items()})
+        return orig(opt_cfg, params, g, state)
+
+    dp_ms, single_ms, single_losses, launches, peak = [], [], [], [], 0
+    for i in range(DP_GLOO_STEPS):
+        batch = make_lm_batch(stream, i, B, S)
+        if i < DP_NCCL_STEPS:
+            local = _dp_batch(cfg, stream, i, step)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            model, ost, m = step(model, ost, local)
+            torch.cuda.synchronize()
+            dp_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(_dp_launches(f"dp train (a) step {i + 1}",
+                                         cfg.n_layers))
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            census = step.census()
+        if rank != 0:
+            continue
+        ttrain.adamw_update = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single, sost, sm = single_step(single, sost, batch)
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            ttrain.adamw_update = orig
+        single_losses.append(float(sm["loss"]))
+        if i < DP_NCCL_STEPS and world == 1:
+            named = dict(model.named_parameters())
+            diff = [n for n, p in single.named_parameters()
+                    if not torch.equal(p, named[n])
+                    or not torch.equal(sost.m[n], ost.m[n])
+                    or not torch.equal(sost.v[n], ost.v[n])]
+            if diff or any(not torch.equal(m[k], sm[k])
+                           for k in ("loss", "grad_norm", "lr")):
+                raise AssertionError(
+                    f"dp train (a) step {i + 1}: the NCCL world of one is "
+                    f"not the single-process step's bits: {len(diff)} "
+                    f"leaves differ ({diff[:3]}), loss {float(m['loss'])} "
+                    f"against {float(sm['loss'])}")
+    digests = [None] * world
+    dist.all_gather_object(digests, _dp_digest(model))
+    if len(set(digests)) != 1:
+        raise AssertionError(f"dp train (a): ranks' parameters differ "
+                             f"after {DP_NCCL_STEPS} steps")
+    if rank == 0:
+        torch.save({"params": {n: p.detach().cpu() for n, p in
+                               single.named_parameters()},
+                    "first_grad": first[0], "losses": single_losses},
+                   Path(out) / "dp_single.pt")
+        # where a step's time goes, beside the single-process step's
+        busy = profile_once(lambda: step(model, ost, local),
+                            f"one dp step (a), world {world}, B={B} S={S}")
+        busy_single = profile_once(lambda: single_step(single, sost, batch),
+                                   f"one single-process step B={B} S={S}")
+        (Path(out) / "dp_nccl.json").write_text(json.dumps({
+            "world": world, "dp_ms": dp_ms, "single_ms": single_ms,
+            "peak": peak, "census": census, "launches": launches,
+            "busy": busy, "busy_single": busy_single}))
+
+
+def _dp_loss_rel(loss, want: float) -> float:
+    """|loss - want| / |want|: a sharded step's global loss against the
+    single-process step's."""
+    return abs(float(loss) - want) / abs(want)
+
+
+def _dp_grad_rel(grads, want) -> float:
+    """||g - want|| / ||want|| over every leaf, the sums in fp64: a
+    sharded step's all-reduced gradient against the single-process
+    step's from the same weights."""
+    import torch
+    num = den = 0.0
+    for n, g in grads.items():
+        w = want[n].to(g.device, torch.float64)
+        num += float(torch.sum((g.to(torch.float64) - w) ** 2))
+        den += float(torch.sum(w * w))
+    return (num / den) ** 0.5
+
+
+def train_dp_gloo_rank(rank, world, out, seed):
+    """(b) ``DP_GLOO_STEPS`` sharded steps on gloo ranks sharing the one
+    card: after every step the ranks' parameters bitwise equal and each
+    rank's ZeRO-1 result bitwise an unsharded ``adamw_update`` of a copy
+    fed the same all-reduced gradients; rank 0 holds every step's global
+    loss and the first all-reduced gradient against the single-process
+    run of (a), after showing that these checks refuse a planted fault
+    (rank 1's rows dropped before the flat all-reduce), and the last
+    step's parameters within 2 lr x steps of it; a checkpoint's moment
+    gather is bitwise the unsharded moments, and its device bytes are
+    measured; then ``train(variant="dponly")`` with a checkpoint every
+    ``DP_RESTART[0]`` steps and a lost device at ``DP_RESTART[1]`` ends
+    on the uninterrupted run's bits."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.runtime import FailureSim
+    cfg, opt, step, plan, model, ost, stream = _dp_setup(world, seed)
+    plain = {n: p.detach().clone() for n, p in model.named_parameters()}
+    pst = adamw_init(plain)
+    ms, comm_ms, losses, census = [], [], [], None
+    step_counts, loss_rel, grad_rel = [], [], None
+    ref = torch.load(Path(out) / "dp_single.pt") if rank == 0 else None
+
+    # the control: from the same weights and batch, rank 1's rows dropped
+    # before the flat all-reduce (its weight forced to 0)
+    flat_reduce = step._all_reduce
+
+    def dropped(t):
+        if rank == 1 and t.numel() > step.n_micro:   # not the label counts
+            t.zero_()
+        return flat_reduce(t)
+
+    step._all_reduce = dropped
+    try:
+        c_loss, c_grads = step.gradients(model, _dp_batch(cfg, stream, 0,
+                                                          step))
+    finally:
+        step._all_reduce = flat_reduce
+    control = None
+    if rank == 0:
+        control = (_dp_loss_rel(c_loss, ref["losses"][0]),
+                   _dp_grad_rel(c_grads, ref["first_grad"]))
+        if control[0] <= DP_LOSS_RTOL or control[1] <= DP_GRAD_REL:
+            raise AssertionError(
+                "dp train (b): a check against the single-process run "
+                "passes the planted fault (rank 1's rows dropped): loss "
+                f"{control[0]:.3e} (limit {DP_LOSS_RTOL}), gradient "
+                f"{control[1]:.3e} (limit {DP_GRAD_REL})")
+    del c_loss, c_grads
+
+    def timed(collective):
+        # the host clock around each of the step's collectives, between
+        # synchronisations: gloo's copies through the host included
+        def run(t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = collective(t)
+            torch.cuda.synchronize()
+            comm_ms[-1] += (time.perf_counter() - t0) * 1e3
+            return r
+        return run
+
+    step._all_reduce = timed(step._all_reduce)
+    step._all_gather = timed(step._all_gather)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DP_GLOO_STEPS):
+        local = _dp_batch(cfg, stream, i, step)
+        step.reset_census()
+        comm_ms.append(0.0)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step.gradients(model, local)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, pst, _ = adamw_update(opt, plain, grads, pst)
+        if rank == 0:
+            loss_rel.append(_dp_loss_rel(loss, ref["losses"][i]))
+            if i == 0:
+                grad_rel = _dp_grad_rel(grads, ref["first_grad"])
+            if loss_rel[-1] > DP_LOSS_RTOL or grad_rel > DP_GRAD_REL:
+                raise AssertionError(
+                    f"dp train (b) step {i + 1}: against the "
+                    f"single-process run, loss {float(loss)} for "
+                    f"{ref['losses'][i]} (rel {loss_rel[-1]:.3e}, limit "
+                    f"{DP_LOSS_RTOL}), first gradient rel {grad_rel:.3e} "
+                    f"(limit {DP_GRAD_REL})")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        model, ost, m = step.apply(model, ost, grads)
+        torch.cuda.synchronize()
+        ms.append((t1 - t0 + time.perf_counter() - t2) * 1e3)
+        del grads
+        step_counts.append(_dp_launches(
+            f"dp train (b) rank {rank} step {i + 1}", cfg.n_layers))
+        census = step.census()
+        losses.append(float(loss))
+        named = dict(model.named_parameters())
+        diff = [n for n in plan.shapes
+                if not torch.equal(named[n], plain[n])
+                or not torch.equal(ost.m[n], plan.shard(n, pst.m[n], rank))
+                or not torch.equal(ost.v[n], plan.shard(n, pst.v[n], rank))]
+        if diff:
+            raise AssertionError(
+                f"dp train (b) rank {rank} step {i + 1}: ZeRO-1 is not the "
+                f"unsharded update's bits at {len(diff)} leaves "
+                f"({diff[:3]})")
+        digests = [None] * world
+        dist.all_gather_object(digests, _dp_digest(model))
+        if len(set(digests)) != 1:
+            raise AssertionError(f"dp train (b) step {i + 1}: the ranks' "
+                                 "parameters differ")
+    peak = torch.cuda.max_memory_allocated()
+    del step._all_reduce, step._all_gather      # the untimed collectives
+
+    # a checkpoint's gather of the moments to rank 0's host: the device
+    # bytes it adds to a rank, and its bits against the unsharded moments
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full = step.host_opt_state(ost)
+    save_extra = torch.cuda.max_memory_allocated() - before
+    if full is not None and any(
+            not torch.equal(full.m[n], pst.m[n].cpu())
+            or not torch.equal(full.v[n], pst.v[n].cpu())
+            for n in plan.shapes):
+        raise AssertionError("dp train (b): the checkpoint's gathered "
+                             "moments are not the unsharded moments")
+    del plain, pst, full
+    torch.cuda.empty_cache()
+    held = None
+    if rank == 0:
+        worst, outside, cancelled, n = 0.0, 0, 0, 0
+        for name, p in model.named_parameters():
+            got = p.detach().cpu().numpy()
+            want = ref["params"][name].numpy()
+            g0 = ref["first_grad"][name].abs().numpy()
+            d = np.abs(got - want)
+            worst = max(worst, float(d.max()))
+            bad = ~np.isclose(got, want, **DP_FP32_TOL)
+            canc = g0 <= DP_CANCELLED * g0.max()
+            outside += int((bad & ~canc).sum())
+            cancelled += int((bad & canc).sum())
+            n += got.size
+        bound = 2 * TRAIN_OPT["lr"] * DP_GLOO_STEPS
+        held = {"max_abs_diff": worst, "bf16_bound": bound,
+                "fp32_outside": outside, "fp32_cancelled": cancelled,
+                "elements": n, "loss_rel": loss_rel, "grad_rel": grad_rel,
+                "control_loss_rel": control[0],
+                "control_grad_rel": control[1]}
+        if worst > bound:
+            raise AssertionError(
+                f"dp train (b): parameters after {DP_GLOO_STEPS} steps "
+                f"{worst} from the single-process run's, above 2 lr x "
+                f"steps = {bound}")
+        del ref
+
+    # the restart: train() itself, from the same weights and stream
+    every, lost = DP_RESTART
+    sim = FailureSim(fail_at=[lost])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cut = ttrain.train(cfg, steps=DP_GLOO_STEPS, batch=TRAIN_SHAPE[0],
+                       seq=TRAIN_SHAPE[1], opt_cfg=AdamWConfig(**TRAIN_OPT),
+                       seed=seed, log_every=0,
+                       ckpt_dir=str(Path(out) / "dp_ckpt"),
+                       save_every=every, failure_sim=sim, variant="dponly")
+    restart_s = time.perf_counter() - t0
+    run = lost + DP_GLOO_STEPS - lost // every * every
+    restart_counts = ops.launch_counts()
+    want_losses = losses[:lost] + losses[lost // every * every:]
+    cn = dict(cut["params"].named_parameters())
+    diff = [n for n, p in model.named_parameters()
+            if not torch.equal(cn[n], p)
+            or not torch.equal(cut["opt_state"].m[n], ost.m[n])
+            or not torch.equal(cut["opt_state"].v[n], ost.v[n])]
+    if sim.failures != 1 or cut["losses"] != want_losses or diff \
+            or restart_counts["flash"] != 2 * run * cfg.n_layers \
+            or restart_counts["flash_bwd"] != run * cfg.n_layers:
+        raise AssertionError(
+            f"dp train (b) rank {rank}: the restart ({sim.failures} "
+            f"failures, {len(cut['losses'])} steps, {len(diff)} leaves "
+            f"differ, launches {restart_counts}) is not the uninterrupted "
+            "run")
+    (Path(out) / f"dp_gloo{rank}.json").write_text(json.dumps({
+        "ms": ms, "comm_ms": comm_ms, "losses": losses, "peak": peak,
+        "census": census, "save_extra": save_extra,
+        "save_chunk": ttrain._SAVE_CHUNK,
+        "launches": step_counts, "held": held, "restart_s": restart_s,
+        "restart_steps": run, "moment_bytes": plan.moment_bytes(),
+        "full_moment_bytes": plan.full_moment_bytes()}))
+
+
+def phase_train_dp(seed: int):
+    """Data-parallel training through ``make_sharded_train_step(variant=
+    "dponly")`` at SmolLM-135M's full width and depth, with ``TRAIN_OPT``
+    and a global batch of ``TRAIN_SHAPE``: (a) a world of
+    ``torch.cuda.device_count()`` NCCL ranks, ``DP_NCCL_STEPS`` steps, at
+    one rank bitwise the single-process step; (b) two gloo ranks on the
+    one card (``TRAIN_SHAPE[0] // 2`` sequences each), ``DP_GLOO_STEPS``
+    steps: ranks bitwise equal, ZeRO-1 bitwise the unsharded update,
+    the losses, the first gradient and the parameters against the
+    single-process run (the first two shown to refuse a planted fault),
+    flash and flash_bwd 2 x 30 and 30 launches a step on each rank, a
+    checkpoint's moment gather bitwise, a checkpointed restart bitwise.
+    Returns (flash launches, flash_bwd launches) by run and rank."""
+    import tempfile
+    import torch
+    from repro_torch.runtime import run_world
+    n = torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = run_world("chip_smoke:train_dp_nccl_rank", n,
+                         device_type="cuda", workdir=Path(tmp) / "nccl",
+                         args=(tmp, seed), extra_paths=[str(ROOT)],
+                         timeout_s=600)
+        print(outs[0], end="")
+        a = json.loads((Path(tmp) / "dp_nccl.json").read_text())
+        c = a["census"]
+        print(f"dp train (a): world of {n} NCCL rank(s), "
+              f"{DP_NCCL_STEPS} steps of {TRAIN_SHAPE[0]} x "
+              f"{TRAIN_SHAPE[1]} tokens"
+              + (", each bitwise the single-process step (params, m, v, "
+                 "loss, grad norm, lr)" if n == 1 else "")
+              + "; step ms " + " ".join(f"{t:.1f}" for t in a["dp_ms"])
+              + " against the single-process step's "
+              + " ".join(f"{t:.1f}" for t in a["single_ms"][:DP_NCCL_STEPS])
+              + f"; peak {a['peak'] / 1e9:.2f} GB; a step's collectives: "
+              f"{c['all_reduces']} all-reduces ({c['reduce_elems']:,} "
+              f"elements), {c['all_gathers']} all-gather "
+              f"({c['gather_elems']:,} elements sent), "
+              f"{c['wire_bytes']:,} bytes sent by a rank, {c['dtypes']}; "
+              f"device busy a profiled step {a['busy']:.1f} ms (the "
+              f"single-process step's {a['busy_single']:.1f}); "
+              f"{time.perf_counter() - t0:.1f} s with the ranks' start "
+              f"and {DP_GLOO_STEPS} single-process steps for (b)")
+        t0 = time.perf_counter()
+        run_world("chip_smoke:train_dp_gloo_rank", 2, device_type="cuda",
+                  backend="gloo", local_ranks=[0, 0],
+                  workdir=Path(tmp) / "gloo", args=(tmp, seed),
+                  extra_paths=[str(ROOT)], timeout_s=900)
+        b = [json.loads((Path(tmp) / f"dp_gloo{r}.json").read_text())
+             for r in range(2)]
+    h, c = b[0]["held"], b[0]["census"]
+    med = [statistics.median(r["ms"][1:]) for r in b]
+    print(f"dp train (b): 2 gloo ranks on one card, {TRAIN_SHAPE[0] // 2} x "
+          f"{TRAIN_SHAPE[1]} tokens each, {DP_GLOO_STEPS} steps: ranks "
+          "bitwise equal after every step, ZeRO-1 bitwise the unsharded "
+          "adamw_update of the same all-reduced gradients; step ms rank 0 "
+          + " ".join(f"{t:.1f}" for t in b[0]["ms"]) + ", rank 1 "
+          + " ".join(f"{t:.1f}" for t in b[1]["ms"])
+          + f" (medians after the first {med[0]:.1f}, {med[1]:.1f}; of "
+          "which in the collectives, host clock around each: rank 0 "
+          + " ".join(f"{t:.1f}" for t in b[0]["comm_ms"]) + "); peak "
+          f"{b[0]['peak'] / 1e9:.2f} and {b[1]['peak'] / 1e9:.2f} GB; "
+          f"moments {b[0]['moment_bytes'] / 1e9:.3f} GB a rank of "
+          f"{b[0]['full_moment_bytes'] / 1e9:.3f}; a step's collectives: "
+          f"{c['all_reduces']} all-reduces ({c['reduce_elems']:,} "
+          f"elements), {c['all_gathers']} all-gather "
+          f"({c['gather_elems']:,} elements sent), {c['wire_bytes']:,} "
+          f"bytes sent by a rank, {c['dtypes']}; losses "
+          + " ".join(f"{x:.4f}" for x in b[0]["losses"]))
+    print(f"dp train (b): against the single-process run: each step's "
+          "global loss rel diff " + " ".join(f"{x:.3e}" for x in
+                                             h["loss_rel"])
+          + f" (limit {DP_LOSS_RTOL}), the first all-reduced gradient's "
+          f"relative norm diff {h['grad_rel']:.3e} (limit {DP_GRAD_REL}); "
+          "the planted fault (rank 1's rows dropped before the flat "
+          f"all-reduce) refused by both: loss {h['control_loss_rel']:.3e}, "
+          f"gradient {h['control_grad_rel']:.3e}")
+    print(f"dp train (b): parameters after {DP_GLOO_STEPS} steps: max "
+          f"|diff| {h['max_abs_diff']:.3e} (held within 2 lr x steps = "
+          f"{h['bf16_bound']:.1e}, test_torch_train.py's rule for bf16, "
+          "the config's compute dtype); outside "
+          f"FP32_TOL {h['fp32_outside']:,} of {h['elements']:,} elements "
+          f"besides {h['fp32_cancelled']:,} cancelled ones (first gradient "
+          f"below 2^-16 of its leaf's largest)")
+    print(f"dp train (b): a checkpoint's gather of the moments to rank 0's "
+          "host bitwise the unsharded moments, adding "
+          f"{b[0]['save_extra'] / 1e6:.1f} and "
+          f"{b[1]['save_extra'] / 1e6:.1f} MB to the ranks' device memory "
+          f"(chunks of {b[0]['save_chunk']:,} elements)")
+    print(f"dp train (b): train(variant='dponly') with a checkpoint every "
+          f"{DP_RESTART[0]} steps and a lost device at step {DP_RESTART[1]}"
+          f" ({b[0]['restart_steps']} steps run) ends on the uninterrupted "
+          f"run's bits on both ranks, {b[0]['restart_s']:.1f} s; "
+          f"(b) {time.perf_counter() - t0:.1f} s with the ranks' start")
+    print(f"dp train: phase {time.perf_counter() - t_phase:.1f} s")
+    launches = {}
+    for k in ("flash", "flash_bwd"):
+        launches[k] = {
+            "nccl_rank0": sum(x[k] for x in a["launches"]),
+            "nccl_steps": DP_NCCL_STEPS,
+            "gloo_ranks": [sum(x[k] for x in r["launches"]) for r in b],
+            "gloo_steps": DP_GLOO_STEPS,
+            "per_step_per_rank": a["launches"][0][k]}
+    return (launches["flash"], launches["flash_bwd"],
+            {"step_ms_gloo": med, "step_ms_nccl": a["dp_ms"],
+             "single_ms": a["single_ms"], "peak_gb": [r["peak"] / 1e9
+                                                      for r in b]})
+
+
 # MLA training: DeepSeek-V2-Lite at full width, its depth cut to the
 # dense prologue layer and two MLA+MoE layers (1,670,131,712 parameters,
 # 26.72 GB at 16 bytes each: fp32 master, gradient, two moments); 10
@@ -5907,6 +6418,16 @@ def main(argv=None) -> int:
     flash["note"] = ("on the training path both designs also write each "
                      "row's log-sum-exp for flash_bwd; launches count the "
                      "lm phase, train_launches the train phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    header("== train dp: SmolLM-135M through make_sharded_train_step("
+           "variant='dponly'), NCCL ranks and two gloo ranks on one card, "
+           "restart")
+    flash["dp_train_launches"], bwd["dp_train_launches"], dp = \
+        phase_train_dp(args.seed)
+    bwd["dp_train"] = dp
+    flash["note"] += (", dp_train_launches the train dp phase's (per rank: "
+                      "the NCCL world's rank 0 and each gloo rank)")
     gc.collect()
     torch.cuda.empty_cache()
     header("== deepseek: the two-width flash, DeepSeek-V2-Lite forward, "

@@ -7,10 +7,14 @@ Usage::
     python -m repro_torch.analysis --rules timing-outside-obs
     python -m repro_torch.analysis --json           # machine-readable
     python -m repro_torch.analysis --list-rules
+    python -m repro_torch.analysis --obs DIR        # schema-audit the
+                                                    # obs JSONs in DIR
 
-The exit status is 0 with no findings and 1 otherwise.  The reference's
-other passes (``--contracts``, ``--obs``, ``--kernels``) audit the XLA
-program and the Pallas kernels, and have no counterpart here.
+The exit status is 0 with no findings and 1 otherwise.  ``--obs`` is
+the reference's schema audit of trace and metrics exports
+(``obsschema``); given alone it skips the lint pass.  The reference's
+other passes (``--contracts``, ``--kernels``) audit the XLA program
+and the Pallas kernels, and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import sys
 from pathlib import Path
 
 from . import invariants
+from .obsschema import obs_schema_findings
 
 
 def main(argv=None) -> int:
@@ -33,6 +38,10 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--rules", default="all",
         help="comma-separated rule ids, or 'all' (default)")
+    ap.add_argument(
+        "--obs", metavar="DIR", type=Path, default=None,
+        help="schema-audit the repro_torch.obs trace/metrics JSONs in "
+             "DIR (given alone, skips the lint pass)")
     ap.add_argument(
         "--json", action="store_true",
         help="emit findings as one JSON object on stdout "
@@ -53,19 +62,33 @@ def main(argv=None) -> int:
     except ValueError as e:
         ap.error(str(e))
 
-    findings = invariants.lint_paths(args.paths or None, rules)
+    findings = []
+    if args.paths or args.obs is None:
+        findings = invariants.lint_paths(args.paths or None, rules)
+    obs_msgs = []           # plain strings from the obs schema audit
+    if args.obs is not None:
+        jsons = sorted(args.obs.glob("*.json"))
+        if not jsons:
+            print(f"{args.obs}: no obs JSONs to audit", file=sys.stderr)
+        obs_msgs = [(j, msg) for j in jsons
+                    for msg in obs_schema_findings(j)]
+    n = len(findings) + len(obs_msgs)
     if args.json:
         recs = [{"path": f.path, "line": f.line, "rule": f.rule,
                  "message": f.message, "hint": f.hint}
                 for f in findings]
-        print(_json.dumps({"findings": recs, "count": len(findings)},
-                          indent=1))
+        recs += [{"path": str(j), "line": 0, "rule": "obs-schema",
+                  "message": msg,
+                  "hint": "re-export with repro_torch.obs.Recorder"}
+                 for j, msg in obs_msgs]
+        print(_json.dumps({"findings": recs, "count": n}, indent=1))
     else:
         for f in findings:
             print(f.format())
-    print(f"repro_torch.analysis: {len(findings)} finding(s)",
-          file=sys.stderr)
-    return 1 if findings else 0
+        for _, msg in obs_msgs:
+            print(msg)
+    print(f"repro_torch.analysis: {n} finding(s)", file=sys.stderr)
+    return 1 if n else 0
 
 
 if __name__ == "__main__":

@@ -267,24 +267,27 @@ class CheckpointManager:
             self.obs.gauge("ckpt.queue_depth", 0)
         self._raise_pending()
 
-    def restore_step(self, template: Any, step: int) -> Any:
-        """Load one saved step into the structure of ``template``."""
+    def restore_step(self, template: Any, step: int,
+                     device: Any = None) -> Any:
+        """Load one saved step into the structure of ``template``; its
+        tensors land on ``device``, by default the template's."""
         self.wait()
         t0 = self.obs.now()
         tree = load_pytree(template,
-                           os.path.join(self.dir, f"step_{step}"))
+                           os.path.join(self.dir, f"step_{step}"), device)
         self.obs.complete("ckpt/restore", t0, cat="ckpt", step=step)
         self.obs.observe("ckpt.restore_s", self.obs.now() - t0)
         self.obs.add("ckpt.restores")
         return tree
 
-    def restore_latest(self, template: Any):
-        """(step, tree) of the newest complete checkpoint, or None."""
+    def restore_latest(self, template: Any, device: Any = None):
+        """(step, tree) of the newest complete checkpoint, or None; the
+        tree's tensors land on ``device``, by default the template's."""
         self.wait()
         step = latest_step(self.dir)
         if step is None:
             return None
-        return step, self.restore_step(template, step)
+        return step, self.restore_step(template, step, device)
 
     def all_steps(self) -> List[int]:
         return list_steps(self.dir)

@@ -200,14 +200,15 @@ def init_model(cfg: ModelConfig, seed: int = 0, *,
     ``requires_grad=True`` (the values a serving model of the same seed
     holds before its cast); norm scales and biases, MoE routers and
     Mamba2's ``dt_bias``, ``A_log`` and ``ssm_D`` in fp32.  An
-    encoder-decoder config's encoder is drawn after the decoder.
-    Raises for a layer kind the port does not know, before drawing
-    anything."""
+    encoder-decoder config's encoder is drawn after the decoder.  On
+    ``device="meta"`` it allocates and draws nothing.  Raises for a
+    layer kind the port does not know, before drawing anything."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = held_dtype(cfg, train)
     init_n, _ = _norm(cfg)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(int(seed))
     tok = init_embed(gen, cfg, dev, dt)
     pro = [_init_layer(gen, cfg, spec, dev, dt) for spec in cfg.prologue]
     stack = [_init_layer(gen, cfg, spec, dev, dt)
@@ -514,7 +515,11 @@ def serve_step(params: Transformer, cfg: ModelConfig, caches: Params,
     x = embed_tokens(params.tok, cfg, _tokens(tokens, dev))
     pos = int(caches["pos"])
     if not cfg.use_rope:
-        x = x + sinusoid_pos(1, cfg.d_model, pos, device=dev)[None] \
+        # the reference slices its max_seq_len-row table with
+        # dynamic_slice_in_dim, which clamps the start: past the table a
+        # step adds its last row
+        row = min(pos, cfg.max_seq_len - 1)
+        x = x + sinusoid_pos(1, cfg.d_model, row, device=dev)[None] \
             .to(x.dtype)
     n_pro = len(caches["pro"])
     cross = [None] * n_pro + list(caches.get(

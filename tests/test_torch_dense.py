@@ -27,6 +27,7 @@ from repro.core import gibbs as jgibbs
 from repro_torch import random as trandom
 from repro_torch import core as tc
 from repro_torch.core import gibbs as tgibbs
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CHAIN_TOL = dict(rtol=1e-3, atol=1e-5)
 MOMENT_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -51,6 +51,7 @@ import pytest
 import torch
 
 from repro_torch.runtime import run_world
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 HERE = Path(__file__).resolve().parent
 

@@ -29,6 +29,7 @@ import pytest
 
 import test_torch_distributed as tdist
 from repro_torch.runtime import run_world
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 TOTAL, FAIL_AT = 4, 2
 SCENARIOS = (("probit_eager", "probit", "eager"),

@@ -33,6 +33,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash as tflash
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 PROBES = [(label, q, kv, dt, kw) for label, (q, kv, dt, kw)
           in tops.KERNELS["flash"].items()]

@@ -49,6 +49,7 @@ from repro_torch.kernels import flash_bwd as tflash_bwd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import layers as tL
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-7
 

@@ -27,6 +27,7 @@ from repro_torch import convert
 from repro_torch import core as tc
 from repro_torch import random as trandom
 from repro_torch.core import gibbs as tgibbs
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "..", "results",
                        "golden_chains.json")

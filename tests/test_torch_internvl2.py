@@ -28,7 +28,7 @@ from repro.models import forward as jforward
 from repro_torch.data import TokenStream
 from repro_torch.launch import serve as tserve
 from repro_torch.models import forward
-from test_torch_ssm import _one_thread  # noqa: F401 (autouse)
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "internvl2_2b"
 DTYPES = lm.DTYPES

@@ -19,6 +19,7 @@ import pytest
 from repro.analysis import invariants as ref_invariants
 from repro_torch.analysis import RULES, lint_paths, lint_source, resolve_rules
 from repro_torch.analysis import __main__ as cli
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

@@ -45,7 +45,7 @@ from repro.models import layers as jL
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.models import forward
 from repro_torch.models import layers as tL
-from test_torch_ssm import _one_thread  # noqa: F401 (autouse)
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "jamba_v01_52b"
 DTYPES = lm.DTYPES

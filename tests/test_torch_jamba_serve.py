@@ -20,7 +20,7 @@ from repro.models import init_serve_cache as jcache, serve_step as jstep
 from repro_torch.launch import serve as tserve
 from repro_torch.models import forward, init_serve_cache, serve_step
 from test_torch_jamba import ATTN, WINDOW, _close, _models
-from test_torch_ssm import _one_thread  # noqa: F401 (autouse)
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 
 def test_windowed_serve_steps_past_the_wrap_match_reference():

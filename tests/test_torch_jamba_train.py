@@ -33,7 +33,7 @@ from repro.models import loss_fn as jloss_fn
 from repro_torch.convert import reference_leaf
 from repro_torch.models import loss_fn
 from test_torch_jamba import ATTN, WINDOW, _models
-from test_torch_ssm import _one_thread  # noqa: F401 (autouse)
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 
 @functools.lru_cache(maxsize=None)

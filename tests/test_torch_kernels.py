@@ -22,6 +22,7 @@ from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sddmm as tsddmm
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 GRAM_TOL = dict(rtol=1e-5, atol=1e-4)
 SDDMM_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -45,15 +45,17 @@ from repro_torch.models import (LayerSpec, forward, init_model,
                                 init_serve_cache, param_count, serve_step)
 from repro_torch.models import layers as tL
 from repro_torch.models import transformer as tT
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 DENSE = ["smollm_135m", "qwen3_4b", "yi_6b"]
 DTYPES = ["float32", "bfloat16"]
-# whole models: the dense decoders, Mamba2 (attention-free), InternVL2
+# whole models: the dense decoders (Qwen2.5's with q/k/v biases drawn
+# away from 0, see ``_models``), Mamba2 (attention-free), InternVL2
 # (patch embeddings prepended), Whisper (encoder-decoder) and Jamba's
 # hybrid period (Mamba2, attention, MoE); Jamba's bf16 forward is held
 # in test_torch_jamba.py, where its MoE's near-tie flips are explained
-LM_CASES = [(a, dt) for a in DENSE + ["mamba2_130m", "internvl2_2b",
-                                      "whisper_medium"]
+LM_CASES = [(a, dt) for a in DENSE + ["qwen25_32b", "mamba2_130m",
+                                      "internvl2_2b", "whisper_medium"]
             for dt in DTYPES] + [("jamba_v01_52b", "float32")]
 SCALED = {"jamba_v01_52b"}      # held at SCALED_ATOL in fp32
 FP32_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -73,10 +75,36 @@ def _cfgs(arch, dtype):
             dataclasses.replace(tcfg.get_smoke(arch), dtype=dtype))
 
 
+# sd of the q/k/v biases drawn into a ``qkv_bias`` config's reference
+# tree: the reference initialises them to 0, where a dropped or
+# misplaced bias would not show
+QKV_BIAS_SD = 0.25
+
+
+def _drawn_qkv_biases(params):
+    """``params`` with every q/k/v projection bias drawn from
+    N(0, QKV_BIAS_SD^2) (numpy, seed 34)."""
+    rng = np.random.default_rng(34)
+
+    def leaf(path, x):
+        keys = [getattr(k, "key", None) for k in path]
+        if keys[-1] == "bias" and keys[-2] in ("wq", "wk", "wv"):
+            return jnp.asarray(rng.normal(scale=QKV_BIAS_SD, size=x.shape),
+                               x.dtype)
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
 def _models(arch, dtype):
+    """(reference cfg, port cfg, reference params, port model) from the
+    reference's ``init_model(PRNGKey(0))``; a ``qkv_bias`` config's
+    q/k/v biases are drawn away from 0 first (``_drawn_qkv_biases``)."""
     jc, tc = _cfgs(arch, dtype)
     with jax.threefry_partitionable(False):
         params = jinit(jax.random.PRNGKey(0), jc)
+    if jc.qkv_bias:
+        params = _drawn_qkv_biases(params)
     tree = jax.tree.map(np.asarray, params)
     return jc, tc, params, lm_params_from_reference(tree, tc, device="cpu")
 

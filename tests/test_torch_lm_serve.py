@@ -27,6 +27,7 @@ from repro_torch import configs as tcfg
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.data import TokenStream
 from repro_torch.launch import serve as tserve
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "qwen3_4b"
 

@@ -33,6 +33,7 @@ from repro_torch import core as tc
 from repro_torch.core import gibbs as tgibbs
 from repro_torch.core import priors as tpriors
 from repro_torch.launch.serve import RecommendServer
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CHAIN_TOL = dict(rtol=1e-3, atol=1e-5)
 HYPER_TOL = dict(rtol=1e-4, atol=1e-5)

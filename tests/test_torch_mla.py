@@ -50,6 +50,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import init_serve_cache, loss_fn, serve_step
 from repro_torch.models import mla as tmla
 from repro_torch.models.layers import cdtype
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "deepseek_v2_lite_16b"
 DTYPES = lm.DTYPES

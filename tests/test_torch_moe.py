@@ -59,6 +59,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import (forward, init_model, init_serve_cache,
                                 loss_fn, serve_step)
 from repro_torch.models import moe as tmoe
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "grok_1_314b"
 DTYPES = lm.DTYPES

@@ -22,6 +22,7 @@ import torch
 import repro_torch.core as tc
 from repro_torch.data import chembl_like
 from repro_torch.obs import Recorder
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 
 def _train(tmp_path, sub, recorder=None, chains=1, nsamples=4, **kw):

@@ -16,6 +16,7 @@ from repro.core import priors as jpriors
 from repro_torch import random as trandom
 from repro_torch.core import noise as tnoise
 from repro_torch.core import priors as tpriors
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

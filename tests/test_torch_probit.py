@@ -47,6 +47,7 @@ from repro_torch.core import gibbs as tgibbs
 from repro_torch.core import noise as tnoise
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "..", "results",
                        "golden_chains.json")

@@ -17,6 +17,7 @@ import torch
 from repro.core import gibbs as jgibbs
 from repro_torch import random as trandom
 from repro_torch.core import gibbs as tgibbs
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 11, 12345, -3]
 # normal(): erf_inv's log1p differs by an ulp between XLA and torch; the

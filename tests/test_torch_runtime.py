@@ -19,6 +19,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.runtime import (ElasticMesh, FailureSim, StragglerMonitor,
                                  best_mesh_shape, run_with_restarts,
                                  run_world)
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 HERE = str(Path(__file__).resolve().parent)
 

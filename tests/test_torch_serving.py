@@ -27,6 +27,7 @@ from repro_torch.core import predict as tpredict
 from repro_torch.kernels import ops as tops
 from repro_torch.launch.serve import RecommendServer, SlotServer
 from repro_torch.obs import Histogram, Recorder, percentile_summary
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ import pytest
 
 import repro.core as jc
 import repro_torch.core as tc
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CHAIN_TOL = dict(rtol=1e-3, atol=1e-5)
 

@@ -33,6 +33,7 @@ from repro.data.synthetic import chembl_like as j_chembl_like
 from repro_torch.core import gibbs as tgibbs
 from repro_torch.core import predict as tpredict
 from repro_torch.data import chembl_like as t_chembl_like
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CHAIN_TOL = dict(rtol=1e-3, atol=1e-5)
 # a reload replays the in-session accumulator over exact copies of the

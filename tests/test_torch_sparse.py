@@ -5,6 +5,7 @@ import pytest
 
 from repro.core import sparse as jsparse
 from repro_torch.core import sparse as tsparse
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 FIELDS = ("coo_i", "coo_j", "coo_v", "coo_mask", "coo_rpos", "coo_cpos")
 

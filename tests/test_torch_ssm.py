@@ -42,21 +42,10 @@ from repro_torch.models import (for_serving, forward, init_model,
                                 init_serve_cache, serve_step)
 from repro_torch.models import ssm as tssm
 from repro_torch.models.layers import Dense, RMSNorm, cdtype
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "mamba2_130m"
 DTYPES = lm.DTYPES
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One PyTorch intra-op thread a test: with a thread a core in each
-    of several pytest workers the CPU is oversubscribed, and a small
-    training loop ran 30 times slower than alone.  The tolerances below
-    do not depend on the thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _dt(dtype):

@@ -47,7 +47,7 @@ from repro_torch.data import TokenStream, make_lm_batch
 from repro_torch.launch.train import make_train_step, train as ttrain
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import FailureSim
-from test_torch_ssm import _one_thread  # noqa: F401 (autouse)
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "mamba2_130m"
 DTYPES = train.DTYPES

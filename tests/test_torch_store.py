@@ -32,6 +32,7 @@ from repro.checkpoint import ckpt as jckpt
 from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.core import modelspec as tspec
 from repro_torch.kernels import ref as tref
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 PRED_TOL = dict(rtol=1e-5, atol=1e-6)
 N_ROWS, N_COLS = 40, 30

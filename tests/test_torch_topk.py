@@ -26,6 +26,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import topk_score as ttopk
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 PROBES = list(tops.KERNELS["topk_score"].items())
 # shapes the card refused before the kernel streamed a user's rows in

@@ -69,6 +69,7 @@ from repro_torch.models import for_serving, loss_fn
 from repro_torch.optim import (AdamWConfig, OptState, adamw_init,
                                adamw_update, cosine_schedule)
 from repro_torch.runtime import FailureSim
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 DENSE = ["smollm_135m", "qwen3_4b", "yi_6b"]
 DTYPES = ["float32", "bfloat16"]

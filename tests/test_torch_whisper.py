@@ -32,7 +32,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import (encode, for_serving, forward,
                                 init_serve_cache, serve_step)
 from repro_torch.models import layers as tL
-from test_torch_ssm import _one_thread  # noqa: F401 (autouse)
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "whisper_medium"
 DTYPES = lm.DTYPES
@@ -187,6 +187,32 @@ def test_twelve_serve_steps_match_reference(dtype):
         for name in ("k", "v"):
             lm._close(tc_["stack_cross"][i][name],
                       jc_["stack_cross"]["l0"][name][i], dtype)
+
+
+@pytest.mark.parametrize("past", [-1, 0, 5], ids=["last_row", "at_max",
+                                                  "past_max"])
+def test_decode_step_past_max_seq_len_matches_reference(past):
+    """One fp32 decode step at ``pos = max_seq_len + past`` from caches
+    that ``init_serve_cache(..., prefilled=pos)`` builds in both packages
+    (a 16-row self-attention cache, whose write both clamp to its last
+    row, and the reference's encoder output as the cross K/V), held at
+    ``FP32_TOL``.  The reference slices its ``max_seq_len``-row sinusoid
+    table with ``dynamic_slice_in_dim``, which clamps the start: from
+    ``max_seq_len`` on, every step adds the table's last row, and so
+    does the port.  The reference's ``forward`` does not clamp: it
+    builds ``sinusoid_pos(x.shape[1], ...)`` rows, so past
+    ``max_seq_len`` decode and forward differ in both packages."""
+    jc, tc, params, model = lm._models(ARCH, "float32")
+    pos = jc.max_seq_len + past
+    enc = jencode(params, jc, jnp.asarray(_frames(jc, 2)))
+    jc_ = jcache(params, jc, 2, 16, enc_out=enc, prefilled=pos)
+    tc_ = init_serve_cache(model, tc, 2, 16, enc_out=_t(enc, "float32"),
+                           prefilled=pos)
+    toks = np.random.default_rng(33).integers(0, jc.vocab_size, (2, 1))
+    want, jc_ = jstep(params, jc, jc_, jnp.asarray(toks))
+    got, tc_ = serve_step(model, tc, tc_, toks)
+    lm._close(got, want, "float32", argmax=True)
+    assert tc_["pos"] == int(jc_["pos"]) == pos + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -47,7 +47,7 @@ from repro_torch.launch.train import make_train_step, train as ttrain
 from repro_torch.models import loss_fn
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import FailureSim
-from test_torch_ssm import _one_thread  # noqa: F401 (autouse)
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 ARCH = "whisper_medium"
 DTYPES = train.DTYPES

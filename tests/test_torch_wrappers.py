@@ -28,6 +28,7 @@ import repro.core as jc
 import repro_torch.core as tc
 from repro.data.synthetic import chembl_like as j_chembl_like
 from repro_torch.data import chembl_like as t_chembl_like
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CHAIN_TOL = dict(rtol=1e-3, atol=1e-5)
 GOLDEN = Path(__file__).resolve().parents[1] / "results" / \
